@@ -26,6 +26,11 @@ def pytest_configure(config):
         "markers", "slow: nightly-style tests (property sweeps that run "
                    "the engine repeatedly); excluded by scripts/tier1.sh "
                    "unless invoked with --full")
+    # Tests of the PyTorch port's Hopper kernels: they decide inside the
+    # test whether there is a CUDA card and skip without one; on a
+    # machine with one: python -m pytest -m gpu tests/test_torch_gpu.py
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips without one)")
 
 
 @pytest.fixture(scope="session")
