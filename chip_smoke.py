@@ -8,19 +8,37 @@ on past a failure:
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
 2. the kernel build: every ``src/repro_torch/kernels/csrc/*.cu`` compiled
-   for sm_90a from the checkout, timed;
-3. the kernels: relax, segment_combine and deliver_fused, each against
-   its plain PyTorch version on the card at the main path's shapes, for
-   min and add, with padding and +inf entries in the inputs; each timed
-   (CUDA events) beside its byte bound, its plain version and, where one
-   PyTorch call computes the same function, that call;
-4. the main path: ``apps.bfs`` on RMAT-22 over one 64x64-tile package
-   (4096 tiles) with the Table-II write-through proxy, through the
-   kernels; values checked against scipy's BFS hop distances, each
-   kernel's launch count against the superstep count;
-5. the same run with ``backend="torch"``, which must agree bit for bit;
-6. one JSON line of per-kernel numbers, then the last line,
-   ``{"ok": true, "device": {...}}``.
+   for sm_90a from the checkout, one ``nvcc`` each, all started together;
+3. the workloads: RMAT-22 (made once, shared by every RMAT-22 phase) with
+   its Histogram input, RMAT-18 and RMAT-14;
+4. the kernels, each against its plain PyTorch version on the card:
+   relax, segment_combine and deliver_fused at the BFS path's shapes for
+   min and add, and in their add form at the write-back flush wave's
+   shapes; histogram_bin on the Histogram input (bitwise); spmv_bcsr on
+   RMAT-14 in 128x128 BCSR (rtol/atol 1e-4).  Each timed (CUDA events,
+   inputs rotated past L2) beside its bound, its plain version and, where
+   one PyTorch call computes the same function, that call;
+5. BFS on RMAT-22 over one 64x64-tile package (4096 tiles) with the
+   Table-II write-through proxy, backend ``kernels``; values checked
+   against scipy's BFS hop distances; a ``torch.profiler`` window;
+6. SpMV (write-back P$, selective 2-level cascade) and Histogram
+   (write-back P$) on RMAT-22 over 4096 tiles, backend ``kernels``;
+   checked against scipy's ``A @ x`` and ``np.bincount``; a profiler
+   window of SpMV;
+7. the kernel entry points ``ops.histogram`` on the Histogram input
+   (bitwise equal to the engine's counts and ``np.bincount``) and
+   ``ops.spmv`` on RMAT-14 (against scipy and the engine's SpMV);
+8. backend agreement at RMAT-18: BFS, SpMV, Histogram and PageRank
+   (epochs=3) with ``kernels`` and with ``torch``: counters, trace,
+   supersteps and ``time_s`` exact, values bitwise (BFS, Histogram) or
+   within rtol 1e-4 / atol 1e-5 (SpMV, PageRank); PageRank against its
+   oracle;
+9. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
+   the last line, ``{"ok": true, "device": {...}}``.
+
+Each main-path run (phases 5-7) sets every kernel's launch count to 0
+just before it and reads the counts just after; a kernel on the path
+that did not launch at least once per superstep fails the run.
 
 Without a CUDA device, or without the repo's ``src/repro_torch`` beside
 it, the script prints no result and exits nonzero.
@@ -44,8 +62,15 @@ L2_BYTES = 50 * 2**20          # H100 L2 cache
 # factor 16, seed 42) on one 64x64-tile package
 SCALE, EDGE_FACTOR, SEED = 22, 16, 42
 TILES, OQ_CAP = 4096, 32
+AGREE_SCALE = 18               # backend agreement and PageRank
+SPMV_KERNEL_SCALE = 14         # ops.spmv: ELL-padded BCSR densifies RMAT
+PAGERANK_EPOCHS = 3
 
 ADD_RTOL, ADD_ATOL = 1e-5, 1e-6   # f32 re-association of atomic adds
+SPMV_RTOL, SPMV_ATOL = 1e-4, 1e-4     # tests/test_kernels.py (spmv_bcsr)
+APP_RTOL, APP_ATOL = 1e-3, 1e-3       # tests/test_engine_apps.py (spmv)
+AGREE_RTOL, AGREE_ATOL = 1e-4, 1e-5   # tests/test_cascade.py
+PR_RTOL, PR_ATOL = 1e-4, 1e-7         # tests/test_engine_apps.py (pagerank)
 
 
 class SmokeFailure(Exception):
@@ -86,7 +111,10 @@ def time_cuda(fn, arg_sets, iters: int = 40) -> float:
 
 def copies(args, bytes_per_call: int):
     """Enough clones of ``args`` that cycling through them streams more
-    than twice the L2 cache."""
+    than twice the L2 cache (the inputs themselves when one call
+    already does)."""
+    if bytes_per_call >= 2 * L2_BYTES:
+        return [tuple(args)]
     n = max(2, math.ceil(2 * L2_BYTES / max(bytes_per_call, 1)))
     return [tuple(a.clone() if isinstance(a, torch.Tensor) else a
                   for a in args) for _ in range(n)]
@@ -117,11 +145,40 @@ def build() -> None:
     print(f"  build phase {time.perf_counter() - t0:.1f} s")
 
 
+def workloads() -> dict:
+    """The graphs every later phase shares, each made once."""
+    from repro_torch.core.tilegrid import square_grid
+    from repro_torch.graph import rmat_edges
+    from repro_torch.graph.rmat import histogram_input
+    print("== 3. workloads")
+    wl = dict(grid=square_grid(TILES))
+    for scale in (SCALE, AGREE_SCALE, SPMV_KERNEL_SCALE):
+        t0 = time.perf_counter()
+        g = rmat_edges(scale, edge_factor=EDGE_FACTOR, seed=SEED)
+        wl[scale] = g
+        print(f"  RMAT-{scale}: {g.n_rows} vertices, {g.nnz} edges, made "
+              f"in {time.perf_counter() - t0:.1f} s")
+    g = wl[SCALE]
+    wl["bins"] = g.n_rows // 8
+    wl["histo"] = histogram_input(g, wl["bins"])
+    wl["x"] = np.random.default_rng(SEED).random(g.n_cols).astype(np.float32)
+    print(f"  Histogram input: {wl['histo'].shape[0]} elements into "
+          f"{wl['bins']} bins; SpMV x from seed {SEED}; "
+          f"{wl['grid'].describe()}; oq_cap {OQ_CAP}")
+    return wl
+
+
+# ------------------------------------------------------------- 4. kernels
 def kernel_inputs(gen, dev):
-    """Main-path shapes: Nd mailbox entries, R = T*oq_cap P$ records,
-    2R delivery records (the forwarded leg + the masked eviction leg)."""
+    """Synthetic inputs at the engine's shapes.  BFS path (min and add):
+    Nd mailbox entries, R = T*oq_cap P$ records, 2R delivery records (the
+    forwarded leg + the eviction leg).  Write-back flush wave (add): the
+    T*S P$ entries of SpMV's cascade levels into as many segments, and
+    Histogram's flush of T*S records into its Nd = T*Cd mailbox."""
     nd = (1 << SCALE)          # chunk_dst * T = 2**22 at RMAT-22
     r = TILES * OQ_CAP
+    ts = TILES * 512           # T * P$ slots
+    nd_histo = TILES * -(-(nd // 8) // TILES)
 
     def rand(n):
         return torch.rand(n, generator=gen, device=dev)
@@ -129,132 +186,223 @@ def kernel_inputs(gen, dev):
     def with_inf(x, p):
         return torch.where(rand(x.numel()) < p, float("inf"), x)
 
+    def sorted_gids(n, live_share):
+        # segment ids as _lex_group hands them over: sorted group ids,
+        # masked records (-1) at the end
+        live = int(live_share * n)
+        gid = torch.sort(torch.randint(0, live, (live,), generator=gen,
+                                       device=dev)).values.to(torch.int32)
+        return torch.cat([gid, torch.full((n - live,), -1, dtype=torch.int32,
+                                          device=dev)])
+
+    def scattered(n, nseg, live_share):
+        return torch.where(rand(n) < live_share,
+                           torch.randint(0, nseg, (n,), generator=gen,
+                                         device=dev), -1).to(torch.int32)
+
     relax_in = (with_inf(rand(nd) * 64, 0.5), with_inf(rand(nd) * 64, 0.3),
                 rand(nd) < 0.5)
-    # segment ids as the engine feeds them: sorted group ids, masked
-    # records (-1) at the end; plus an unsorted stream with interleaved
-    # padding, which the kernel's contract also covers
-    live = int(0.6 * r)
-    gid = torch.sort(torch.randint(0, live, (live,), generator=gen,
-                                   device=dev)).values.to(torch.int32)
-    seg_sorted = torch.cat([gid, torch.full((r - live,), -1,
-                                            dtype=torch.int32, device=dev)])
-    seg_rand = torch.where(rand(r) < 0.3, -1,
-                           torch.randint(0, r, (r,), generator=gen,
-                                         device=dev)).to(torch.int32)
-    seg_val = rand(r) * 64
-    # delivery: the forwarded leg (60% live mailbox indices), then the
-    # all-masked eviction leg of the write-through P$
-    fwd = torch.where(rand(r) < 0.6,
-                      torch.randint(0, nd, (r,), generator=gen, device=dev),
-                      -1).to(torch.int32)
-    dseg = torch.cat([fwd, torch.full((r,), -1, dtype=torch.int32,
-                                      device=dev)])
-    dval = rand(2 * r) * 64
-    mail = with_inf(rand(nd) * 64, 0.5)
-    return dict(nd=nd, r=r, relax=relax_in, seg_sorted=seg_sorted,
-                seg_rand=seg_rand, seg_val=seg_val, dseg=dseg, dval=dval,
-                mail=mail)
+    dseg = torch.cat([scattered(r, nd, 0.6),
+                      torch.full((r,), -1, dtype=torch.int32, device=dev)])
+    return dict(
+        relax=relax_in,
+        relax_add=(rand(nd) * 64, rand(nd) * 64, rand(nd) < 0.5),
+        seg=(sorted_gids(r, 0.6), rand(r) * 64, r),
+        seg_rand=(scattered(r, r, 0.7), rand(r) * 64, r),
+        seg_add=(sorted_gids(ts, 0.8), rand(ts) * 64, ts),
+        deliver=(dseg, rand(2 * r) * 64, with_inf(rand(nd) * 64, 0.5)),
+        deliver_add=(scattered(ts, nd_histo, 0.9), rand(ts) * 64,
+                     rand(nd_histo) * 64))
 
 
-def kernel_phase(dev) -> list:
+def _bytes_scatter(seg, n_out_bytes):
+    """Bytes a scatter must move: every 4 B segment id, the 4 B value of
+    each live (seg >= 0) record only, and the outputs once."""
+    return 4 * seg.numel() + 4 * int((seg >= 0).sum()) + n_out_bytes
+
+
+def _agree(name, bitwise, got, want, rtol, atol):
+    """Hold a kernel's outputs against its plain version's: bitwise
+    (``bitwise``, and every non-f32 output) or within rtol / atol."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        if bitwise or g.dtype != torch.float32:
+            require(torch.equal(g, w), f"{name} differs from its plain "
+                    f"version (max |err| {max_abs_err(g, w)})")
+        else:
+            require(torch.allclose(g, w, rtol=rtol, atol=atol),
+                    f"{name} outside tolerance "
+                    f"(max |err| {max_abs_err(g, w)})")
+    return max(max_abs_err(g.float(), w.float()) for g, w in zip(got, want))
+
+
+def _measure(name, combine, args, kernel, plain, nbytes, library=None,
+             rtol=ADD_RTOL, atol=ADD_ATOL, bitwise=None, what=""):
+    """Compare one kernel call with its plain version (bitwise for min,
+    or when ``bitwise``), then time both (and the library call) at these
+    inputs.  Returns the row's numbers."""
+    kw = {} if combine is None else dict(combine=combine)
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = _agree(f"{name}/{combine}",
+                 combine == "min" if bitwise is None else bitwise, got, want,
+                 rtol, atol)
+    sets = copies(args, nbytes)
+    ms = time_cuda(lambda *a: kernel(*a, **kw), sets)
+    plain_ms = time_cuda(lambda *a: plain(*a, **kw), sets)
+    lib_ms = time_cuda(*library) if library is not None else None
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  {name}[{combine or '-'}] {what}: ok (max |err| {err:g}); "
+          f"{ms:.4f} ms vs byte bound {bound_ms:.4f} ms "
+          f"({nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms, library "
+          f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=lib_ms)
+
+
+def kernel_phase(dev, wl) -> list:
     from repro_torch.kernels import deliver_fused as df
+    from repro_torch.kernels import histogram_bin as hb
+    from repro_torch.kernels import ops
     from repro_torch.kernels import relax_min as rx
     from repro_torch.kernels import segment_combine as sc
-    print("== 3. kernels vs plain versions on the card "
-          f"(min: bitwise; add: rtol {ADD_RTOL}, atol {ADD_ATOL}; "
-          "counts exact)")
+    from repro_torch.kernels import spmv_csr as sp
+    print("== 4. kernels vs plain versions on the card "
+          f"(min: bitwise; add: rtol {ADD_RTOL}, atol {ADD_ATOL}; counts "
+          f"exact; spmv rtol {SPMV_RTOL}, atol {SPMV_ATOL})")
+    t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     x = kernel_inputs(gen, dev)
-    nd, r = x["nd"], x["r"]
+    src = "src/repro_torch/kernels/csrc/"
     rows = []
 
-    def agree(name, combine, got, want):
-        for g, w in zip(got, want):
-            if combine == "min" or g.dtype != torch.float32:
-                require(torch.equal(g, w), f"{name}/{combine} differs from "
-                        f"its plain version (max |err| {max_abs_err(g, w)})")
-            else:
-                require(torch.allclose(g, w, rtol=ADD_RTOL, atol=ADD_ATOL),
-                        f"{name}/{combine} outside tolerance "
-                        f"(max |err| {max_abs_err(g, w)})")
-        return max(max_abs_err(g.float(), w.float()) for g, w in zip(got, want))
+    def row(name, source, replaces, main, add=None):
+        r = dict(name=name, route="cuda", source=src + source,
+                 replaces=replaces, launches=0, **main)
+        if add is not None:
+            r["add"] = add
+        rows.append(r)
 
-    def record(name, replaces, args, kernel, plain, nbytes, library=None):
-        err = {}
-        for combine in ("min", "add"):
-            got = kernel(*args, combine=combine)
-            want = plain(*args, combine=combine)
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            err[combine] = agree(name, combine, got, want)
-        sets = copies(args, nbytes)
-        ms = time_cuda(lambda *a: kernel(*a, combine="min"), sets)
-        plain_ms = time_cuda(lambda *a: plain(*a, combine="min"), sets)
-        lib_ms = time_cuda(*library) if library is not None else None
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        print(f"  {name}: ok (max |err| min {err['min']:g}, add "
-              f"{err['add']:g}); {ms:.4f} ms vs byte bound {bound_ms:.4f} ms "
-              f"({nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms, library "
-              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
-        rows.append(dict(
-            name=name, route="cuda",
-            source="src/repro_torch/kernels/csrc/engine_kernels.cu",
-            replaces=replaces, launches=0, max_abs_err=err["min"], ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-            library_ms=lib_ms))
+    # relax: bytes 14 per element (values, mail, flag read; values,
+    # improved written)
+    nd = x["relax"][0].numel()
+    main = _measure("relax", "min", x["relax"], rx.relax, rx.plain, 14 * nd,
+                    what=f"n {nd}")
+    _measure("relax", "add", x["relax"], rx.relax, rx.plain, 14 * nd,
+             what=f"n {nd} (BFS shapes)")
+    add = _measure("relax", "add", x["relax_add"], rx.relax, rx.plain,
+                   14 * nd, what=f"n {nd} (SpMV values)")
+    row("relax", "engine_kernels.cu", "src/repro/kernels/relax_min.py:32",
+        main, add)
 
-    record("relax", "src/repro/kernels/relax_min.py:32", x["relax"],
-           rx.relax, rx.plain, 14 * nd)
+    # segment_combine; the library call is one scatter_reduce_ (min) /
+    # index_add_ (add) into an identity-filled buffer with the padding
+    # sent to a spare slot
+    def lib_sets(seg, val, n, fill, nbytes):
+        safe = torch.where(seg >= 0, seg, n).long()
+        out = torch.full((n + 1,), fill, device=dev)
+        return copies((out, safe, val), nbytes)
 
-    # bytes the scatters must move: every segment id, the values of the
-    # live (seg >= 0) records only, and the outputs (and mailbox) once
-    live = int((x["seg_sorted"] >= 0).sum())
-    seg_bytes = 4 * r + 4 * live + 4 * r
-    # one PyTorch call of the same function: scatter_reduce_ amin into a
-    # +inf-filled buffer with the padding sent to a spare slot
-    safe = torch.where(x["seg_sorted"] >= 0, x["seg_sorted"], r).long()
-    lib_out = torch.full((r + 1,), float("inf"), device=dev)
-    lib_sets = copies((lib_out, safe, x["seg_val"]), seg_bytes)
-    record("segment_combine", "src/repro/kernels/segment_combine.py:55",
-           (x["seg_sorted"], x["seg_val"], r), sc.segment_combine, sc.plain,
-           seg_bytes,
-           library=(lambda o, i, v: o.scatter_reduce_(0, i, v, "amin"),
-                    lib_sets))
+    seg, val, r = x["seg"]
+    nbytes = _bytes_scatter(seg, 4 * r)
+    main = _measure("segment_combine", "min", x["seg"], sc.segment_combine,
+                    sc.plain, nbytes, what=f"{r} sorted records (P$)",
+                    library=(lambda o, i, v: o.scatter_reduce_(0, i, v,
+                                                              "amin"),
+                             lib_sets(seg, val, r, float("inf"), nbytes)))
     for combine in ("min", "add"):     # unsorted ids, padding interleaved
-        agree("segment_combine[unsorted]", combine,
-              (sc.segment_combine(x["seg_rand"], x["seg_val"], r, combine),),
-              (sc.plain(x["seg_rand"], x["seg_val"], r, combine),))
+        _agree(f"segment_combine[unsorted]/{combine}", combine == "min",
+               sc.segment_combine(*x["seg_rand"], combine),
+               sc.plain(*x["seg_rand"], combine), ADD_RTOL, ADD_ATOL)
+    _measure("segment_combine", "add", x["seg"], sc.segment_combine,
+             sc.plain, nbytes, what=f"{r} sorted records (P$)")
+    seg, val, ts = x["seg_add"]
+    nbytes = _bytes_scatter(seg, 4 * ts)
+    add = _measure("segment_combine", "add", x["seg_add"],
+                   sc.segment_combine, sc.plain, nbytes,
+                   what=f"{ts} records (flush wave, cascade level)",
+                   library=(lambda o, i, v: o.index_add_(0, i, v),
+                            lib_sets(seg, val, ts, 0.0, nbytes)))
+    row("segment_combine", "engine_kernels.cu",
+        "src/repro/kernels/segment_combine.py:55", main, add)
 
-    live = int((x["dseg"] >= 0).sum())
-    record("deliver_fused", "src/repro/kernels/deliver_fused.py:68",
-           (x["dseg"], x["dval"], x["mail"]), df.deliver_fused, df.plain,
-           4 * 2 * r + 4 * live + 12 * nd)
+    # deliver_fused: the mailbox read once, mailbox and counts written
+    dseg, dval, mail = x["deliver"]
+    nbytes = _bytes_scatter(dseg, 12 * mail.numel())
+    main = _measure("deliver_fused", "min", x["deliver"], df.deliver_fused,
+                    df.plain, nbytes, what=f"{dseg.numel()} records")
+    _measure("deliver_fused", "add", x["deliver"], df.deliver_fused,
+             df.plain, nbytes, what=f"{dseg.numel()} records")
+    dseg, dval, mail = x["deliver_add"]
+    add = _measure("deliver_fused", "add", x["deliver_add"],
+                   df.deliver_fused, df.plain,
+                   _bytes_scatter(dseg, 12 * mail.numel()),
+                   what=f"{dseg.numel()} records into {mail.numel()} "
+                        f"(Histogram flush wave)")
+    row("deliver_fused", "engine_kernels.cu",
+        "src/repro/kernels/deliver_fused.py:68", main, add)
+
+    # histogram_bin on the Histogram app's input: 4 B per id read, 4 B
+    # per bin written; the library call is torch.bincount (ids are all
+    # non-negative here)
+    idx = torch.from_numpy(wl["histo"]).to(dev)
+    bins = wl["bins"]
+    nbytes = 4 * idx.numel() + 4 * bins
+    main = _measure("histogram_bin", None, (idx, bins), hb.histogram_bin,
+                    hb.plain, nbytes, what=f"{idx.numel()} ids, {bins} bins",
+                    library=(lambda i, b: torch.bincount(i, minlength=b),
+                             copies((idx, bins), nbytes)), bitwise=True)
+    row("histogram_bin", "histogram_bin.cu",
+        "src/repro/kernels/histogram_bin.py:39", main)
+
+    # spmv_bcsr on RMAT-14 in 128x128 BCSR
+    g = wl[SPMV_KERNEL_SCALE]
+    t1 = time.perf_counter()
+    mat = ops.bcsr_from_csr(g.row_ptr, g.col_idx, g.weights,
+                            (g.n_rows, g.n_cols))
+    conv_s = time.perf_counter() - t1
+    print(f"  BCSR of RMAT-{SPMV_KERNEL_SCALE}: {mat.mb} block-rows x kmax "
+          f"{mat.kmax} of {mat.bm}x{mat.bk}, {mat.blocks.nbytes / 2**30:.3f} "
+          f"GiB of blocks, host conversion {conv_s:.1f} s")
+    dmat = mat.to(dev)
+    xs = torch.from_numpy(
+        np.random.default_rng(SEED).random(g.n_cols).astype(np.float32)
+    ).to(dev)
+    # the host copy waits for the ops phase, so the 1 GiB of blocks is
+    # not resident on the card during the app runs' peak-memory readings
+    wl["bcsr"], wl["bcsr_x"] = mat, xs
+    nbytes = (dmat.blocks.numel() * 4 + dmat.cols.numel() * 4
+              + 4 * g.n_cols + 4 * g.n_rows)
+    # 2 flops per block element; f32 outside the tensor cores: 67 TFLOP/s
+    flop_ms = 2 * dmat.blocks.numel() / 67e12 * 1e3
+    main = _measure("spmv_bcsr", None,
+                    (dmat.blocks, dmat.cols, xs, g.n_rows), sp.spmv_bcsr,
+                    sp.plain, nbytes, rtol=SPMV_RTOL, atol=SPMV_ATOL,
+                    what=f"RMAT-{SPMV_KERNEL_SCALE}")
+    require(main["bound_ms"] >= flop_ms,
+            "spmv_bcsr: the operation bound exceeds the byte bound")
+    dense = torch.from_numpy(scipy_csr(g).toarray()).to(dev)
+    dense_ms = time_cuda(torch.mv, [(dense, xs)])
+    del dense
+    print(f"  context (not the same function): torch.mv over the "
+          f"dense-expanded {g.n_rows}x{g.n_cols} matrix {dense_ms:.4f} ms")
+    main["dense_matmul_ms"] = dense_ms
+    main["bcsr_bytes"] = int(mat.blocks.nbytes + mat.cols.nbytes)
+    main["bcsr_host_conversion_s"] = conv_s
+    row("spmv_bcsr", "spmv_bcsr.cu", "src/repro/kernels/spmv_csr.py:95", main)
+    del dmat
+    print(f"  kernel phase {time.perf_counter() - t0:.1f} s")
     return rows
 
 
-def workload():
-    """The main path's graph, grid and P$, made once for both runs."""
-    from repro_torch.core.tilegrid import square_grid
-    from repro_torch.graph import apps, rmat_edges
-    t0 = time.perf_counter()
-    g = rmat_edges(SCALE, edge_factor=EDGE_FACTOR, seed=SEED)
-    grid = square_grid(TILES)
-    proxy = apps.table2_proxy(grid, "bfs")
-    root = int(np.argmax(g.out_degree()))
-    print(f"  RMAT-{SCALE}: {g.n_rows} vertices, {g.nnz} edges, root "
-          f"{root}, made in {time.perf_counter() - t0:.1f} s; "
-          f"{grid.describe()}; P$ {proxy.region_ny}x{proxy.region_nx} "
-          f"regions, {proxy.slots} slots, write-through; oq_cap {OQ_CAP}")
-    return dict(g=g, grid=grid, proxy=proxy, root=root)
-
-
-def bfs_run(dev, wl, backend: str):
-    """One ``apps.bfs`` call as a user makes it, timed on the host clock
-    around work that ends in a synchronise."""
-    from repro_torch.graph import apps
+# ------------------------------------------------------------ app runs
+def app_run(dev, label: str, fn, *args, **kw):
+    """One app call as a user makes it, timed on the host clock around
+    work that ends in a synchronise; every kernel's launch count is set
+    to 0 just before and read just after."""
     from repro_torch.kernels import ops
     from repro_torch.obs.metrics import default_registry
     syncs = default_registry().counter("engine.host_syncs")
@@ -263,39 +411,43 @@ def bfs_run(dev, wl, backend: str):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    res = apps.bfs(wl["g"], wl["root"], wl["grid"], proxy=wl["proxy"],
-                   oq_cap=OQ_CAP, device=dev, backend=backend)
+    res = fn(*args, device=dev, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in ops.KERNELS}
     run = res.run
-    print(f"  backend={backend}: {run.supersteps} supersteps in {wall:.2f} s "
-          f"wall on the card ({wall / run.supersteps * 1e3:.3f} ms per "
-          f"superstep, {syncs.value - syncs0:.0f} host syncs), peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    print(f"  modelled Tascade chip (BSP cost model, not the H100): "
+    print(f"  {label} backend={kw.get('backend', 'kernels')}: "
+          f"{run.supersteps} supersteps in {wall:.2f} s wall on the card "
+          f"({wall / run.supersteps * 1e3:.3f} ms per superstep, "
+          f"{syncs.value - syncs0:.0f} host syncs), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print(f"    modelled Tascade chip (BSP cost model, not the H100): "
           f"time_s {run.time_s:.6e}, {res.gteps:.2f} GTEPS")
-    print(f"  counters {json.dumps(run.counters.as_dict())}")
-    print(f"  launches {json.dumps(launches)}")
+    print(f"    counters {json.dumps(run.counters.as_dict())}")
+    print(f"    launches {json.dumps(launches)}")
     return res, launches
 
 
-def profile_supersteps(dev, wl, n: int = 20) -> None:
-    """Where a superstep's time goes: ``n`` supersteps of the kernels
-    backend under ``torch.profiler`` (after 5 warm-up supersteps), the
-    device-busy share and the ops with the most device time.  The dense
-    superstep does the same work whatever the frontier, so any window
-    stands for the run.  The profiler adds host overhead of its own."""
+def require_launches(label, launches, steps, names) -> None:
+    """Every kernel of the path launched at least once per superstep
+    (the engine calls each one in every superstep; flush supersteps
+    call segment_combine and deliver_fused more than once)."""
+    for name in names:
+        require(launches[name] >= steps,
+                f"{label}: {name} launched {launches[name]} times in "
+                f"{steps} supersteps")
+    print(f"    {label}: every engine kernel launched at least once per "
+          f"superstep ({steps})")
+
+
+def profile_supersteps(dev, eng, state, label: str, n: int = 20) -> None:
+    """Where a superstep's time goes: ``n`` supersteps of the engine
+    under ``torch.profiler`` (after 5 warm-up supersteps), the
+    device-busy share and the ops with the most device time.  The
+    profiler adds host overhead of its own."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.engine import (DataLocalEngine, EngineConfig,
-                                         fetch_stats)
-    from repro_torch.graph import apps
-    g = wl["g"]
-    cfg = EngineConfig(grid=wl["grid"], n_src=g.n_rows, n_dst=g.n_cols,
-                       oq_cap=OQ_CAP, proxy=wl["proxy"])
-    eng = DataLocalEngine(apps.BFS_SPEC, cfg, g.row_lo, g.row_hi, g.col_idx,
-                          g.weights, device=dev)
-    state = eng.init_state(seed_idx=wl["root"], seed_val=0.0)
+    from repro_torch.core.engine import fetch_stats
     for _ in range(5):
         state, stats = eng._superstep(state)
         fetch_stats(stats)
@@ -308,7 +460,6 @@ def profile_supersteps(dev, wl, n: int = 20) -> None:
             fetch_stats(stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
     kernels, host_ops = [], []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", 0.0)
@@ -321,10 +472,10 @@ def profile_supersteps(dev, wl, n: int = 20) -> None:
     busy_us = sum(k[0] for k in kernels)
     host_us = sum(h[0] for h in host_ops)
     if busy_us <= 0:
-        print("  profile: the profiler recorded no device time "
+        print(f"  profile {label}: the profiler recorded no device time "
               "(device busy share not measured)")
         return
-    print(f"  profile ({n} supersteps, kernels backend, under the "
+    print(f"  profile {label} ({n} supersteps, kernels backend, under the "
           f"profiler), per superstep: {wall * 1e3 / n:.3f} ms wall; device "
           f"busy {busy_us / n / 1e3:.3f} ms ({busy_us / 1e6 / wall:.1%} of "
           f"wall) in {sum(k[1] for k in kernels) / n:.0f} device entries; "
@@ -338,24 +489,54 @@ def profile_supersteps(dev, wl, n: int = 20) -> None:
               f"{key[:70]}")
 
 
-def check_values(g, root, res) -> None:
+def scipy_csr(g):
     from scipy.sparse import csr_matrix
+    w = g.weights if g.weights is not None else np.ones(g.nnz, np.float32)
+    return csr_matrix((w, g.col_idx, g.row_ptr), shape=(g.n_rows, g.n_cols))
+
+
+def check_bfs(g, root, res) -> None:
     from scipy.sparse.csgraph import shortest_path
     t0 = time.perf_counter()
-    a = csr_matrix((np.ones(g.nnz, np.float32), g.col_idx, g.row_ptr),
-                   shape=(g.n_rows, g.n_rows))
-    want = shortest_path(a, unweighted=True, indices=root)
+    want = shortest_path(scipy_csr(g), unweighted=True, indices=root)
     require(np.array_equal(res.values.astype(np.float64), want),
             f"BFS values differ from scipy's hop distances at "
             f"{int(np.sum(res.values.astype(np.float64) != want))} vertices")
     reached = int(np.isfinite(want).sum())
-    print(f"  values == scipy shortest_path(unweighted) hop distances: "
+    print(f"    values == scipy shortest_path(unweighted) hop distances: "
           f"{reached} reached, depth {int(want[np.isfinite(want)].max())} "
           f"(checked in {time.perf_counter() - t0:.1f} s)")
 
 
-def same_run(a, b, what: str) -> None:
-    require(np.array_equal(a.values, b.values), f"{what}: values differ")
+def check_close(what, got, want, rtol, atol) -> float:
+    err = float(np.max(np.abs(got.astype(np.float64) - want)))
+    require(got.shape == want.shape and np.all(np.isfinite(got))
+            and np.allclose(got, want, rtol=rtol, atol=atol),
+            f"{what}: outside rtol {rtol} / atol {atol} (max |err| {err})")
+    print(f"    {what}: within rtol {rtol} / atol {atol} (max |err| "
+          f"{err:g})")
+    return err
+
+
+def check_spmv(g, x, y, what) -> None:
+    want = scipy_csr(g).astype(np.float64) @ x.astype(np.float64)
+    check_close(f"{what} vs scipy A @ x", y, want, APP_RTOL, APP_ATOL)
+
+
+def check_histo(hv, bins, counts, what) -> None:
+    want = np.bincount(hv, minlength=bins).astype(np.float32)
+    require(np.array_equal(counts, want),
+            f"{what} differs from np.bincount at "
+            f"{int(np.sum(counts != want))} bins")
+    print(f"    {what} == np.bincount bitwise ({int(want.sum())} counted)")
+
+
+def same_run(a, b, what: str, rtol=None, atol=None) -> None:
+    if rtol is None:
+        require(np.array_equal(a.values, b.values), f"{what}: values differ")
+    else:
+        require(np.allclose(a.values, b.values, rtol=rtol, atol=atol),
+                f"{what}: values outside rtol {rtol} / atol {atol}")
     require(a.run.counters.as_dict() == b.run.counters.as_dict(),
             f"{what}: counters differ")
     require(a.run.trace.to_dict() == b.run.trace.to_dict(),
@@ -363,6 +544,151 @@ def same_run(a, b, what: str) -> None:
     require(a.run.supersteps == b.run.supersteps,
             f"{what}: supersteps differ")
     require(a.run.time_s == b.run.time_s, f"{what}: time_s differs")
+    print(f"    {what}: counters, trace, supersteps, time_s equal; values "
+          + ("bitwise" if rtol is None else f"within rtol {rtol} / atol "
+             f"{atol}"))
+
+
+ENGINE_KERNELS = ("relax", "segment_combine", "deliver_fused")
+
+
+def bfs_phase(dev, wl) -> dict:
+    from repro_torch.core.engine import DataLocalEngine, EngineConfig
+    from repro_torch.graph import apps
+    print(f"== 5. main path: BFS, backend=kernels, RMAT-{SCALE} on {TILES} "
+          f"tiles, write-through P$")
+    t0 = time.perf_counter()
+    g, grid = wl[SCALE], wl["grid"]
+    proxy = apps.table2_proxy(grid, "bfs")
+    root = int(np.argmax(g.out_degree()))
+    print(f"  root {root}; P$ {proxy.region_ny}x{proxy.region_nx} regions, "
+          f"{proxy.slots} slots, write-through")
+    res, launches = app_run(dev, "bfs", apps.bfs, g, root, grid,
+                            proxy=proxy, oq_cap=OQ_CAP)
+    check_bfs(g, root, res)
+    for name in ENGINE_KERNELS:
+        require(launches[name] == res.run.supersteps,
+                f"bfs: {name} launched {launches[name]} times in "
+                f"{res.run.supersteps} supersteps")
+    print(f"    every engine kernel launched once per superstep "
+          f"({res.run.supersteps})")
+    cfg = EngineConfig(grid=grid, n_src=g.n_rows, n_dst=g.n_cols,
+                       oq_cap=OQ_CAP, proxy=proxy)
+    eng = DataLocalEngine(apps.BFS_SPEC, cfg, g.row_lo, g.row_hi, g.col_idx,
+                          g.weights, device=dev)
+    profile_supersteps(dev, eng, eng.init_state(seed_idx=root, seed_val=0.0),
+                       "bfs")
+    print(f"  BFS phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def add_apps_phase(dev, wl) -> dict:
+    from repro_torch.graph import apps
+    print(f"== 6. main path: SpMV and Histogram, backend=kernels, "
+          f"RMAT-{SCALE} on {TILES} tiles, write-back P$")
+    g, grid = wl[SCALE], wl["grid"]
+    out = {}
+    t0 = time.perf_counter()
+    proxy = apps.table2_proxy(grid, "spmv", cascade_levels=2)
+    print(f"  SpMV: P$ {proxy.region_ny}x{proxy.region_nx} regions, "
+          f"{proxy.slots} slots, write-back, cascade {proxy.cascade}")
+    res, launches = app_run(dev, "spmv", apps.spmv, g, wl["x"], grid,
+                            proxy=proxy, oq_cap=OQ_CAP)
+    check_spmv(g, wl["x"], res.values, "SpMV y")
+    require(res.run.counters.cascade_combined > 0,
+            "spmv: the cascade merged no records")
+    require_launches("spmv", launches, res.run.supersteps, ENGINE_KERNELS)
+    out["spmv"] = launches
+    t1 = time.perf_counter()
+    eng, state, _ = apps.engine_and_state("spmv", g, grid, proxy, x=wl["x"],
+                                          oq_cap=OQ_CAP, device=dev)
+    torch.cuda.synchronize()
+    print(f"  SpMV set-up alone (engine_and_state: transpose_csr on the "
+          f"host, arrays to the card): {time.perf_counter() - t1:.2f} s")
+    profile_supersteps(dev, eng, state, "spmv")
+    del eng, state
+    print(f"  SpMV phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    proxy = apps.table2_proxy(grid, "histo")
+    print(f"  Histogram: P$ {proxy.region_ny}x{proxy.region_nx} regions, "
+          f"{proxy.slots} slots, write-back, no cascade")
+    res, launches = app_run(dev, "histo", apps.histogram, wl["histo"],
+                            wl["bins"], grid, proxy=proxy, oq_cap=OQ_CAP)
+    check_histo(wl["histo"], wl["bins"], res.values, "Histogram counts")
+    require_launches("histo", launches, res.run.supersteps, ENGINE_KERNELS)
+    wl["histo_counts"] = res.values
+    out["histo"] = launches
+    print(f"  Histogram phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def ops_phase(dev, wl) -> dict:
+    from repro_torch.graph import apps
+    from repro_torch.kernels import ops
+    print("== 7. kernel entry points: ops.histogram, ops.spmv")
+    t0 = time.perf_counter()
+    idx = torch.from_numpy(wl["histo"]).to(dev)
+    mat = wl["bcsr"].to(dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    counts = ops.histogram(idx, wl["bins"]).cpu().numpy()
+    spmv_y = ops.spmv(mat, wl["bcsr_x"]).cpu().numpy()
+    del idx, mat
+    launches = {k.__name__: k.launches for k in ops.KERNELS}
+    print(f"  launches {json.dumps(launches)}")
+    require(launches["histogram_bin"] == 1 and launches["spmv_bcsr"] == 1,
+            f"ops path did not launch each kernel once: {launches}")
+    check_histo(wl["histo"], wl["bins"], counts, "ops.histogram")
+    require(np.array_equal(counts, wl["histo_counts"]),
+            "ops.histogram differs from the engine's Histogram counts")
+    print("    ops.histogram == the engine's Histogram counts bitwise")
+    g = wl[SPMV_KERNEL_SCALE]
+    x = wl["bcsr_x"].cpu().numpy()
+    check_spmv(g, x, spmv_y, f"ops.spmv (RMAT-{SPMV_KERNEL_SCALE})")
+    grid = wl["grid"]
+    res = apps.spmv(g, x, grid,
+                    proxy=apps.table2_proxy(grid, "spmv", cascade_levels=2),
+                    oq_cap=OQ_CAP, device=dev)
+    check_close("ops.spmv vs the engine's apps.spmv", spmv_y,
+                res.values.astype(np.float64), APP_RTOL, APP_ATOL)
+    print(f"  ops phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def agreement_phase(dev, wl) -> None:
+    from repro_torch.graph import apps, oracles
+    from repro_torch.graph.rmat import histogram_input
+    print(f"== 8. backend agreement (kernels vs torch) at RMAT-{AGREE_SCALE} "
+          f"on {TILES} tiles")
+    g, grid = wl[AGREE_SCALE], wl["grid"]
+    bins = g.n_rows // 8
+    hv = histogram_input(g, bins)
+    x = np.random.default_rng(SEED).random(g.n_cols).astype(np.float32)
+    root = int(np.argmax(g.out_degree()))
+    cases = [
+        ("bfs", apps.bfs, (g, root, grid),
+         dict(proxy=apps.table2_proxy(grid, "bfs")), None),
+        ("spmv", apps.spmv, (g, x, grid),
+         dict(proxy=apps.table2_proxy(grid, "spmv", cascade_levels=2)),
+         (AGREE_RTOL, AGREE_ATOL)),
+        ("histo", apps.histogram, (hv, bins, grid),
+         dict(proxy=apps.table2_proxy(grid, "histo")), None),
+        ("pagerank", apps.pagerank, (g, grid),
+         dict(proxy=apps.table2_proxy(grid, "pagerank"),
+              epochs=PAGERANK_EPOCHS), (AGREE_RTOL, AGREE_ATOL)),
+    ]
+    for name, fn, args, kw, tol in cases:
+        t0 = time.perf_counter()
+        runs = [app_run(dev, name, fn, *args, oq_cap=OQ_CAP, backend=b,
+                        **kw)[0] for b in ("kernels", "torch")]
+        same_run(runs[0], runs[1], f"{name} kernels vs torch",
+                 *(tol or (None, None)))
+        if name == "pagerank":
+            check_close("PageRank vs its oracle", runs[0].values,
+                        oracles.pagerank_oracle(g, epochs=PAGERANK_EPOCHS)
+                        .astype(np.float64), PR_RTOL, PR_ATOL)
+        print(f"  {name} agreement {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -380,31 +706,20 @@ def main() -> int:
     torch.cuda.set_device(dev)
     c = card()
     build()
-    rows = kernel_phase(dev)
-
-    print(f"== 4. main path: BFS, backend=kernels, RMAT-{SCALE} on "
-          f"{TILES} tiles")
-    wl = workload()
-    res_k, launches = bfs_run(dev, wl, "kernels")
-    check_values(wl["g"], wl["root"], res_k)
+    wl = workloads()
+    rows = kernel_phase(dev, wl)
+    by_path = dict(bfs=bfs_phase(dev, wl))
+    by_path.update(add_apps_phase(dev, wl))
+    by_path["ops"] = ops_phase(dev, wl)
+    agreement_phase(dev, wl)
     for row in rows:
-        row["launches"] = launches[row["name"]]
-        require(row["launches"] == res_k.run.supersteps,
-                f"{row['name']} launched {row['launches']} times in "
-                f"{res_k.run.supersteps} supersteps")
-    print(f"  every kernel launched once per superstep "
-          f"({res_k.run.supersteps})")
-    profile_supersteps(dev, wl)
+        row["launches_by_path"] = {p: n[row["name"]]
+                                   for p, n in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+        require(row["launches"] > 0,
+                f"{row['name']} never launched on a main path")
 
-    print(f"== 5. same run, backend=torch, RMAT-{SCALE} on {TILES} tiles")
-    res_t, launches_t = bfs_run(dev, wl, "torch")
-    require(not any(launches_t.values()),
-            f"backend=torch launched kernels: {launches_t}")
-    same_run(res_k, res_t, "kernels vs torch backend")
-    print("  kernels and torch backends agree bitwise: values, counters, "
-          "trace, supersteps, time_s")
-
-    print(f"== 6. done in {time.perf_counter() - t_start:.1f} s")
+    print(f"== 9. done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(c["smi"])
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """The data-local execution engine (paper §II-B, §III) in PyTorch.
 
 The port of ``repro.core.engine``'s monolithic engine, for the slice of
-it that BFS, SSSP and WCC run under the Table-II write-through proxy:
+it that the six paper apps run under their Table-II proxies:
 
   1. **IQ drain**: each tile consumes up to ``iq_cap`` pending records
      from its mailbox; an improving record re-activates the item's edge
@@ -9,8 +9,14 @@ it that BFS, SSSP and WCC run under the Table-II write-through proxy:
   2. **OQ emit**: each tile streams up to ``oq_cap`` edges from its
      active cursors, producing (dst_index, value) records.
   3. **Proxy stage** (if configured): records are routed to the proxy
-     tile in the sender's region, batch-coalesced, filtered through the
-     direct-mapped write-through P$, and the survivors forwarded.
+     tile in the sender's region, batch-coalesced and filtered through
+     the direct-mapped P$.  Write-through forwards every update;
+     write-back holds them and forwards only evicted residents and batch
+     slot conflicts, and a **flush** superstep spills the whole P$ once
+     the live work has drained.  With a cascade, records climb the
+     region reduction tree (``_cascade_drain``), merging at each level;
+     **selective cascading** sends only apps that profit through it and
+     lets a record leave the tree once its owner is near.
   4. **Delivery**: surviving records are combined into owner mailboxes.
 
 Every message is charged exact XY-torus hops at each leg; the BSP time
@@ -18,20 +24,22 @@ model (``costmodel.step_cycles``) takes the per-superstep max over tile
 compute, per-level network serialization and endpoint contention.
 
 Values, ``TrafficCounters``, ``SuperstepTrace``, supersteps and
-``time_s`` equal the reference's bit for bit on the same inputs
-(``tests/test_torch_engine.py``).  Hot spots: with
-``EngineConfig.backend="kernels"`` (the default) the IQ-drain relax, the
-P$ segment min and the owner delivery go through ``kernels.ops`` -- the
-hand-written Hopper kernels on a CUDA tensor, their plain versions on a
-CPU tensor.  ``backend="torch"`` is the inline plain-torch path, the
-counterpart of the reference's ``"jnp"`` oracle.
+``time_s`` equal the reference's on the same inputs: bit for bit for the
+min apps, with values to f32 re-association for the add apps
+(``tests/test_torch_engine.py``, ``tests/test_torch_addapps.py``).  Hot
+spots: with ``EngineConfig.backend="kernels"`` (the default) the IQ-drain
+relax, the P$ and cascade segment combine and the owner delivery go
+through ``kernels.ops`` -- the hand-written Hopper kernels on a CUDA
+tensor, their plain versions on a CPU tensor.  ``backend="torch"`` is the
+inline plain-torch path, the counterpart of the reference's ``"jnp"``
+oracle.
 
 Not in this slice, and refused with ``NotImplementedError`` naming the
-ROADMAP item rather than ignored: the write-back P$ and its flush, the
-cascade (A.4); the device-resident chunked loop (A.5: ``run`` always
-steps one superstep per host round trip); active-set compaction (A.7);
-telemetry, the sanitizer and observers (A.8); multi-chip partitions and
-double buffering (A.9); checkpoints (A.10).
+ROADMAP item rather than ignored: the device-resident chunked loop (A.5:
+``run`` always steps one superstep per host round trip); active-set
+compaction (A.7); telemetry, the sanitizer and observers (A.8);
+multi-chip partitions and double buffering, with the flush's off-chip
+buffer sizing ``_flush_off_len`` (A.9); checkpoints (A.10).
 """
 from __future__ import annotations
 
@@ -49,7 +57,8 @@ from .costmodel import (CLOCK_GHZ, PU_OPS_PER_EDGE, PU_OPS_PER_RECORD,
                         DCRA_SRAM, PackageConfig, link_provisioning,
                         step_cycles)
 from .netstats import MSG_BITS, SuperstepTrace, TrafficCounters
-from .proxy import ProxyConfig, make_pcache, pcache_slot, proxy_tile
+from .proxy import (ProxyConfig, cascade_proxy_tile, make_pcache,
+                    pcache_slot, proxy_tile)
 from .tilegrid import ChipPartition, TileGrid
 
 INF = float("inf")
@@ -65,7 +74,7 @@ class AppSpec:
     reactivate: bool = True  # mailbox improvements re-activate edge cursors
     count_teps_on: str = "edges"   # what Graph500-style TEPS counts
     # whether merging in-flight updates to one index is profitable (the
-    # selective-cascading criterion; the cascade is ROADMAP A.4)
+    # selective-cascading criterion)
     cascade_profitable: bool = True
 
     @property
@@ -115,10 +124,6 @@ class EngineConfig:
 def _refuse_unported(cfg: EngineConfig, part: ChipPartition) -> None:
     """Raise on every setting this slice does not run."""
     unported = []
-    if cfg.proxy is not None and cfg.proxy.write_back:
-        unported.append("proxy.write_back (ROADMAP A.4)")
-    if cfg.proxy is not None and cfg.proxy.cascade is not None:
-        unported.append("proxy.cascade (ROADMAP A.4)")
     if cfg.compaction > 0:
         unported.append("compaction > 0 (ROADMAP A.7)")
     if cfg.telemetry:
@@ -176,8 +181,16 @@ class DataLocalEngine:
         self.Nd = T * self.Cd
         self.Ngs = self.Tg * self.Cs
         self.Ngd = self.Tg * self.Cd
-        if cfg.proxy is not None and T * cfg.proxy.slots >= 2**31:
-            raise ValueError("T*slots must fit int32 for P$ sort keys")
+        self._cascade_levels = 0
+        if cfg.proxy is not None:
+            if T * cfg.proxy.slots >= 2**31:
+                raise ValueError("T*slots must fit int32 for P$ sort keys")
+            cfg.proxy.validate_window(part.sub_ny, part.sub_nx)
+            casc = cfg.proxy.cascade
+            if casc is not None and (not casc.selective
+                                     or app.cascade_profitable):
+                self._cascade_levels = casc.levels
+        self._write_back = cfg.proxy is not None and cfg.proxy.write_back
         dev = self.device
         self.row_lo = _to(_pad(row_lo, self.Ngs, 0), torch.int32, dev)
         self.row_hi = _to(_pad(row_hi, self.Ngs, 0), torch.int32, dev)
@@ -217,6 +230,16 @@ class DataLocalEngine:
             st["mail_val"][si] = sv
             st["mail_flag"][si] = True
         return st
+
+    def activate_all(self, state, cur_val):
+        """Epoch-style activation (PageRank/SpMV/Histogram): every source
+        item starts with its full edge range and a carried value."""
+        state = dict(state)
+        state["cur_lo"] = self.row_lo
+        state["cur_hi"] = self.row_hi
+        state["cur_val"] = _to(_pad(cur_val, self.Ns, 0.0), torch.float32,
+                               self.device)
+        return state
 
     # ------------------------------------------------------------ superstep
     def _edge_value(self, cval, pos):
@@ -307,12 +330,14 @@ class DataLocalEngine:
                 consumed_per_tile, total_take, dst.reshape(R),
                 cand.reshape(R), emit_mask.reshape(R), src_tile)
 
-    def _superstep(self, state):
+    def _superstep(self, state, flush: bool = False):
         """One monolithic superstep: (new_state, stats) with every stat a
-        0-d tensor on the device."""
-        return self._step(self.row_lo, self.row_hi, state)
+        0-d tensor on the device.  ``flush`` (a host bool, decided by the
+        run loop from the previous superstep's fetched stats) spills the
+        write-back P$ in this superstep."""
+        return self._step(self.row_lo, self.row_hi, state, flush)
 
-    def _step(self, row_lo, row_hi, state):
+    def _step(self, row_lo, row_hi, state, flush=False):
         app, cfg = self.app, self.cfg
         is_min = app.combine == "min"
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -346,7 +371,7 @@ class DataLocalEngine:
             (mail_val, mail_flag, p_tag, p_val, charges, pstats,
              dmax) = self._proxy_stage(
                 mail_val, mail_flag, p_tag, p_val, dst, cand, emit_mask,
-                src_tile, owner, is_min)
+                src_tile, owner, flush, is_min)
             stats.update(pstats)
 
         new_state = dict(values=new_vals, mail_val=mail_val,
@@ -356,8 +381,13 @@ class DataLocalEngine:
             new_state["p_tag"], new_state["p_val"] = p_tag, p_val
         stats["pending"] = (torch.sum(mail_flag)
                             + torch.sum(cur_hi > cur_lo))
-        stats["p_resident"] = torch.zeros((), dtype=torch.int32,
-                                          device=self.device)
+        # write-back P$ residency is deferred work: it does not keep the
+        # engine busy, but must be flushed before the result is final
+        if self._write_back:
+            stats["p_resident"] = torch.sum(p_tag >= 0)
+        else:
+            stats["p_resident"] = torch.zeros((), dtype=torch.int32,
+                                              device=self.device)
         stats["delivered_max_per_tile"] = dmax
         stats.update({k: v.to(torch.float32) for k, v in charges.items()})
         return new_state, stats
@@ -379,10 +409,13 @@ class DataLocalEngine:
 
     # --------------------------------------------------------- proxy stage
     def _proxy_stage(self, mail_val, mail_flag, p_tag, p_val, dst, cand,
-                     emit_mask, src_tile, owner, is_min):
-        """The write-through P$: batch-coalesce records per (proxy tile,
-        slot, dst), filter them against the P$, write the survivors into
-        it and forward them to their owners."""
+                     emit_mask, src_tile, owner, flush, is_min):
+        """The P$: batch-coalesce records per (proxy tile, slot, dst),
+        filter them against the P$ and write the survivors into it.
+        Write-through forwards every update; write-back forwards the
+        evicted residents and the batch slot conflicts only, and spills
+        the whole P$ on a ``flush`` superstep.  The forwarded records go
+        to their owners directly or through the cascade."""
         cfg, grid = self.cfg, self.cfg.grid
         pcfg = cfg.proxy
         T, S = self.T, pcfg.slots
@@ -418,6 +451,8 @@ class DataLocalEngine:
         filtered = tag_hit & ~improves                       # absorbed
         upd_hit = tag_hit & improves
         miss = winner & ~tag_hit
+        # write-back: a miss on an occupied slot evicts its resident
+        evict = miss & (cur_tag >= 0) & pcfg.write_back
         if is_min:
             new_pv_hit = torch.minimum(cur_pv, combined)
         else:
@@ -435,37 +470,204 @@ class DataLocalEngine:
         p_tag = tag_ext.index_put((wrow, wslot), sdst)[:T]
         p_val = val_ext.index_put((wrow, wslot), inst_val)[:T]
 
-        # forwarding set (write-through: every update or miss, plus the
-        # batch slot conflicts); the reference's eviction leg is empty
-        # under write-through and rides along as masked records
-        fwd_now = upd_hit | miss | bypass
+        # forwarding set: write-back forwards only the batch slot
+        # conflicts (and, below, the evicted residents)
+        if pcfg.write_back:
+            fwd_now = bypass
+        else:
+            fwd_now = upd_hit | miss | bypass
         fdst = torch.where(fwd_now, sdst, self.Ngd)
         fval = torch.where(fwd_now, combined, ident)
+        edst = torch.where(evict, cur_tag, self.Ngd)
+        eval_ = torch.where(evict, cur_pv, ident)
         proxy_src = self.part.global_tile(0, torch.clamp(skey // S,
                                                           max=T - 1))
-        cat_dst = torch.cat([fdst, torch.full_like(fdst, self.Ngd)])
-        cat_val = torch.cat([fval, torch.full_like(fval, ident)])
-        cat_src = torch.cat([proxy_src, proxy_src])
+        rdims = (pcfg.region_ny, pcfg.region_nx)
+        # Under write-back the whole-P$ flush wave runs in its own leg
+        # (_flush_drain), on flush supersteps only, except with a
+        # non-selective cascade, where it climbs the reduction tree in
+        # one walk with the direct legs (they may merge there).
+        split_flush = pcfg.write_back and (
+            self._cascade_levels == 0 or pcfg.cascade.selective)
+        flushing = pcfg.write_back and flush
+        all_dst, all_val = [fdst, edst], [fval, eval_]
+        all_src = [proxy_src, proxy_src]
+        if flushing and not split_flush:
+            ft = p_tag.reshape(-1)
+            all_dst.append(torch.where(ft >= 0, ft, self.Ngd))
+            all_val.append(torch.where(ft >= 0, p_val.reshape(-1), ident))
+            all_src.append(torch.repeat_interleave(self._tile_gids, S))
+        cat_dst = torch.cat(all_dst)
+        cat_val = torch.cat(all_val)
+        cat_src = torch.cat(all_src)
         cat_mask = cat_dst < self.Ngd
 
-        rdims = (pcfg.region_ny, pcfg.region_nx)
-        (mail_val, mail_flag, owner_leg, off_ch,
-         per_tile) = self._drain_to_owners(
-            mail_val, mail_flag, cat_dst, cat_val, cat_mask, cat_src, rdims,
-            is_min)
-        leg2 = netstats.merge_charges(owner_leg, off_ch)
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        lvl_max, ncomb = zero, zero
+        if self._cascade_levels and not split_flush:
+            # the cascaded drain: write-through apps cascade their whole
+            # forward set; non-selective write-back cascades the direct
+            # legs and the flush wave together
+            (mail_val, mail_flag, leg2, owner_leg, per_tile, lvl_max,
+             ncomb) = self._cascade_drain(
+                mail_val, mail_flag, cat_dst, cat_val, cat_src, cat_mask,
+                is_min)
+        else:
+            (mail_val, mail_flag, owner_leg, off_ch,
+             per_tile) = self._drain_to_owners(
+                mail_val, mail_flag, cat_dst, cat_val, cat_mask, cat_src,
+                rdims, is_min)
+            leg2 = netstats.merge_charges(owner_leg, off_ch)
 
-        dmax = torch.maximum(torch.max(per_tile),
-                             torch.zeros((), dtype=torch.float32,
-                                         device=self.device))
+        if flushing and split_flush:
+            (mail_val, mail_flag, flush_leg, f_owner_leg, f_per_tile,
+             f_lvl_max, f_ncomb) = self._flush_drain(
+                p_tag, p_val, mail_val, mail_flag, rdims, is_min)
+            leg2 = netstats.merge_charges(leg2, flush_leg)
+            owner_leg = netstats.merge_charges(owner_leg, f_owner_leg)
+            per_tile = per_tile + f_per_tile     # same-phase deliveries sum
+            lvl_max = torch.maximum(lvl_max, f_lvl_max)
+            ncomb = ncomb + f_ncomb
+        if flushing:                             # the P$ is spilled
+            p_tag = torch.full_like(p_tag, -1)
+            p_val = torch.full_like(p_val, ident)
+
+        dmax = torch.maximum(torch.max(per_tile), lvl_max)
         charges = dict(netstats.merge_charges(leg1, leg2),
                        owner_msgs=owner_leg["messages"],
                        owner_hop_msgs=owner_leg["hop_msgs"])
         pstats = dict(filtered_at_proxy=torch.sum(filtered).to(torch.float32),
                       coalesced_at_proxy=coalesced.to(torch.float32),
-                      cascade_combined=torch.zeros(
-                          (), dtype=torch.float32, device=self.device))
+                      cascade_combined=ncomb)
         return mail_val, mail_flag, p_tag, p_val, charges, pstats, dmax
+
+    # --------------------------------------------------------- flush drain
+    def _flush_drain(self, p_tag, p_val, mail_val, mail_flag, rdims,
+                     is_min):
+        """The write-back whole-P$ spill, run on flush supersteps only.
+
+        The reference takes this leg under ``lax.cond`` and returns zero
+        charges on the other supersteps; here the run loop already holds
+        the flush decision on the host (it comes from the stats fetched
+        the superstep before), so the caller skips the leg with a Python
+        ``if`` at no extra host sync.  Adding zero charges changes no
+        sum, so the counters and trace are the reference's.  Returns
+        (mail_val, mail_flag, merged_leg, owner_leg, per_tile,
+        level_max, n_combined); the caller clears the P$."""
+        ident = self.app.identity
+        S = self.cfg.proxy.slots
+        ft = p_tag.reshape(-1)
+        fmask = ft >= 0
+        fdst = torch.where(fmask, ft, self.Ngd)
+        fval = torch.where(fmask, p_val.reshape(-1), ident)
+        fsrc = torch.repeat_interleave(self._tile_gids, S)
+        if self._cascade_levels:
+            # selective write-back: the dense flush wave is exactly the
+            # record set that profits from the reduction tree
+            return self._cascade_drain(mail_val, mail_flag, fdst, fval,
+                                       fsrc, fmask, is_min)
+        (mail_val, mail_flag, owner_leg, off_ch,
+         per_tile) = self._drain_to_owners(mail_val, mail_flag, fdst, fval,
+                                           fmask, fsrc, rdims, is_min)
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        return (mail_val, mail_flag, netstats.merge_charges(owner_leg,
+                                                            off_ch),
+                owner_leg, per_tile, zero, zero)
+
+    # ------------------------------------------------------- cascaded drain
+    def _cascade_drain(self, mail_val, mail_flag, dst, val, src, mask,
+                       is_min):
+        """Drain proxy-stage output through the region reduction tree.
+
+        Records climb from their region proxy to the same-index proxy of
+        the enclosing super-region at each level, merging with records
+        from sibling regions bound for the same destination; only tree
+        roots (or selective early exits) forward to the true owner.  Each
+        leg is charged exact XY hops; the receive count at intermediate
+        proxies feeds the BSP time model's endpoint contention.  The
+        owner delivery sees one early-exit copy per level and then the
+        root exit, in the reference's order.  (The reference also takes
+        an ``eligible`` mask whose records skip the tree; every caller
+        passes all records, so that copy is always empty and is left
+        out here.)
+
+        Returns (mail_val, mail_flag, merged_charges, owner_leg_charge,
+        delivered_per_tile, level_recv_max, n_combined)."""
+        cfg, grid = self.cfg, self.cfg.grid
+        pcfg = cfg.proxy
+        casc = pcfg.cascade
+        T = self.T
+        rdims = (pcfg.region_ny, pcfg.region_nx)
+
+        cur = torch.clamp(src, max=self.Tg - 1)
+        alive = mask
+        owner = torch.clamp(dst // self.Cd, max=self.Tg - 1)
+        legs = []
+        out_dst, out_val, out_src, out_mask = [], [], [], []
+        ncomb = torch.zeros((), dtype=torch.float32, device=self.device)
+        lvl_max = torch.zeros((), dtype=torch.float32, device=self.device)
+
+        for level in range(1, self._cascade_levels + 1):
+            rny, rnx = casc.level_dims(pcfg.region_ny, pcfg.region_nx, level)
+            if casc.selective:
+                # selective exit: once the owner lies inside the record's
+                # level-`level` super-region, climbing further cannot
+                # merge it with updates from other subtrees on a shorter
+                # path -- it leaves the tree for the owner
+                near = alive & (grid.region_id(cur, rny, rnx)
+                                == grid.region_id(owner, rny, rnx))
+                out_dst.append(dst)
+                out_val.append(val)
+                out_src.append(cur)
+                out_mask.append(near)
+                alive = alive & ~near
+            ptile = cascade_proxy_tile(grid, rny, rnx, owner, cur)
+            ptile_l = self.part.local_tile(ptile)
+            legs.append(netstats.charge(grid, cur, ptile, alive,
+                                        region_dims=rdims))
+            # receive count per proxy tile (an index_add_, not bincount,
+            # which syncs with the host on a CUDA tensor)
+            recv = torch.zeros((T + 1,), dtype=torch.int32,
+                               device=self.device).index_add_(
+                0, torch.where(alive, ptile_l, T).to(torch.int64),
+                alive.to(torch.int32))[:T]
+            lvl_max = torch.maximum(lvl_max,
+                                    torch.max(recv).to(torch.float32))
+            cur, dst, val, owner, alive, merged = self._combine_level(
+                ptile_l, dst, val, alive, is_min)
+            ncomb = ncomb + merged
+
+        out_dst.append(dst)
+        out_val.append(val)
+        out_src.append(cur)
+        out_mask.append(alive)
+        (mail_val, mail_flag, owner_leg, off_ch,
+         per_tile) = self._drain_to_owners(
+            mail_val, mail_flag, torch.cat(out_dst), torch.cat(out_val),
+            torch.cat(out_mask), torch.cat(out_src), rdims, is_min)
+        legs.append(owner_leg)
+        legs.append(off_ch)
+        return (mail_val, mail_flag, netstats.merge_charges(*legs),
+                owner_leg, per_tile, lvl_max, ncomb)
+
+    def _combine_level(self, ptile_l, dst, val, alive, is_min):
+        """Merge records that meet at the same (proxy tile, dst) of one
+        cascade level into a single combined record (the group leaders
+        survive), with the P$ coalesce's grouping (``_lex_group``) and
+        segment reduce.  Returns the level's outputs in sorted order --
+        (cur global tile, dst, value, owner, alive) -- and the merge
+        count."""
+        T = self.T
+        tkey = torch.where(alive, ptile_l, T)
+        dkey = torch.where(alive, dst, self.Ngd)
+        (stile, sdst, salive, (sval,),
+         _, leader, gid) = _lex_group(tkey, dkey, alive, val)
+        agg = self._segment_reduce(sval, salive, gid, is_min)
+        nval = agg[gid.to(torch.int64)]
+        merged = (torch.sum(salive) - torch.sum(leader)).to(torch.float32)
+        cur = self.part.global_tile(0, torch.clamp(stile, max=T - 1))
+        owner = torch.clamp(sdst // self.Cd, max=self.Tg - 1)
+        return cur, sdst, nval, owner, leader, merged
 
     def _segment_reduce(self, sval, smask, gid, is_min):
         """Combine same-group record values (``gid`` sorted ascending,
@@ -527,16 +729,27 @@ class DataLocalEngine:
                                 time_s=time_s, supersteps=steps, trace=trace)
 
     def _run_legacy(self, state, maxs, progress_every, account):
-        """The per-step loop: one superstep and one host sync each."""
+        """The per-step loop: one superstep and one host sync each.  The
+        flush decision for the next superstep is read from this one's
+        fetched stats, so it costs no sync of its own."""
         sync_ctr = default_registry().counter("engine.host_syncs")
         steps = 0
+        flush = False
         while steps < maxs:
-            state, stats = self._superstep(state)
+            state, stats = self._superstep(state, flush)
             stats = fetch_stats(stats)
             sync_ctr.inc()
             steps += 1
             account(stats)
+            flush = False
             if stats["pending"] == 0:
+                # live work drained; spill any write-back P$ residue (the
+                # paper's TSU heuristic: flush when queues go idle).
+                # Repeated flushes terminate: a spilled value that does
+                # not improve its owner generates no new work.
+                if self._write_back and stats["p_resident"] > 0:
+                    flush = True
+                    continue
                 break
             if progress_every and steps % progress_every == 0:
                 print(f"  [{self.app.name}] step {steps} "

@@ -3,9 +3,9 @@
 The PyTorch rendering of ``repro.core.proxy``.  ``CascadeConfig`` and
 ``ProxyConfig`` are verbatim copies with their validation; ``proxy_tile``,
 ``cascade_proxy_tile``, ``pcache_slot`` and ``make_pcache`` are redone in
-torch.  This slice runs the write-through P$ only: the engine refuses
-``write_back`` and ``cascade`` (ROADMAP A.4), but the configs carry them so
-a config written for the reference is accepted or refused as a whole.
+torch.  The engine runs the write-through and the write-back P$ and the
+cascade; ``chip_local_proxy`` and ``max_cascade_levels`` (multi-chip
+helpers) stay with ROADMAP A.9.
 
 The tile grid is divided into proxy regions.  A task message destined for
 a far-away owner is first routed to the proxy tile inside the *sender's*

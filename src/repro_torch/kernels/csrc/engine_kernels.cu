@@ -48,32 +48,11 @@
 // later change may exploit with a segmented scan (no atomics, fixed add
 // order); the kernel's contract does not require sorted ids.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <limits>
 
+#include "common.cuh"
+
 namespace {
-
-constexpr int kThreads = 256;
-// 132 SMs x 8 resident blocks of 256 threads, twice over: enough blocks
-// to fill the card; the grid-stride loop covers the rest.
-constexpr long long kMaxBlocks = 132LL * 8 * 2;
-
-int blocks_for(long long n) {
-  long long b = (n + kThreads - 1) / kThreads;
-  if (b > kMaxBlocks) b = kMaxBlocks;
-  if (b < 1) b = 1;
-  return static_cast<int>(b);
-}
-
-__device__ __forceinline__ long long first_index() {
-  return static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-}
-
-__device__ __forceinline__ long long grid_stride() {
-  return static_cast<long long>(gridDim.x) * blockDim.x;
-}
 
 // Order-free float minimum through integer atomics (see the note above).
 __device__ __forceinline__ void atomic_min_f32(float* addr, float v) {
@@ -159,13 +138,6 @@ __global__ void deliver_scatter_kernel(const int32_t* __restrict__ seg,
       atomicAdd(out + s, val[i]);
     }
     atomicAdd(count + s, 1);
-  }
-}
-
-__global__ void count_to_f32_kernel(const int32_t* __restrict__ count,
-                                    float* __restrict__ out, long long nd) {
-  for (long long i = first_index(); i < nd; i += grid_stride()) {
-    out[i] = static_cast<float>(count[i]);
   }
 }
 

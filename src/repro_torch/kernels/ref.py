@@ -4,10 +4,12 @@ They are the kernels' yardsticks: the CPU path of ``kernels.ops`` (the
 tests run them against the JAX package's Pallas kernels in interpret
 mode) and, on the card, what ``chip_smoke.py`` holds each Hopper kernel
 against.  Each computes exactly its kernel's function with plain tensor
-operations: ``relax_ref`` and ``segment_combine_ref`` are the JAX
-package's ``kernels/ref.py`` oracles; ``deliver_fused_ref`` is the jnp
-branch of the reference engine's owner delivery (``core/engine.py``
-``_deliver``), which has no standalone oracle there.
+operations: ``histogram_ref``, ``relax_ref`` and ``segment_combine_ref``
+are the JAX package's ``kernels/ref.py`` oracles; ``deliver_fused_ref``
+is the jnp branch of the reference engine's owner delivery
+(``core/engine.py`` ``_deliver``), which has no standalone oracle there;
+``spmv_ref`` computes the BCSR product block by block, as the Pallas
+kernel does (the reference's oracle ``spmv_ref_csr`` works on the CSR).
 """
 from __future__ import annotations
 
@@ -19,6 +21,30 @@ INF = float("inf")
 def check_combine(combine: str) -> None:
     if combine not in ("min", "add"):
         raise ValueError(f"combine must be 'min' or 'add', got {combine!r}")
+
+
+def histogram_ref(idx, num_bins: int):
+    """Count bin ids; ids < 0 (padding) and >= num_bins are ignored.
+    Returns (num_bins,) f32."""
+    ok = (idx >= 0) & (idx < num_bins)
+    safe = torch.where(ok, idx, num_bins).to(torch.int64)
+    return torch.bincount(safe, minlength=num_bins + 1)[:num_bins].to(
+        torch.float32)
+
+
+def spmv_ref(blocks, cols, x, m: int):
+    """y = A @ x over ELL-padded BCSR: blocks (Mb, kmax, bm, bk) f32,
+    cols (Mb, kmax) block-column ids, x (K,).  Each block times the x
+    block its ``cols`` entry picks, summed over the block-row's kmax
+    blocks.  Returns (m,) f32."""
+    bk = blocks.shape[3]
+    kb = -(-x.shape[0] // bk)
+    xp = torch.zeros((max(kb, 1) * bk,), dtype=torch.float32,
+                     device=x.device)
+    xp[: x.shape[0]] = x
+    xb = xp.reshape(-1, bk)[cols.to(torch.int64)]          # (Mb, kmax, bk)
+    y = torch.matmul(blocks, xb.unsqueeze(-1)).sum(dim=1)  # (Mb, bm, 1)
+    return y.reshape(-1)[:m]
 
 
 def relax_ref(values, mail_val, mail_flag, combine: str = "min"):

@@ -23,7 +23,7 @@ from repro.graph import apps as japps
 from repro.graph import rmat_edges as jrmat_edges
 
 from repro_torch import convert
-from repro_torch.core import engine, proxy
+from repro_torch.core import engine
 from repro_torch.core.tilegrid import ChipPartition, square_grid
 from repro_torch.graph import apps, oracles, rmat_edges
 from repro_torch.obs.metrics import default_registry
@@ -191,9 +191,6 @@ def test_default_device_is_the_card(graphs):
 
 
 UNPORTED = {
-    "write_back": dict(proxy=proxy.ProxyConfig(4, 4, write_back=True)),
-    "cascade": dict(proxy=proxy.ProxyConfig(
-        2, 2, cascade=proxy.CascadeConfig(levels=1))),
     "compaction": dict(compaction=2),
     "telemetry": dict(telemetry=True),
     "sanitize": dict(sanitize=True),

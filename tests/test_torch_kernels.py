@@ -25,9 +25,11 @@ from repro.kernels import relax_min as jrx
 from repro.kernels import segment_combine as jsc
 
 from repro_torch.kernels import deliver_fused as df
+from repro_torch.kernels import histogram_bin as hb
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import relax_min as rx
 from repro_torch.kernels import segment_combine as sc
+from repro_torch.kernels import spmv_csr as sp
 
 ADD_RTOL, ADD_ATOL = 1e-5, 1e-6
 COMBINES = ("min", "add")
@@ -145,7 +147,8 @@ def test_big_stand_in_difference_is_pinned():
 
 
 @pytest.mark.parametrize("kernel", [rx.relax, sc.segment_combine,
-                                    df.deliver_fused])
+                                    df.deliver_fused, hb.histogram_bin,
+                                    sp.spmv_bcsr])
 def test_hopper_wrappers_refuse_cpu_tensors(kernel):
     """A wrapper launches its kernel or raises: it never takes the plain
     version itself, and a refused call counts no launch."""
@@ -157,6 +160,11 @@ def test_hopper_wrappers_refuse_cpu_tensors(kernel):
             kernel(x, x, x > 0)
         elif kernel is sc.segment_combine:
             kernel(seg, x, 4)
+        elif kernel is hb.histogram_bin:
+            kernel(seg, 4)
+        elif kernel is sp.spmv_bcsr:
+            kernel(torch.zeros((1, 1, 4, 4)),
+                   torch.zeros((1, 1), dtype=torch.int32), x, 4)
         else:
             kernel(seg, x, x)
     assert kernel.launches == before
