@@ -15,7 +15,8 @@ on past a failure:
    relax, segment_combine and deliver_fused at the BFS path's shapes for
    min and add, and in their add form at the write-back flush wave's
    shapes; histogram_bin on the Histogram input (bitwise); spmv_bcsr on
-   RMAT-14 in 128x128 BCSR (rtol/atol 1e-4).  Each timed (CUDA events,
+   RMAT-14 in 128x128 BCSR (rtol/atol 1e-4; its library call a
+   ``torch.sparse_bsr_tensor`` product).  Each timed (CUDA events,
    inputs rotated past L2) beside its bound, its plain version and, where
    one PyTorch call computes the same function, that call;
 5. BFS on RMAT-22 over one 64x64-tile package (4096 tiles) with the
@@ -28,17 +29,27 @@ on past a failure:
 7. the kernel entry points ``ops.histogram`` on the Histogram input
    (bitwise equal to the engine's counts and ``np.bincount``) and
    ``ops.spmv`` on RMAT-14 (against scipy and the engine's SpMV);
-8. backend agreement at RMAT-18: BFS, SpMV, Histogram and PageRank
+8. the kernel entry point ``ops.decode_attention``: one layer's decode
+   attention at decode_32k (a 32,768-position KV cache), bf16, at the
+   head geometry of starcoder2-3b (batch 128, and one request: the
+   split path), h2o-danube-3-4b (batch 128, D = 120) and deepseek-7b
+   (batch cut to 32); each against the plain version on the card
+   (rtol/atol 2e-2; lengths S, then ragged lengths with 0, 1, S and past
+   S; the one-request shape also in f32, 1e-4), timed beside its bound,
+   the plain version and ``scaled_dot_product_attention`` (its backend
+   printed);
+9. backend agreement at RMAT-18: BFS, SpMV, Histogram and PageRank
    (epochs=3) with ``kernels`` and with ``torch``: counters, trace,
    supersteps and ``time_s`` exact, values bitwise (BFS, Histogram) or
    within rtol 1e-4 / atol 1e-5 (SpMV, PageRank); PageRank against its
    oracle;
-9. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
-   the last line, ``{"ok": true, "device": {...}}``.
+10. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
+    the last line, ``{"ok": true, "device": {...}}``.
 
-Each main-path run (phases 5-7) sets every kernel's launch count to 0
+Each main-path run (phases 5-8) sets every kernel's launch count to 0
 just before it and reads the counts just after; a kernel on the path
-that did not launch at least once per superstep fails the run.
+that did not launch (at least once per superstep, on the engine's
+paths) fails the run.
 
 Without a CUDA device, or without the repo's ``src/repro_torch`` beside
 it, the script prints no result and exits nonzero.
@@ -71,6 +82,22 @@ SPMV_RTOL, SPMV_ATOL = 1e-4, 1e-4     # tests/test_kernels.py (spmv_bcsr)
 APP_RTOL, APP_ATOL = 1e-3, 1e-3       # tests/test_engine_apps.py (spmv)
 AGREE_RTOL, AGREE_ATOL = 1e-4, 1e-5   # tests/test_cascade.py
 PR_RTOL, PR_ATOL = 1e-4, 1e-7         # tests/test_engine_apps.py (pagerank)
+
+# kernel entry point ops.decode_attention: one layer's decode attention at
+# decode_32k (src/repro/launch/shapes.py:40: a 32,768-position KV cache,
+# batch 128) at the head geometry of src/repro/models/registry.py, bf16
+DECODE_S = 32768
+DECODE_SHAPES = (      # label, B, H, Hkv, D
+    ("starcoder2-3b", 128, 24, 2, 128),
+    ("h2o-danube-3-4b", 128, 32, 8, 120),
+    ("deepseek-7b, batch cut 128 -> 32", 32, 32, 32, 128),
+    ("starcoder2-3b, one request", 1, 24, 2, 128),
+)
+DECODE_TOL = 2e-2          # bf16 outputs (tests/test_kernels.py)
+DECODE_F32_TOL = 1e-4      # f32 (tests/test_kernels.py)
+DECODE_Q_STD = 3.0         # scores of std 3: a peaked softmax, O(1) outputs
+PLAIN_SLICE_BYTES = 4 * 2**30   # f32 K and V per slice of the plain version
+F32_FLOP_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 
 
 class SmokeFailure(Exception):
@@ -377,11 +404,33 @@ def kernel_phase(dev, wl) -> list:
     nbytes = (dmat.blocks.numel() * 4 + dmat.cols.numel() * 4
               + 4 * g.n_cols + 4 * g.n_rows)
     # 2 flops per block element; f32 outside the tensor cores: 67 TFLOP/s
-    flop_ms = 2 * dmat.blocks.numel() / 67e12 * 1e3
+    flop_ms = 2 * dmat.blocks.numel() / F32_FLOP_PER_S * 1e3
+    # the library call: one product of a torch.sparse_bsr_tensor over the
+    # present blocks (the ELL padding, all-zero blocks of column 0, which
+    # a BSR tensor cannot repeat, left out) with x as a column
+    present = ~((dmat.cols == 0) & (dmat.blocks.abs().amax(dim=(2, 3)) == 0))
+    kb = -(-g.n_cols // mat.bk)
+    bsr = torch.sparse_bsr_tensor(
+        torch.cat([present.new_zeros(1, dtype=torch.int64),
+                   present.sum(1).cumsum(0)]),
+        dmat.cols[present].long(), dmat.blocks[present],
+        size=(mat.mb * mat.bm, kb * mat.bk), check_invariants=True)
+    xcol = torch.zeros((kb * mat.bk, 1), device=dev)
+    xcol[:g.n_cols, 0] = xs
+    lib_y = (bsr @ xcol)[:g.n_rows, 0]
+    require(torch.allclose(lib_y, sp.plain(dmat.blocks, dmat.cols, xs,
+                                           g.n_rows),
+                           rtol=SPMV_RTOL, atol=SPMV_ATOL),
+            "spmv_bcsr: the BSR library product differs from the plain "
+            "version")
+    print(f"  library call: sparse_bsr_tensor @ x over "
+          f"{int(present.sum())} of {present.numel()} ELL blocks")
     main = _measure("spmv_bcsr", None,
                     (dmat.blocks, dmat.cols, xs, g.n_rows), sp.spmv_bcsr,
                     sp.plain, nbytes, rtol=SPMV_RTOL, atol=SPMV_ATOL,
-                    what=f"RMAT-{SPMV_KERNEL_SCALE}")
+                    what=f"RMAT-{SPMV_KERNEL_SCALE}",
+                    library=(lambda a, x: a @ x, [(bsr, xcol)]))
+    del bsr, lib_y, present
     require(main["bound_ms"] >= flop_ms,
             "spmv_bcsr: the operation bound exceeds the byte bound")
     dense = torch.from_numpy(scipy_csr(g).toarray()).to(dev)
@@ -656,10 +705,145 @@ def ops_phase(dev, wl) -> dict:
     return launches
 
 
+# ------------------------------------------------- 8. decode attention
+def plain_by_slices(q, k, v, lengths, scale=None):
+    """The plain version over slices of the batch, so that its f32 copies
+    of K and V stay within ``PLAIN_SLICE_BYTES``."""
+    from repro_torch.kernels import decode_attention as da
+    _, hkv, s, d = k.shape
+    rows = max(1, PLAIN_SLICE_BYTES // (8 * hkv * s * d))
+    return torch.cat([da.plain(q[i:i + rows], k[i:i + rows], v[i:i + rows],
+                               lengths[i:i + rows], scale)
+                      for i in range(0, q.shape[0], rows)])
+
+
+def sdpa_library(q, k, v, lengths, scale):
+    """``scaled_dot_product_attention`` over the same inputs (the same
+    function for lengths in [1, S]): (ms, the backend PyTorch picks, its
+    output)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+    keep = torch.arange(k.shape[2], device=k.device)[None, :] < lengths[:, None]
+    args = (q[:, :, None], k, v, keep[:, None, None, :])
+    backend = SDPBackend(torch._fused_sdp_choice(
+        *args, 0.0, False, scale=scale, enable_gqa=True)).name
+
+    def call(q4, kk, vv, mask):
+        return F.scaled_dot_product_attention(
+            q4, kk, vv, attn_mask=mask, scale=scale, enable_gqa=True)
+    out = call(*args)[:, :, 0]
+    ms = time_cuda(call, copies(args, 2 * k.numel() * k.element_size()))
+    return ms, backend, out
+
+
+def decode_phase(dev) -> tuple:
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    print(f"== 8. kernel entry point ops.decode_attention: one layer at "
+          f"decode_32k (S {DECODE_S}), bf16 (rtol/atol {DECODE_TOL}; f32 "
+          f"{DECODE_F32_TOL})")
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain version: f32
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    s = DECODE_S
+    launches = {k.__name__: 0 for k in ops.KERNELS}
+    shapes = []
+
+    def check(what, got, want, tol):
+        err = max_abs_err(got.float(), want.float())
+        require(got.shape == want.shape and got.dtype == want.dtype
+                and bool(torch.isfinite(got).all())
+                and torch.allclose(got.float(), want.float(), rtol=tol,
+                                   atol=tol),
+                f"decode_attention {what}: outside rtol/atol {tol} "
+                f"(max |err| {err})")
+        return err
+
+    for label, b, h, hkv, d in DECODE_SHAPES:
+        t1 = time.perf_counter()
+        q = torch.randn((b, h, d), generator=gen, device=dev) * DECODE_Q_STD
+        q = q.to(torch.bfloat16)
+        k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+        full = torch.full((b,), s, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        out = ops.decode_attention(q, k, v, full)
+        torch.cuda.synchronize()
+        for kern in ops.KERNELS:
+            launches[kern.__name__] += kern.launches
+        require(da.decode_attention.launches == 1,
+                f"{label}: ops.decode_attention launched its kernel "
+                f"{da.decode_attention.launches} times")
+        err = check(f"{label}, lengths S", out, plain_by_slices(q, k, v, full),
+                    DECODE_TOL)
+        # ragged lengths from the seed, with 0, 1, S and one past S
+        specials = torch.tensor([0, 1, s, s + 100], dtype=torch.int32,
+                                device=dev)
+        ragged = torch.randint(0, s + 1, (b,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        ragged[:4] = specials[:b]
+        sets = [ragged] if b >= 4 else [specials[i:i + 1] for i in range(4)]
+        for lens in sets:
+            err = max(err, check(f"{label}, ragged lengths",
+                                 da.decode_attention(q, k, v, lens),
+                                 plain_by_slices(q, k, v, lens), DECODE_TOL))
+        nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + 4 * b
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = 4 * b * h * s * d / F32_FLOP_PER_S * 1e3
+        args = copies((q, k, v, full), nbytes)
+        ms = time_cuda(da.decode_attention, args)
+        plain_ms = time_cuda(plain_by_slices, args)
+        del args
+        lib_ms, backend, lib_out = sdpa_library(q, k, v, full,
+                                                1.0 / math.sqrt(d))
+        lib_err = max_abs_err(lib_out.float(), out.float())
+        del lib_out
+        row = dict(shape=label, B=b, H=h, Hkv=hkv, S=s, D=d,
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=max(byte_ms, op_ms),
+                   bound_by="bytes" if byte_ms >= op_ms else "operations",
+                   byte_bound_ms=byte_ms, op_bound_ms=op_ms,
+                   library_ms=lib_ms, library_backend=backend,
+                   library_max_abs_err=lib_err)
+        if b == 1:      # the split path once more in f32
+            qf, kf, vf = q.float(), k.float(), v.float()
+            for n in (s, s // 3):
+                lens = torch.full((1,), n, dtype=torch.int32, device=dev)
+                row["f32_max_abs_err"] = max(
+                    row.get("f32_max_abs_err", 0.0),
+                    check(f"{label}, f32, length {n}",
+                          da.decode_attention(qf, kf, vf, lens),
+                          da.plain(qf, kf, vf, lens), DECODE_F32_TOL))
+            del qf, kf, vf
+        shapes.append(row)
+        print(f"  {label} (B {b}, H {h}, Hkv {hkv}, D {d}): ok (max |err| "
+              f"{err:g}{', f32 %g' % row['f32_max_abs_err'] if b == 1 else ''})"
+              f"; {ms:.4f} ms vs byte bound {byte_ms:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB; op bound {op_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms ({backend}; max "
+              f"|err| vs kernel {lib_err:g}); "
+              f"{time.perf_counter() - t1:.1f} s")
+        del q, k, v, full, out
+        torch.cuda.empty_cache()
+    print(f"  launches {json.dumps(launches)}")
+    print(f"  decode phase {time.perf_counter() - t0:.1f} s")
+    main = {key: shapes[0][key] for key in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "library_ms")}
+    row = dict(name="decode_attention", route="cuda",
+               source="src/repro_torch/kernels/csrc/decode_attention.cu",
+               replaces="src/repro/kernels/decode_attention.py:61",
+               launches=0, **main, shapes=shapes)
+    return row, launches
+
+
 def agreement_phase(dev, wl) -> None:
     from repro_torch.graph import apps, oracles
     from repro_torch.graph.rmat import histogram_input
-    print(f"== 8. backend agreement (kernels vs torch) at RMAT-{AGREE_SCALE} "
+    print(f"== 9. backend agreement (kernels vs torch) at RMAT-{AGREE_SCALE} "
           f"on {TILES} tiles")
     g, grid = wl[AGREE_SCALE], wl["grid"]
     bins = g.n_rows // 8
@@ -711,6 +895,8 @@ def main() -> int:
     by_path = dict(bfs=bfs_phase(dev, wl))
     by_path.update(add_apps_phase(dev, wl))
     by_path["ops"] = ops_phase(dev, wl)
+    decode_row, by_path["decode"] = decode_phase(dev)
+    rows.append(decode_row)
     agreement_phase(dev, wl)
     for row in rows:
         row["launches_by_path"] = {p: n[row["name"]]
@@ -719,7 +905,7 @@ def main() -> int:
         require(row["launches"] > 0,
                 f"{row['name']} never launched on a main path")
 
-    print(f"== 9. done in {time.perf_counter() - t_start:.1f} s")
+    print(f"== 10. done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(c["smi"])
     print(json.dumps({"ok": True, "device": {

@@ -98,15 +98,18 @@ def library(stem: str) -> ctypes.CDLL:
     return lib
 
 
-def bind(stem: str, fn: str, n_ptrs: int, n_sizes: int, n_ints: int):
+def bind(stem: str, fn: str, n_ptrs: int, n_sizes: int, n_ints: int,
+         n_floats: int = 0):
     """The C launcher ``fn`` of ``csrc/<stem>.cu`` with its argument types
     set: ``n_ptrs`` pointers, ``n_sizes`` 64-bit sizes, ``n_ints`` ints,
-    then the stream; it returns the launch's CUDA error code."""
+    ``n_floats`` floats, then the stream; it returns the launch's CUDA
+    error code."""
     f = getattr(library(stem), fn)
     if f.argtypes is None:
         f.argtypes = ([ctypes.c_void_p] * n_ptrs
                       + [ctypes.c_longlong] * n_sizes
-                      + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
+                      + [ctypes.c_int] * n_ints
+                      + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
         f.restype = ctypes.c_int
     return f
 
@@ -120,8 +123,9 @@ def launch(name: str, fn, *args) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
-def check(name: str, t, dtypes, numel=None, device=None) -> None:
-    """Raise unless ``t`` is a contiguous 1-D CUDA tensor of one of
+def check(name: str, t, dtypes, numel=None, device=None,
+          ndim: int = 1) -> None:
+    """Raise unless ``t`` is a contiguous ``ndim``-D CUDA tensor of one of
     ``dtypes`` (of ``numel`` elements and on ``device``, when given)."""
     if not t.is_cuda:
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
@@ -130,8 +134,8 @@ def check(name: str, t, dtypes, numel=None, device=None) -> None:
         raise ValueError(f"{name}: tensors on {t.device} and {device}")
     if t.dtype not in dtypes:
         raise ValueError(f"{name}: dtype {t.dtype}, expected one of {dtypes}")
-    if t.dim() != 1 or not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous 1-D tensor, got "
-                         f"shape {tuple(t.shape)}")
+    if t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {ndim}-D tensor, "
+                         f"got shape {tuple(t.shape)}")
     if numel is not None and t.numel() != numel:
         raise ValueError(f"{name}: {t.numel()} elements, expected {numel}")

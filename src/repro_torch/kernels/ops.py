@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from . import decode_attention as _da
 from . import deliver_fused as _df
 from . import histogram_bin as _hb
 from . import relax_min as _rx
@@ -59,8 +60,21 @@ def deliver_fused(seg, val, mail_val, combine: str = "min"):
     return _df.plain(seg, val, mail_val, combine)
 
 
+def decode_attention(q, k, v, lengths, scale=None, block_s: int = 512):
+    """One query token per (batch, head) against a KV cache: q (B, H, D),
+    k and v (B, Hkv, S, D), lengths (B,) int32; each group of H / Hkv
+    query heads shares a KV head; ``scale`` defaults to 1/sqrt(D).  The
+    Pallas kernel's function: positions past a length are masked, and K
+    and V count as zero-padded to a multiple of ``block_s`` (so a length
+    <= 0 gives the mean of V over the padded length).  f32 inside;
+    returns (B, H, D) in q's dtype."""
+    if q.is_cuda:
+        return _da.decode_attention(q, k, v, lengths, scale, block_s)
+    return _da.plain(q, k, v, lengths, scale, block_s)
+
+
 KERNELS = (_rx.relax, _sc.segment_combine, _df.deliver_fused,
-           _hb.histogram_bin, _sp.spmv_bcsr)
+           _hb.histogram_bin, _sp.spmv_bcsr, _da.decode_attention)
 
 
 def reset_launches() -> None:

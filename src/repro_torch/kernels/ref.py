@@ -9,9 +9,14 @@ are the JAX package's ``kernels/ref.py`` oracles; ``deliver_fused_ref``
 is the jnp branch of the reference engine's owner delivery
 (``core/engine.py`` ``_deliver``), which has no standalone oracle there;
 ``spmv_ref`` computes the BCSR product block by block, as the Pallas
-kernel does (the reference's oracle ``spmv_ref_csr`` works on the CSR).
+kernel does (the reference's oracle ``spmv_ref_csr`` works on the CSR);
+``decode_attention_ref`` is the Pallas decode kernel's function, padding
+and finite mask included, which the reference's ``decode_attention_ref``
+is not at the edges (``length <= 0``, ``length > S``).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -100,3 +105,50 @@ def deliver_fused_ref(seg, val, mail_val, combine: str = "min"):
         inc.index_add_(0, safe, torch.where(ok, val, 0.0))
         out = mail_val + inc[:nd]
     return out, cnt[:nd].to(torch.float32)
+
+
+MASKED_SCORE = -1e30     # the Pallas kernel's finite mask (_NEG)
+
+
+def decode_geometry(q, k, v):
+    """(B, H, Hkv, S, D, G) of a decode-attention call; raises ValueError
+    unless q is (B, H, D), k and v are (B, Hkv, S, D) with S >= 1, and
+    H is a multiple of Hkv (G = H / Hkv query heads share a KV head)."""
+    if q.dim() != 3 or k.dim() != 4 or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"decode_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} are not "
+                         f"(B, H, D) and (B, Hkv, S, D)")
+    b, h, d = q.shape
+    _, hkv, s, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d or s < 1 or hkv < 1:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} disagree")
+    if h % hkv:
+        raise ValueError(f"decode_attention: {h} query heads are not a "
+                         f"multiple of {hkv} KV heads")
+    return b, h, hkv, s, d, h // hkv
+
+
+def decode_attention_ref(q, k, v, lengths, scale=None, block_s: int = 512):
+    """One query token per (batch, head) against a KV cache, as the Pallas
+    kernel computes it: K and V zero-padded to a multiple of ``block_s``
+    positions, positions ``>= lengths[b]`` scored ``MASKED_SCORE``, an
+    f32 softmax over the padded positions, the weighted sum of V.  So
+    ``length <= 0`` gives the mean of V over the padded length, and
+    ``length > S`` counts the padded positions below it with score 0.
+    q: (B, H, D); k, v: (B, Hkv, S, D); lengths: (B,) int.  Each group
+    of H / Hkv query heads shares one KV head (no copy of K or V per
+    head).  Returns (B, H, D) in q's dtype."""
+    b, h, hkv, s, d, g = decode_geometry(q, k, v)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    s_pad = -(-s // block_s) * block_s
+    qf = q.to(torch.float32).reshape(b, hkv, g, d)
+    scores = torch.einsum("bkgd,bksd->bkgs", qf, k.to(torch.float32)) * scale
+    scores = torch.cat([scores, scores.new_zeros((b, hkv, g, s_pad - s))], -1)
+    pos = torch.arange(s_pad, device=q.device)
+    keep = pos[None, :] < lengths.to(q.device)[:, None]
+    p = torch.softmax(torch.where(keep[:, None, None, :], scores,
+                                  MASKED_SCORE), dim=-1)
+    out = torch.einsum("bkgs,bksd->bkgd", p[..., :s], v.to(torch.float32))
+    return out.reshape(b, h, d).to(q.dtype)

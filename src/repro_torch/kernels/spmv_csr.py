@@ -102,12 +102,9 @@ def spmv_bcsr(blocks, cols, x, m: int):
     if not 0 <= m <= mb * bm:
         raise ValueError(f"spmv_bcsr: {m} rows do not fit {mb} block-rows "
                          f"of {bm}")
-    _build.check("spmv_bcsr blocks", blocks.reshape(-1), (torch.float32,),
-                 None, dev)
-    _build.check("spmv_bcsr cols", cols.reshape(-1), (torch.int32,), None,
-                 dev)
-    if not (blocks.is_contiguous() and cols.is_contiguous()):
-        raise ValueError("spmv_bcsr: blocks and cols must be contiguous")
+    _build.check("spmv_bcsr blocks", blocks, (torch.float32,), device=dev,
+                 ndim=4)
+    _build.check("spmv_bcsr cols", cols, (torch.int32,), device=dev, ndim=2)
     y = torch.empty((m,), dtype=torch.float32, device=dev)
     fn = _build.bind("spmv_bcsr", "spmv_bcsr_launch", 4, 3, 3)
     with torch.cuda.device(dev):

@@ -1,7 +1,7 @@
 """The port on a CUDA card: Hopper kernels against their plain versions,
 the engine through the kernels against the same engine on the CPU (the
-min apps and the write-back add apps), and a superstep that makes no
-host sync of its own.
+min apps and the write-back add apps), a superstep that makes no host
+sync of its own, and ``ops.decode_attention`` through its kernel.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 decision is taken inside each test.  On a machine with a card:
@@ -16,6 +16,7 @@ from repro_torch.core import engine
 from repro_torch.core.tilegrid import square_grid
 from repro_torch.graph import apps, rmat_edges
 from repro_torch.graph.rmat import histogram_input
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import deliver_fused as df
 from repro_torch.kernels import histogram_bin as hb
 from repro_torch.kernels import ops
@@ -127,6 +128,50 @@ def test_wrappers_check_their_inputs():
         sp.spmv_bcsr(torch.zeros((2, 1, 4, 4), device=dev),
                      torch.zeros((2, 2), dtype=torch.int32, device=dev), x,
                      8)
+    q = torch.zeros((2, 4, 16), device=dev)
+    kv = torch.zeros((2, 2, 40, 16), device=dev)
+    lens = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        da.decode_attention(q, kv.transpose(2, 3).contiguous()
+                            .transpose(2, 3), kv, lens)
+    with pytest.raises(ValueError, match="dtype"):
+        da.decode_attention(q, kv.bfloat16(), kv, lens)
+    with pytest.raises(ValueError, match="dtype"):
+        da.decode_attention(q.half(), kv.half(), kv.half(), lens)
+    with pytest.raises(ValueError, match="multiple"):
+        da.decode_attention(q[:, :3].contiguous(), kv, kv, lens)
+    with pytest.raises(ValueError, match="range"):
+        da.decode_attention(q[..., :12].contiguous(),
+                            kv[..., :12].contiguous(),
+                            kv[..., :12].contiguous(), lens)
+    with pytest.raises(ValueError, match="elements"):
+        da.decode_attention(q, kv, kv, lens[:1])
+
+
+@pytest.mark.parametrize("length", [0, 1, 1000, 1100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,hkv,d", [(1, 24, 2, 120), (3, 64, 1, 64)])
+def test_decode_attention_matches_plain_on_card(b, h, hkv, d, dtype, length):
+    """Batch 1 (the split path: 2 KV heads over many splits) with D = 120
+    and G = 12, and G = 64 (8 heads per warp); lengths 0, 1, S and past S
+    in a ragged padded block (S = 1000, block_s 256); rtol/atol 1e-4 in
+    f32, 2e-2 in bf16."""
+    dev = _card()
+    rng = np.random.default_rng(length)
+    s = 1000
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(dev, dt) for shape in [(b, h, d), (b, hkv, s, d),
+                                          (b, hkv, s, d)])
+    lens = torch.full((b,), length, dtype=torch.int32, device=dev)
+    launches = da.decode_attention.launches
+    got = ops.decode_attention(q, k, v, lens, block_s=256)
+    assert da.decode_attention.launches == launches + 1
+    assert got.dtype == dt and got.shape == (b, h, d)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), da.plain(q, k, v, lens,
+                                                     block_s=256).float(),
+                               rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("proxied", [False, True], ids=["direct", "table2"])

@@ -24,6 +24,7 @@ from repro.kernels import deliver_fused as jdf
 from repro.kernels import relax_min as jrx
 from repro.kernels import segment_combine as jsc
 
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import deliver_fused as df
 from repro_torch.kernels import histogram_bin as hb
 from repro_torch.kernels import ops, ref
@@ -148,7 +149,7 @@ def test_big_stand_in_difference_is_pinned():
 
 @pytest.mark.parametrize("kernel", [rx.relax, sc.segment_combine,
                                     df.deliver_fused, hb.histogram_bin,
-                                    sp.spmv_bcsr])
+                                    sp.spmv_bcsr, da.decode_attention])
 def test_hopper_wrappers_refuse_cpu_tensors(kernel):
     """A wrapper launches its kernel or raises: it never takes the plain
     version itself, and a refused call counts no launch."""
@@ -165,6 +166,9 @@ def test_hopper_wrappers_refuse_cpu_tensors(kernel):
         elif kernel is sp.spmv_bcsr:
             kernel(torch.zeros((1, 1, 4, 4)),
                    torch.zeros((1, 1), dtype=torch.int32), x, 4)
+        elif kernel is da.decode_attention:
+            kv = torch.zeros((1, 1, 4, 8))
+            kernel(torch.zeros((1, 2, 8)), kv, kv, seg[:1])
         else:
             kernel(seg, x, x)
     assert kernel.launches == before
