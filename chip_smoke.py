@@ -37,7 +37,8 @@ on past a failure:
    (rtol/atol 2e-2; lengths S, then ragged lengths with 0, 1, S and past
    S; the one-request shape also in f32, 1e-4), timed beside its bound,
    the plain version and ``scaled_dot_product_attention`` (its backend
-   printed);
+   printed); which split kernel ran (bf16 on the tensor cores, f32 on
+   the CUDA cores) and the bf16 error beside the CUDA-core kernel's;
 9. backend agreement at RMAT-18: BFS, SpMV, Histogram and PageRank
    (epochs=3) with ``kernels`` and with ``torch``: counters, trace,
    supersteps and ``time_s`` exact, values bitwise (BFS, Histogram) or
@@ -95,9 +96,11 @@ DECODE_SHAPES = (      # label, B, H, Hkv, D
 )
 DECODE_TOL = 2e-2          # bf16 outputs (tests/test_kernels.py)
 DECODE_F32_TOL = 1e-4      # f32 (tests/test_kernels.py)
+DECODE_CUDA_CORE_ERR = 0.0078   # bf16 max |err| of the CUDA-core kernel
 DECODE_Q_STD = 3.0         # scores of std 3: a peaked softmax, O(1) outputs
 PLAIN_SLICE_BYTES = 4 * 2**30   # f32 K and V per slice of the plain version
 F32_FLOP_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 
 
 class SmokeFailure(Exception):
@@ -792,7 +795,8 @@ def decode_phase(dev) -> tuple:
                                  plain_by_slices(q, k, v, lens), DECODE_TOL))
         nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + 4 * b
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        op_ms = 4 * b * h * s * d / F32_FLOP_PER_S * 1e3
+        # the bf16 products run on the tensor cores
+        op_ms = 4 * b * h * s * d / BF16_FLOP_PER_S * 1e3
         args = copies((q, k, v, full), nbytes)
         ms = time_cuda(da.decode_attention, args)
         plain_ms = time_cuda(plain_by_slices, args)
@@ -802,6 +806,7 @@ def decode_phase(dev) -> tuple:
         lib_err = max_abs_err(lib_out.float(), out.float())
         del lib_out
         row = dict(shape=label, B=b, H=h, Hkv=hkv, S=s, D=d,
+                   kernel=da.split_kernel(q.dtype),
                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    bound_ms=max(byte_ms, op_ms),
                    bound_by="bytes" if byte_ms >= op_ms else "operations",
@@ -810,6 +815,7 @@ def decode_phase(dev) -> tuple:
                    library_max_abs_err=lib_err)
         if b == 1:      # the split path once more in f32
             qf, kf, vf = q.float(), k.float(), v.float()
+            row["f32_kernel"] = da.split_kernel(qf.dtype)
             for n in (s, s // 3):
                 lens = torch.full((1,), n, dtype=torch.int32, device=dev)
                 row["f32_max_abs_err"] = max(
@@ -819,8 +825,11 @@ def decode_phase(dev) -> tuple:
                           da.plain(qf, kf, vf, lens), DECODE_F32_TOL))
             del qf, kf, vf
         shapes.append(row)
-        print(f"  {label} (B {b}, H {h}, Hkv {hkv}, D {d}): ok (max |err| "
-              f"{err:g}{', f32 %g' % row['f32_max_abs_err'] if b == 1 else ''})"
+        f32 = (f", f32 {row['f32_max_abs_err']:g} on the {row['f32_kernel']}"
+               if b == 1 else "")
+        print(f"  {label} (B {b}, H {h}, Hkv {hkv}, D {d}): {row['kernel']}, "
+              f"ok (max |err| {err:g}, the CUDA-core kernel's "
+              f"{DECODE_CUDA_CORE_ERR:g}{f32})"
               f"; {ms:.4f} ms vs byte bound {byte_ms:.4f} ms "
               f"({nbytes / 1e6:.1f} MB; op bound {op_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms ({backend}; max "

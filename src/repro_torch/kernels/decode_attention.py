@@ -7,12 +7,15 @@ the online-softmax state in VMEM from one KV block to the next; this one
 threads per (split, KV head, batch row) reads each K/V row once for the
 whole group of query heads that shares it and writes a partial (max,
 sum, weighted V) to an f32 workspace, and a second launch merges the
-splits.  The function is the Pallas kernel's, padding and finite mask
-included (see ``ref.decode_attention_ref``).  Bound by device-memory
-bytes: K and V are read once, 4 flops per (head, position, dim).
+splits.  bf16 inputs take the tensor-core kernel (``mma.sync`` for Q.K^T
+and P.V), f32 inputs the CUDA-core one.  The function is the Pallas
+kernel's, padding and finite mask included (see
+``ref.decode_attention_ref``).  Bound by device-memory bytes: K and V
+are read once, 4 flops per (head, position, dim).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -22,25 +25,41 @@ from .ref import decode_attention_ref as plain
 from .ref import decode_geometry
 
 DTYPES = (torch.float32, torch.bfloat16)
-TILE = 32                 # positions per tile (kTile in the source)
-TARGET_BLOCKS = 132 * 8   # blocks of threads to aim for: 132 SMs, 8 each
+TILE = 64                 # positions per tile (kTcTile, kChunkUnit)
+WAVE = 132                # blocks a wave: one an SM (two are resident)
+WAVE_FILL = 0.9           # the share of the last wave to fill
 MIN_TILES = 4             # tiles per split, at least (where S has them)
 MAX_SPLITS = 1024         # kMaxSplits in the source
 MAX_D = 128
 MAX_GROUP = 64
 
 
+@functools.lru_cache(maxsize=256)
 def split_plan(pairs: int, s: int):
     """(splits, chunk) for ``pairs`` (batch, KV head) pairs over S
-    positions: enough splits of whole tiles that the grid holds about
-    ``TARGET_BLOCKS`` blocks, each of at least ``MIN_TILES`` tiles (so
-    that the partials stay small beside the K/V a split reads), and no
-    split without a position."""
+    positions: the fewest splits of whole tiles whose ``pairs * splits``
+    blocks fill every wave of ``WAVE`` blocks to ``WAVE_FILL``, each
+    split of at least ``MIN_TILES`` tiles (so that the partials stay
+    small beside the K/V a split reads); the most such splits where
+    none fills the waves.  No split is without a position.  A wave of
+    one block an SM, not of the two that fit: at one request of
+    decode_32k, 64 splits of 512 positions beat 128 of 256 on the card
+    (PERF.md)."""
     tiles = -(-s // TILE)
-    splits = min(-(-tiles // MIN_TILES), MAX_SPLITS,
-                 max(1, -(-TARGET_BLOCKS // pairs)))
-    chunk = -(-tiles // splits) * TILE
-    return -(-s // chunk), chunk
+    most = min(-(-tiles // MIN_TILES), MAX_SPLITS)
+    for n in range(1, most + 1):
+        per = -(-tiles // n)            # tiles a split
+        splits = -(-tiles // per)
+        blocks = pairs * splits
+        if blocks >= WAVE_FILL * WAVE * -(-blocks // WAVE):
+            break
+    return splits, per * TILE
+
+
+def split_kernel(dtype: torch.dtype) -> str:
+    """Which split kernel the launcher runs for inputs of ``dtype``: bf16
+    on the tensor cores (``mma.sync``), f32 on the CUDA cores."""
+    return "tensor cores" if dtype == torch.bfloat16 else "CUDA cores"
 
 
 def decode_attention(q, k, v, lengths, scale=None, block_s: int = 512):
@@ -85,4 +104,4 @@ def decode_attention(q, k, v, lengths, scale=None, block_s: int = 512):
 
 
 decode_attention.launches = 0
-__all__ = ["decode_attention", "plain", "split_plan"]
+__all__ = ["decode_attention", "plain", "split_kernel", "split_plan"]

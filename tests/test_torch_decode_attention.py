@@ -132,13 +132,27 @@ def test_entry_point_contract():
 
 
 @pytest.mark.parametrize("pairs,s", [(256, 32768), (2, 32768), (1024, 32768),
-                                     (1, 1), (3, 1000), (70_000, 65)])
+                                     (1, 1), (3, 1000), (70_000, 65),
+                                     (300, 32768), (1, 524_288)])
 def test_split_plan_covers_every_position(pairs, s):
     splits, chunk = da.split_plan(pairs, s)
     tiles = -(-s // da.TILE)
+    most = min(-(-tiles // da.MIN_TILES), da.MAX_SPLITS)
     assert chunk % da.TILE == 0 and 1 <= splits <= da.MAX_SPLITS
     assert (splits - 1) * chunk < s <= splits * chunk
     assert chunk >= min(tiles, da.MIN_TILES) * da.TILE
-    # at least half the blocks aimed at, where there are tiles to split
-    assert pairs * splits >= min(da.TARGET_BLOCKS // 2,
-                                 pairs * -(-tiles // da.MIN_TILES) // 2)
+    # every wave of blocks filled, or as many splits as allowed
+    blocks = pairs * splits
+    waves = -(-blocks // da.WAVE)
+    assert (blocks >= da.WAVE_FILL * da.WAVE * waves
+            or chunk == -(-tiles // most) * da.TILE)
+
+
+# decode_32k (S = 32,768): one request of starcoder2-3b (2 KV heads) gets
+# 64 splits of 8 tiles, 128 blocks for the 132 SMs; at batch 128
+# (starcoder2-3b's 256 pairs, h2o-danube-3-4b's and deepseek-7b-at-32's
+# 1024) one split a pair fills the waves
+@pytest.mark.parametrize("pairs,plan", [(2, (64, 512)), (256, (1, 32768)),
+                                        (1024, (1, 32768))])
+def test_split_plan_at_decode_32k(pairs, plan):
+    assert da.split_plan(pairs, 32768) == plan

@@ -148,22 +148,34 @@ def test_wrappers_check_their_inputs():
         da.decode_attention(q, kv, kv, lens[:1])
 
 
-@pytest.mark.parametrize("length", [0, 1, 1000, 1100])
+@pytest.mark.parametrize("length", [0, 1, 617, 1000, 1100, "ragged"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,h,hkv,d", [(1, 24, 2, 120), (3, 64, 1, 64)])
+@pytest.mark.parametrize("b,h,hkv,d", [(1, 24, 2, 120), (3, 64, 1, 64),
+                                       (2, 8, 8, 128), (2, 16, 4, 120),
+                                       (128, 24, 2, 128)])
 def test_decode_attention_matches_plain_on_card(b, h, hkv, d, dtype, length):
-    """Batch 1 (the split path: 2 KV heads over many splits) with D = 120
-    and G = 12, and G = 64 (8 heads per warp); lengths 0, 1, S and past S
-    in a ragged padded block (S = 1000, block_s 256); rtol/atol 1e-4 in
-    f32, 2e-2 in bf16."""
+    """The split path (batch 1 to 3: 4 splits of 256 positions a pair)
+    and one split a pair (batch 128: 256 pairs fill the card); D = 120
+    (zero columns in the last k16 step) and 64; G = 12, 64 (four 16-head
+    blocks), 1 and 4; lengths 0, 1, S, past S in a ragged padded block
+    (S = 1000, block_s 256), and 617, which ends inside a 64-position
+    tile, inside its third warp's 16 positions and inside a split; or a
+    length per row from the seed (those five first at batch 128);
+    rtol/atol 1e-4 in f32, 2e-2 in bf16."""
     dev = _card()
-    rng = np.random.default_rng(length)
+    rng = np.random.default_rng(7 if length == "ragged" else length)
     s = 1000
     dt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
                .to(dev, dt) for shape in [(b, h, d), (b, hkv, s, d),
                                           (b, hkv, s, d)])
-    lens = torch.full((b,), length, dtype=torch.int32, device=dev)
+    if length == "ragged":
+        lens = rng.integers(0, s + 24, b).astype(np.int32)
+        if b >= 5:
+            lens[:5] = [0, 1, 617, s, s + 24]
+    else:
+        lens = np.full(b, length, np.int32)
+    lens = torch.from_numpy(lens).to(dev)
     launches = da.decode_attention.launches
     got = ops.decode_attention(q, k, v, lens, block_s=256)
     assert da.decode_attention.launches == launches + 1
