@@ -57,17 +57,7 @@ VARIANTS = {
 
 def plan(wave: int):
     """``da.split_plan`` with ``wave`` blocks a wave."""
-    def split_plan(pairs: int, s: int):
-        tiles = -(-s // da.TILE)
-        most = min(-(-tiles // da.MIN_TILES), da.MAX_SPLITS)
-        for n in range(1, most + 1):
-            per = -(-tiles // n)
-            splits = -(-tiles // per)
-            blocks = pairs * splits
-            if blocks >= da.WAVE_FILL * wave * -(-blocks // wave):
-                break
-        return splits, per * da.TILE
-    return split_plan
+    return lambda pairs, s: da.split_plan(pairs, s, wave)
 
 
 def build(names):
@@ -127,8 +117,6 @@ def main() -> int:
     unknown = set(names) - set(VARIANTS)
     if unknown:
         raise SystemExit(f"unknown variants {sorted(unknown)}")
-    if plan(da.WAVE)(2, cs.DECODE_S) != da.split_plan(2, cs.DECODE_S):
-        raise SystemExit("plan() has drifted from da.split_plan")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()

@@ -1,6 +1,6 @@
 // Launch geometry shared by the kernels in this directory: grid-stride
-// loops over 256-thread blocks, and the int32 -> f32 count conversion
-// the counting kernels end with.
+// loops over 256-thread blocks sized from the device's SM count, and the
+// int32 -> f32 count conversion histogram_bin ends with.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -9,13 +9,33 @@
 namespace {
 
 constexpr int kThreads = 256;
-// 132 SMs x 8 resident blocks of 256 threads, twice over: enough blocks
-// to fill the card; the grid-stride loop covers the rest.
-constexpr long long kMaxBlocks = 132LL * 8 * 2;
+constexpr int kMaxDevices = 64;
 
+// The current device's SM count (cudaDevAttrMultiProcessorCount), read
+// once per device.  A failed query gives 1 and leaves its error for the
+// launcher's cudaGetLastError().
+inline int sm_count() {
+  static int cached[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  if (dev < kMaxDevices && cached[dev] > 0) return cached[dev];
+  int sms = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      sms < 1) {
+    return 1;
+  }
+  if (dev < kMaxDevices) cached[dev] = sms;
+  return sms;
+}
+
+// One block per kThreads elements, at most 8 resident blocks of kThreads
+// on every SM, twice over: enough to fill the card; the grid-stride loop
+// covers the rest.
 inline int blocks_for(long long n) {
+  const long long most = 16LL * sm_count();
   long long b = (n + kThreads - 1) / kThreads;
-  if (b > kMaxBlocks) b = kMaxBlocks;
+  if (b > most) b = most;
   if (b < 1) b = 1;
   return static_cast<int>(b);
 }

@@ -26,7 +26,8 @@ from .ref import decode_geometry
 
 DTYPES = (torch.float32, torch.bfloat16)
 TILE = 64                 # positions per tile (kTcTile, kChunkUnit)
-WAVE = 132                # blocks a wave: one an SM (two are resident)
+WAVE = 132                # blocks a wave at 132 SMs: one an SM (two are
+                          # resident); the wrapper passes the card's count
 WAVE_FILL = 0.9           # the share of the last wave to fill
 MIN_TILES = 4             # tiles per split, at least (where S has them)
 MAX_SPLITS = 1024         # kMaxSplits in the source
@@ -35,23 +36,23 @@ MAX_GROUP = 64
 
 
 @functools.lru_cache(maxsize=256)
-def split_plan(pairs: int, s: int):
+def split_plan(pairs: int, s: int, wave: int = WAVE):
     """(splits, chunk) for ``pairs`` (batch, KV head) pairs over S
     positions: the fewest splits of whole tiles whose ``pairs * splits``
-    blocks fill every wave of ``WAVE`` blocks to ``WAVE_FILL``, each
-    split of at least ``MIN_TILES`` tiles (so that the partials stay
-    small beside the K/V a split reads); the most such splits where
-    none fills the waves.  No split is without a position.  A wave of
-    one block an SM, not of the two that fit: at one request of
-    decode_32k, 64 splits of 512 positions beat 128 of 256 on the card
-    (PERF.md)."""
+    blocks fill every wave of ``wave`` blocks (one an SM) to
+    ``WAVE_FILL``, each split of at least ``MIN_TILES`` tiles (so that
+    the partials stay small beside the K/V a split reads); the most such
+    splits where none fills the waves.  No split is without a position.
+    A wave of one block an SM, not of the two that fit: at one request
+    of decode_32k, 64 splits of 512 positions beat 128 of 256 on the
+    card (PERF.md)."""
     tiles = -(-s // TILE)
     most = min(-(-tiles // MIN_TILES), MAX_SPLITS)
     for n in range(1, most + 1):
         per = -(-tiles // n)            # tiles a split
         splits = -(-tiles // per)
         blocks = pairs * splits
-        if blocks >= WAVE_FILL * WAVE * -(-blocks // WAVE):
+        if blocks >= WAVE_FILL * wave * -(-blocks // wave):
             break
     return splits, per * TILE
 
@@ -83,7 +84,8 @@ def decode_attention(q, k, v, lengths, scale=None, block_s: int = 512):
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     s_pad = -(-s // block_s) * block_s
-    splits, chunk = split_plan(b * hkv, s)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, chunk = split_plan(b * hkv, s, sms)
     ws_m = torch.empty((b, hkv, splits, group), dtype=torch.float32,
                        device=dev)
     ws_l = torch.empty_like(ws_m)

@@ -1,13 +1,21 @@
 """Fused owner-delivery kernel: fold records into the owner mailboxes and
-count the arrivals, in one launch sequence.
+count the arrivals, in one launch.
 
 Replaces ``repro/kernels/deliver_fused.py`` ``deliver_fused``.  The TPU
 kernel revisited each mailbox block once per record block with a one-hot
-compare; this one copies the mailbox, scatters every record with float
-atomics (min on order-preserving bits touches only hit indices) and
-integer arrival counts, then converts the counts to f32
-(``csrc/engine_kernels.cu``).  Bound by device-memory bytes: the mailbox
-is read once and written twice (values and counts).
+compare; this one (``csrc/engine_kernels.cu``) is one cooperative launch:
+it copies the mailbox and zeroes the counts, waits at a grid barrier, and
+scatters every record with L2 atomics (min on order-preserving bits
+touches only hit indices), the records of a warp that hit the same index
+folded first into one value atomic and one count atomic.  The counts are
+f32 atomics straight into the output below 2^24 records (exact: every
+partial count is an integer below 2^24), int32 atomics converted in
+place after a second barrier at or above it (``counting_path``).  Where
+records outnumber the mailbox, the add form pairs value and count in one
+vector ``atomicAdd(float2)`` on an interleaved scratch (``paired_add``).
+Bound by device-memory bytes where the mailbox is large (it is read once
+and written twice, values and counts), by the L2 atomics where the
+records outnumber it.
 """
 from __future__ import annotations
 
@@ -15,6 +23,24 @@ import torch
 
 from . import _build
 from .ref import check_combine, deliver_fused_ref as plain
+
+F32_COUNT_LIMIT = 1 << 24     # from here on an f32 count can lose a unit
+
+
+def counting_path(n: int) -> str:
+    """How the kernel counts the arrivals of ``n`` records: ``"f32"``
+    (float atomics into the output; below 2^24 records every partial
+    count is an integer below 2^24, so exact in any order) or ``"i32"``
+    (int32 atomics, converted to f32 in place inside the same launch)."""
+    return "f32" if n < F32_COUNT_LIMIT else "i32"
+
+
+def paired_add(n: int, nd: int, combine: str) -> bool:
+    """Whether the add form folds value and count with one vector atomic
+    into an interleaved (value, count) scratch of 8 B per mailbox entry:
+    where the ``n`` records at least match the ``nd`` entries, so the
+    atomics, not the mailbox bytes, set the pace; f32 counts only."""
+    return combine == "add" and counting_path(n) == "f32" and n >= nd
 
 
 def deliver_fused(seg, val, mail_val, combine: str = "min"):
@@ -30,17 +56,19 @@ def deliver_fused(seg, val, mail_val, combine: str = "min"):
     _build.check("deliver_fused mail_val", mail_val, (torch.float32,),
                  None, dev)
     out = torch.empty_like(mail_val)
-    cnt_i = torch.empty((nd,), dtype=torch.int32, device=dev)
-    cnt_f = torch.empty((nd,), dtype=torch.float32, device=dev)
-    fn = _build.bind("engine_kernels", "deliver_fused_launch", 6, 2, 1)
+    cnt = torch.empty((nd,), dtype=torch.float32, device=dev)
+    pair = (torch.empty((2 * nd,), dtype=torch.float32, device=dev)
+            if paired_add(n, nd, combine) else None)
+    fn = _build.bind("engine_kernels", "deliver_fused_launch", 6, 2, 2)
     with torch.cuda.device(dev):
         _build.launch("deliver_fused", fn, seg.data_ptr(), val.data_ptr(),
-                      mail_val.data_ptr(), out.data_ptr(), cnt_i.data_ptr(),
-                      cnt_f.data_ptr(), n, nd, int(combine == "min"),
+                      mail_val.data_ptr(), out.data_ptr(), cnt.data_ptr(),
+                      None if pair is None else pair.data_ptr(), n, nd,
+                      int(combine == "min"), int(counting_path(n) == "i32"),
                       torch.cuda.current_stream(dev).cuda_stream)
     deliver_fused.launches += 1
-    return out, cnt_f
+    return out, cnt
 
 
 deliver_fused.launches = 0
-__all__ = ["deliver_fused", "plain"]
+__all__ = ["deliver_fused", "plain", "counting_path", "paired_add"]

@@ -3,9 +3,13 @@
 Replaces ``repro/kernels/segment_combine.py`` ``segment_combine``: a
 dense segment min/add over (segment id, value) records.  The TPU kernel
 compared every record with every segment of a block (one-hot); this one
-is an identity fill and one scatter pass of float atomics
-(``csrc/engine_kernels.cu``), bound by device-memory bytes.  min is
-bitwise order-free; add re-associates from run to run.
+(``csrc/engine_kernels.cu``) is one cooperative launch: the identity
+fill, a grid barrier, then one scatter pass of float atomics in which
+the records of a warp with the same id are folded first, so a run of
+equal ids (the engine hands over sorted ids) costs one atomic per warp.
+The job is small on the engine's path, so the launch bounds it.  Ids
+need not be sorted.  min is bitwise order-free; add re-associates from
+run to run.
 """
 from __future__ import annotations
 

@@ -294,7 +294,8 @@ def test_engine_state_round_trip():
 # ------------------------------------------------------------- hygiene
 def _port_files():
     return sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py"]
+        REPO / "chip_smoke.py", REPO / "scripts" / "decode_variants.py",
+        REPO / "scripts" / "engine_kernel_variants.py"]
 
 
 def test_port_sources_import_no_jax_or_reference():

@@ -148,6 +148,24 @@ def test_split_plan_covers_every_position(pairs, s):
             or chunk == -(-tiles // most) * da.TILE)
 
 
+@pytest.mark.parametrize("sms", [78, 114, da.WAVE])
+@pytest.mark.parametrize("pairs", [2, 48, 256])
+def test_split_plan_follows_the_sm_count(pairs, sms):
+    """The wrapper passes the card's SM count as the wave: every wave of
+    that many blocks filled, or as many splits as allowed; the default
+    wave is 132."""
+    s = 32768
+    splits, chunk = da.split_plan(pairs, s, sms)
+    tiles = -(-s // da.TILE)
+    most = min(-(-tiles // da.MIN_TILES), da.MAX_SPLITS)
+    assert (splits - 1) * chunk < s <= splits * chunk
+    blocks = pairs * splits
+    assert (blocks >= da.WAVE_FILL * sms * -(-blocks // sms)
+            or chunk == -(-tiles // most) * da.TILE)
+    if sms == da.WAVE:
+        assert (splits, chunk) == da.split_plan(pairs, s)
+
+
 # decode_32k (S = 32,768): one request of starcoder2-3b (2 KV heads) gets
 # 64 splits of 8 tiles, 128 blocks for the 132 SMs; at batch 128
 # (starcoder2-3b's 256 pairs, h2o-danube-3-4b's and deepseek-7b-at-32's

@@ -1,7 +1,9 @@
-"""The port on a CUDA card: Hopper kernels against their plain versions,
-the engine through the kernels against the same engine on the CPU (the
-min apps and the write-back add apps), a superstep that makes no host
-sync of its own, and ``ops.decode_attention`` through its kernel.
+"""The port on a CUDA card: Hopper kernels against their plain versions
+(edge cases of the scatters, exact counts past 2^24, replay in a CUDA
+graph), the engine through the kernels against the same engine on the
+CPU (the min apps and the write-back add apps), a superstep that makes
+no host sync of its own, and ``ops.decode_attention`` through its
+kernel.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 decision is taken inside each test.  On a machine with a card:
@@ -47,9 +49,65 @@ def _agree(combine, got, want):
         torch.testing.assert_close(got, want, rtol=ADD_RTOL, atol=ADD_ATOL)
 
 
+def _sums64(seg, val, base):
+    """``base`` plus the values of the records at each index, in f64."""
+    out = base.astype(np.float64)
+    ok = seg >= 0
+    np.add.at(out, seg[ok], val[ok].astype(np.float64))
+    return torch.from_numpy(out)
+
+
+def _segments(rng, layout, n, nd):
+    """int32 ids of ``n`` records into ``nd`` entries: "random" (a
+    quarter padding, uniform ids), "one index" (every record on one),
+    "runs" (sorted runs of 1, 31, 33 and 300 records, so runs cross warp
+    and block boundaries, and a fifth of the records padding at the end)
+    or "runs, padded" (those runs with padding interleaved)."""
+    if layout == "random":
+        ids = np.where(rng.random(n) < 0.25, -1, rng.integers(0, nd, n))
+    elif layout == "one index":
+        ids = np.full(n, nd // 2)
+    else:
+        lens = np.resize([1, 31, 33, 300], n)
+        live = n - n // 5
+        runs = int(np.searchsorted(np.cumsum(lens), live)) + 1
+        ids = np.full(n, -1)
+        ids[:live] = (np.repeat(np.arange(runs), lens[:runs])[:live] * nd
+                      // max(runs, nd))
+        if layout == "runs, padded":
+            ids[rng.random(n) < 0.25] = -1
+    return ids.astype(np.int32)
+
+
+def _values(rng, layout, n, combine):
+    """Record values; the run layouts mix in -0.0 and +0.0, and -inf and
+    +inf for min (+inf alone for add, whose sums stay finite or +inf)."""
+    val = rng.random(n).astype(np.float32) * 9
+    if layout.startswith("runs"):
+        pick = rng.random(n)
+        val[pick < 0.05] = -0.0
+        val[(pick >= 0.05) & (pick < 0.1)] = 0.0
+        val[(pick >= 0.1) & (pick < 0.13)] = np.inf
+        if combine == "min":
+            val[(pick >= 0.13) & (pick < 0.16)] = -np.inf
+    return val
+
+
 @pytest.mark.parametrize("combine", ["min", "add"])
-@pytest.mark.parametrize("n,nd", [(1, 1), (70_001, 9_999), (262_144, 1 << 20)])
-def test_kernels_match_plain_on_card(combine, n, nd):
+@pytest.mark.parametrize("n,nd,layout", [
+    (1, 1, "random"), (70_001, 9_999, "random"),
+    (262_144, 1 << 20, "random"), (5_000, 1, "random"),
+    (70_001, 9_999, "one index"), (70_001, 9_999, "runs"),
+    (70_001, 9_999, "runs, padded"), (262_144, 1 << 20, "runs")])
+def test_kernels_match_plain_on_card(combine, n, nd, layout):
+    """relax, segment_combine and deliver_fused against their plain
+    versions: min bitwise, counts exact; add within rtol 1e-5 / atol 1e-6
+    of the f64 sums (with 70,001 records on one index the plain
+    version's own f32 sum, one atomic add after another, is further off
+    than that).  nd = 1, every record on one index (a whole warp of
+    peers), sorted runs across warps and blocks, padding interleaved and
+    at the end, +-inf and -0.0.  add takes the paired form where the
+    records outnumber the entries."""
     dev = _card()
     rng = np.random.default_rng(n)
 
@@ -63,17 +121,104 @@ def test_kernels_match_plain_on_card(combine, n, nd):
                                                              combine)):
         assert torch.equal(got, want)
     assert rx.relax.launches == launches + 1
-    seg = t(np.where(rng.random(n) < 0.25, -1,
-                     rng.integers(0, nd, n)).astype(np.int32))
-    val = t(rng.random(n).astype(np.float32) * 9)
-    _agree(combine, sc.segment_combine(seg, val, nd, combine),
-           sc.plain(seg, val, nd, combine))
-    mail = t(_with_inf(rng, nd, .5) if combine == "min"
-             else np.zeros(nd, np.float32))
+    seg_np = _segments(rng, layout, n, nd)
+    val_np = _values(rng, layout, n, combine)
+    mail_np = (_with_inf(rng, nd, .5) if combine == "min"
+               else np.zeros(nd, np.float32))
+    seg, val, mail = t(seg_np), t(val_np), t(mail_np)
+    launches = sc.segment_combine.launches
+    got = sc.segment_combine(seg, val, nd, combine)
+    assert sc.segment_combine.launches == launches + 1
+    if combine == "min":
+        assert torch.equal(got, sc.plain(seg, val, nd, combine))
+    else:
+        torch.testing.assert_close(
+            got.cpu().double(), _sums64(seg_np, val_np, np.zeros(nd)),
+            rtol=ADD_RTOL, atol=ADD_ATOL)
+    launches = df.deliver_fused.launches
     (gm, gc), (wm, wc) = (df.deliver_fused(seg, val, mail, combine),
                           df.plain(seg, val, mail, combine))
-    _agree(combine, gm, wm)
+    assert df.deliver_fused.launches == launches + 1
+    if combine == "min":
+        assert torch.equal(gm, wm)
+    else:
+        torch.testing.assert_close(gm.cpu().double(),
+                                   _sums64(seg_np, val_np, mail_np),
+                                   rtol=ADD_RTOL, atol=ADD_ATOL)
     assert torch.equal(gc, wc)
+
+
+@pytest.mark.parametrize("combine", ["min", "add"])
+@pytest.mark.parametrize("n", [(1 << 24) - 1, (1 << 24) + 5])
+def test_deliver_fused_counts_exact_on_card(n, combine):
+    """Every record on one index, right below 2^24 records (f32 counts)
+    and past it (int32 counts converted in place): the count equals the
+    plain version's int32 count converted to f32 (2^24 + 5 rounds to
+    2^24 + 4 there, where an f32 count would stop at 2^24); values
+    bitwise (min) or exact (add: a few ones among zeros)."""
+    dev = _card()
+    rng = np.random.default_rng(5)
+    assert df.counting_path(n) == ("f32" if n < 1 << 24 else "i32")
+    seg = torch.full((n,), 3, dtype=torch.int32, device=dev)
+    if combine == "min":
+        val = torch.from_numpy(rng.random(n).astype(np.float32)).to(dev)
+        mail = torch.full((8,), np.inf, device=dev)
+    else:
+        val = torch.zeros(n, device=dev)
+        val[torch.from_numpy(rng.integers(0, n, 1000)).to(dev)] = 1.0
+        mail = torch.zeros(8, device=dev)
+    (gm, gc), (wm, wc) = (df.deliver_fused(seg, val, mail, combine),
+                          df.plain(seg, val, mail, combine))
+    assert torch.equal(gm, wm)
+    assert torch.equal(gc, wc)
+    assert gc[3].item() == float(np.float32(n))
+
+
+def test_engine_kernels_replay_in_a_cuda_graph():
+    """segment_combine and deliver_fused (min, add, and the paired add
+    where records outnumber the entries) captured in a CUDA graph: one launch each at capture and none at
+    replay; a replay on fresh inputs copied into the captured buffers
+    equals the eager calls on them, bitwise for min and the counts,
+    within rtol 1e-5 / atol 1e-6 for add."""
+    dev = _card()
+    rng = np.random.default_rng(11)
+    for combine, n, nd in (("min", 70_001, 9_999), ("add", 9_999, 70_001),
+                           ("add", 20_000, 4_096)):
+        def inputs():
+            return [torch.from_numpy(a).to(dev) for a in (
+                _segments(rng, "runs, padded", n, nd),
+                _values(rng, "runs", n, combine),
+                _segments(rng, "random", n, nd),
+                rng.random(n).astype(np.float32),
+                _with_inf(rng, nd, .5) if combine == "min"
+                else rng.random(nd).astype(np.float32))]
+
+        def run(seg, val, dseg, dval, mail):
+            return (sc.segment_combine(seg, val, nd, combine),
+                    *df.deliver_fused(dseg, dval, mail, combine))
+
+        bufs = inputs()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run(*bufs)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = (sc.segment_combine.launches, df.deliver_fused.launches)
+        with torch.cuda.graph(graph):
+            captured = run(*bufs)
+        assert (sc.segment_combine.launches,
+                df.deliver_fused.launches) == (before[0] + 1, before[1] + 1)
+        for buf, fresh in zip(bufs, inputs()):
+            buf.copy_(fresh)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert (sc.segment_combine.launches,
+                df.deliver_fused.launches) == (before[0] + 1, before[1] + 1)
+        eager = run(*bufs)
+        _agree(combine, captured[0], eager[0])
+        _agree(combine, captured[1], eager[1])
+        assert torch.equal(captured[2], eager[2])
 
 
 @pytest.mark.parametrize("n,bins", [(1, 1), (100_003, 700),
