@@ -14,7 +14,8 @@ on past a failure:
 4. the kernels, each against its plain PyTorch version on the card:
    relax, segment_combine and deliver_fused at the BFS path's shapes for
    min and add, and in their add form at the write-back flush wave's
-   shapes; histogram_bin on the Histogram input (bitwise); spmv_bcsr on
+   shapes (deliver_fused's counting path and paired add printed);
+   histogram_bin on the Histogram input (bitwise); spmv_bcsr on
    RMAT-14 in 128x128 BCSR (rtol/atol 1e-4; its library call a
    ``torch.sparse_bsr_tensor`` product).  Each timed (CUDA events,
    inputs rotated past L2) beside its bound, its plain version and, where
@@ -360,18 +361,22 @@ def kernel_phase(dev, wl) -> list:
         "src/repro/kernels/segment_combine.py:55", main, add)
 
     # deliver_fused: the mailbox read once, mailbox and counts written
+    def plan(seg, mail, combine):
+        n, nd = seg.numel(), mail.numel()
+        return (f"{n} records into {nd}, {df.counting_path(n)} counts"
+                + (", paired add" if df.paired_add(n, nd, combine) else ""))
+
     dseg, dval, mail = x["deliver"]
     nbytes = _bytes_scatter(dseg, 12 * mail.numel())
     main = _measure("deliver_fused", "min", x["deliver"], df.deliver_fused,
-                    df.plain, nbytes, what=f"{dseg.numel()} records")
+                    df.plain, nbytes, what=plan(dseg, mail, "min"))
     _measure("deliver_fused", "add", x["deliver"], df.deliver_fused,
-             df.plain, nbytes, what=f"{dseg.numel()} records")
+             df.plain, nbytes, what=plan(dseg, mail, "add"))
     dseg, dval, mail = x["deliver_add"]
     add = _measure("deliver_fused", "add", x["deliver_add"],
                    df.deliver_fused, df.plain,
                    _bytes_scatter(dseg, 12 * mail.numel()),
-                   what=f"{dseg.numel()} records into {mail.numel()} "
-                        f"(Histogram flush wave)")
+                   what=plan(dseg, mail, "add") + " (Histogram flush wave)")
     row("deliver_fused", "engine_kernels.cu",
         "src/repro/kernels/deliver_fused.py:68", main, add)
 

@@ -63,7 +63,7 @@
 //    splits it into the two outputs.  Half the atomics, for 16 B of
 //    scratch traffic per mailbox entry.
 //
-// Semantics, as the plain versions (kernels/ref.py) and as before:
+// Semantics (those of the plain versions, kernels/ref.py):
 //  * min uses atomicMin on order-preserving float bits: a non-negative
 //    float's bits order like a signed int, a negative float's bits order
 //    in reverse like an unsigned int.  The warp fold compares the same
@@ -314,7 +314,7 @@ int launch_status(cudaError_t err) {
 // A cooperative launch of `kernel` over `work` elements in its larger
 // phase: kItemsPerThread a thread, at most the blocks that can be
 // resident at once (occupancy x SM count, read once per device into
-// `resident`).  A launch the driver refuses is returned, not retried.
+// `resident`).  A launch that CUDA refuses is returned, not retried.
 cudaError_t launch_cooperative(const void* kernel, int* resident,
                                long long work, void* args,
                                cudaStream_t stream) {

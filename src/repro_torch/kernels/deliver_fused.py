@@ -6,16 +6,16 @@ kernel revisited each mailbox block once per record block with a one-hot
 compare; this one (``csrc/engine_kernels.cu``) is one cooperative launch:
 it copies the mailbox and zeroes the counts, waits at a grid barrier, and
 scatters every record with L2 atomics (min on order-preserving bits
-touches only hit indices), the records of a warp that hit the same index
-folded first into one value atomic and one count atomic.  The counts are
-f32 atomics straight into the output below 2^24 records (exact: every
-partial count is an integer below 2^24), int32 atomics converted in
-place after a second barrier at or above it (``counting_path``).  Where
-records outnumber the mailbox, the add form pairs value and count in one
-vector ``atomicAdd(float2)`` on an interleaved scratch (``paired_add``).
-Bound by device-memory bytes where the mailbox is large (it is read once
-and written twice, values and counts), by the L2 atomics where the
-records outnumber it.
+touches only hit indices), each run of records with the same index in
+neighbouring lanes of a warp folded first into one value atomic and one
+count atomic.  The counts are f32 atomics straight into the output below
+2^24 records (exact: every partial count is an integer below 2^24), int32
+atomics converted in place after a second barrier at or above it
+(``counting_path``).  Where records outnumber the mailbox, the add form
+pairs value and count in one vector ``atomicAdd(float2)`` on an
+interleaved scratch (``paired_add``).  Bound by device-memory bytes where
+the mailbox is large (it is read once and written twice, values and
+counts), by the L2 atomics where the records outnumber it.
 """
 from __future__ import annotations
 

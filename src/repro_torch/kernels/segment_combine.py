@@ -5,8 +5,8 @@ dense segment min/add over (segment id, value) records.  The TPU kernel
 compared every record with every segment of a block (one-hot); this one
 (``csrc/engine_kernels.cu``) is one cooperative launch: the identity
 fill, a grid barrier, then one scatter pass of float atomics in which
-the records of a warp with the same id are folded first, so a run of
-equal ids (the engine hands over sorted ids) costs one atomic per warp.
+each run of equal ids in neighbouring lanes of a warp is folded first,
+so a run (the engine hands over sorted ids) costs one atomic per warp.
 The job is small on the engine's path, so the launch bounds it.  Ids
 need not be sorted.  min is bitwise order-free; add re-associates from
 run to run.
