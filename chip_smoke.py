@@ -455,6 +455,105 @@ def kernel_phase(dev, wl) -> list:
     return rows
 
 
+# ------------------------------------------------------- the engine's ids
+WARP = 32
+
+
+def warp_runs(seg, limit: int) -> torch.Tensor:
+    """How one call's ids fall in the scatter kernels' warp slices
+    (records 32k .. 32k + 31 share a slice), as an int64 device tensor:
+    [live records, runs of equal ids in neighbouring lanes (the atomics
+    left after the neighbour fold), distinct ids a slice (left after a
+    fold of every repeat, as ``__match_any_sync`` finds them), records in
+    a run of neighbours, records whose id repeats in their slice, slices
+    with a run, slices with a live record].  Ids < 0 or >= ``limit`` are
+    padding."""
+    s = torch.cat([seg, seg.new_full((-seg.numel() % WARP,), -1)])
+    s = s.view(-1, WARP)
+    s = torch.where((s >= 0) & (s < limit), s, -1)
+    found = []
+    for ids in (s, torch.sort(s, dim=1).values):
+        live = ids >= 0
+        same = (ids[:, 1:] == ids[:, :-1]) & live[:, 1:]
+        edge = torch.zeros_like(same[:, :1])
+        found.append((live, same, live & (torch.cat([edge, same], 1)
+                                          | torch.cat([same, edge], 1))))
+    (live, same, in_run), (_, rep, in_rep) = found
+    n_live = live.sum()
+    return torch.stack([n_live, n_live - same.sum(), n_live - rep.sum(),
+                        in_run.sum(), in_rep.sum(), same.any(1).sum(),
+                        live.any(1).sum()])
+
+
+class EngineIds:
+    """While entered, the engine's calls of ``ops.segment_combine`` and
+    ``ops.deliver_fused`` run unchanged, and each call's ``warp_runs``
+    is summed on the device (no host sync) per shape: (kernel, combine,
+    records, segments or mailbox entries).  With ``keep`` > 0, every
+    ``keep``-th call of a shape, its first included, also keeps a clone
+    of its inputs (``kept``: shape -> [args])."""
+
+    def __init__(self, keep: int = 0):
+        self.keep = keep
+        self.sums, self.calls, self.kept = {}, {}, {}
+
+    def _tap(self, name, fn):
+        def call(seg, val, third, combine="min"):
+            limit = third if name == "segment_combine" else third.numel()
+            key = (name, combine, seg.numel(), limit)
+            i = self.calls.get(key, 0)
+            self.calls[key] = i + 1
+            runs = warp_runs(seg, limit)
+            self.sums[key] = self.sums[key] + runs if i else runs
+            if self.keep and i % self.keep == 0:
+                self.kept.setdefault(key, []).append(tuple(
+                    a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in (seg, val, third)))
+            return fn(seg, val, third, combine=combine)
+        return call
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._saved = ops.segment_combine, ops.deliver_fused
+        ops.segment_combine = self._tap("segment_combine", self._saved[0])
+        ops.deliver_fused = self._tap("deliver_fused", self._saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.segment_combine, ops.deliver_fused = self._saved
+
+    def report(self, label: str) -> None:
+        for key in sorted(self.sums):
+            name, combine, n, limit = key
+            live, runs, distinct, in_run, in_rep, with_run, slices = (
+                self.sums[key].tolist())
+            share = lambda x: f"{x / max(live, 1):.1%}"  # noqa: E731
+            print(f"    {label} ids, {name} {combine}, {n} records into "
+                  f"{limit} ({self.calls[key]} calls): {live} live; in a "
+                  f"run of neighbours {share(in_run)}, repeated in their "
+                  f"warp slice {share(in_rep)}; atomics left by the "
+                  f"neighbour fold {share(runs)}, by a fold of every "
+                  f"repeat {share(distinct)}; slices with a run "
+                  f"{with_run} of {slices}")
+
+
+def main_path_apps(wl) -> dict:
+    """The main path's RMAT-22 app calls as a user makes them:
+    {label: (app, args, keyword args)}."""
+    from repro_torch.graph import apps
+    g, grid = wl[SCALE], wl["grid"]
+    root = int(np.argmax(g.out_degree()))
+    return dict(
+        bfs=(apps.bfs, (g, root, grid),
+             dict(proxy=apps.table2_proxy(grid, "bfs"), oq_cap=OQ_CAP)),
+        spmv=(apps.spmv, (g, wl["x"], grid),
+              dict(proxy=apps.table2_proxy(grid, "spmv", cascade_levels=2),
+                   oq_cap=OQ_CAP)),
+        histo=(apps.histogram, (wl["histo"], wl["bins"], grid),
+               dict(proxy=apps.table2_proxy(grid, "histo"), oq_cap=OQ_CAP)))
+
+
 # ------------------------------------------------------------ app runs
 def app_run(dev, label: str, fn, *args, **kw):
     """One app call as a user makes it, timed on the host clock around
@@ -616,12 +715,13 @@ def bfs_phase(dev, wl) -> dict:
           f"tiles, write-through P$")
     t0 = time.perf_counter()
     g, grid = wl[SCALE], wl["grid"]
-    proxy = apps.table2_proxy(grid, "bfs")
-    root = int(np.argmax(g.out_degree()))
+    fn, args, kw = main_path_apps(wl)["bfs"]
+    root, proxy = args[1], kw["proxy"]
     print(f"  root {root}; P$ {proxy.region_ny}x{proxy.region_nx} regions, "
           f"{proxy.slots} slots, write-through")
-    res, launches = app_run(dev, "bfs", apps.bfs, g, root, grid,
-                            proxy=proxy, oq_cap=OQ_CAP)
+    with EngineIds() as ids:
+        res, launches = app_run(dev, "bfs", fn, *args, **kw)
+    ids.report("bfs")
     check_bfs(g, root, res)
     for name in ENGINE_KERNELS:
         require(launches[name] == res.run.supersteps,
@@ -644,13 +744,16 @@ def add_apps_phase(dev, wl) -> dict:
     print(f"== 6. main path: SpMV and Histogram, backend=kernels, "
           f"RMAT-{SCALE} on {TILES} tiles, write-back P$")
     g, grid = wl[SCALE], wl["grid"]
+    calls = main_path_apps(wl)
     out = {}
     t0 = time.perf_counter()
-    proxy = apps.table2_proxy(grid, "spmv", cascade_levels=2)
+    fn, args, kw = calls["spmv"]
+    proxy = kw["proxy"]
     print(f"  SpMV: P$ {proxy.region_ny}x{proxy.region_nx} regions, "
           f"{proxy.slots} slots, write-back, cascade {proxy.cascade}")
-    res, launches = app_run(dev, "spmv", apps.spmv, g, wl["x"], grid,
-                            proxy=proxy, oq_cap=OQ_CAP)
+    with EngineIds() as ids:
+        res, launches = app_run(dev, "spmv", fn, *args, **kw)
+    ids.report("spmv")
     check_spmv(g, wl["x"], res.values, "SpMV y")
     require(res.run.counters.cascade_combined > 0,
             "spmv: the cascade merged no records")
@@ -667,11 +770,13 @@ def add_apps_phase(dev, wl) -> dict:
     print(f"  SpMV phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    proxy = apps.table2_proxy(grid, "histo")
+    fn, args, kw = calls["histo"]
+    proxy = kw["proxy"]
     print(f"  Histogram: P$ {proxy.region_ny}x{proxy.region_nx} regions, "
           f"{proxy.slots} slots, write-back, no cascade")
-    res, launches = app_run(dev, "histo", apps.histogram, wl["histo"],
-                            wl["bins"], grid, proxy=proxy, oq_cap=OQ_CAP)
+    with EngineIds() as ids:
+        res, launches = app_run(dev, "histo", fn, *args, **kw)
+    ids.report("histo")
     check_histo(wl["histo"], wl["bins"], res.values, "Histogram counts")
     require_launches("histo", launches, res.run.supersteps, ENGINE_KERNELS)
     wl["histo_counts"] = res.values

@@ -1,26 +1,34 @@
 #!/usr/bin/env python3
 """Time design variants of ``segment_combine`` and ``deliver_fused`` on
-one CUDA card, at ``chip_smoke.py``'s phase-4 shapes.
+one CUDA card, at ``chip_smoke.py``'s phase-4 shapes and on the ids the
+engine itself hands them.
 
-    python3 scripts/engine_kernel_variants.py [variant ...]
+    python3 scripts/engine_kernel_variants.py [--no-engine] [variant ...]
 
 The variants (``VARIANTS``): the committed one-launch design
 (``kernels/csrc/engine_kernels.cu``, with the wrapper's choice of paired
-add), the same with the paired add forced on or off, with the records a
-thread takes changed, with the warp fold switched off, or folding every
-repeat in a warp through ``__match_any_sync`` in place of runs of
-neighbours; and the multi-launch design it replaced
-(``scripts/engine_kernels_multilaunch.cu``: fill + scatter, and copy +
-scatter + count conversion).  Each is built by
+add and the kernel's own choice of warp fold), the same with the paired
+add forced on or off, with the records a thread takes changed, with the
+warp fold always on or always off, or folding every repeat in a warp
+through ``__match_any_sync`` in place of runs of neighbours; and the
+multi-launch design it replaced (``scripts/engine_kernels_multilaunch.cu``:
+fill + scatter, and copy + scatter + count conversion).  Each is built by
 ``nvcc`` into ``kernels/_build/engine_variants/`` and called through its
-C launcher.  Per reading (inputs from ``chip_smoke.kernel_inputs``, seed
-42): every variant against the plain version (min bitwise, counts exact,
-add within rtol 1e-5 / atol 1e-6; unsorted ids too), then its device
-milliseconds (``chip_smoke.time_cuda``: CUDA events over 40 calls,
+C launcher.
+
+Readings: the synthetic inputs of ``chip_smoke.kernel_inputs`` (seed 42),
+one call each; then, unless ``--no-engine``, the engine's own calls:
+BFS, SpMV and Histogram at RMAT-22 on 4096 tiles run as
+``chip_smoke.py``'s main path runs them, with ``chip_smoke.EngineIds``
+keeping the inputs of every ``KEEP``-th call of each call shape (its
+first included) and printing how the ids fall in warp slices.  Per
+reading: every variant on every kept call against the plain version (min
+bitwise, counts exact, add within rtol 1e-5 / atol 1e-6), then its mean
+device milliseconds a call (``chip_smoke.time_cuda``: CUDA events,
 inputs rotated past L2) in turns, forward then backward through the
 variants, beside the byte bound.  Prints one JSON line per reading and
-the ``nvidia-smi`` name and power limit; fails on a variant that
-disagrees.
+the ``nvidia-smi`` name and power limit; exits nonzero if a variant
+disagrees (after every reading is printed).
 """
 from __future__ import annotations
 
@@ -43,15 +51,17 @@ from repro_torch.kernels import segment_combine as sc     # noqa: E402
 COMMITTED = _build.CSRC / "engine_kernels.cu"
 MULTILAUNCH = Path(__file__).resolve().parent / "engine_kernels_multilaunch.cu"
 OUT = _build.BUILD_DIR / "engine_variants"
+KEEP = 500                 # engine readings: every KEEP-th call of a shape
 ITEMS = "constexpr int kItemsPerThread = 4;"
-HEADS = "const unsigned heads = __ballot_sync(kFullWarp, lane == 0 || s != prev);"
-NO_FOLD = (HEADS, "const unsigned heads = kFullWarp + 0 * prev;")
+FOLD_RULE = "const bool fold = n > kItemsPerThread * stride;"
+FOLD_ALWAYS = (FOLD_RULE, "const bool fold = true;")
+NO_FOLD = (FOLD_RULE, "const bool fold = false;")
 FOLD = "template <typename Leader>\n__device__ __forceinline__ void fold_runs("
 # the fold of every repeat in a warp slice, neighbours or not: the lanes
 # of one id from __match_any_sync, folded in a tree over their lanes
 MATCH_ANY_FOLD = """template <typename Leader>
 __device__ __forceinline__ void fold_runs(int s, float v, bool is_min,
-                                          Leader leader) {
+                                          bool, Leader leader) {
   const int lane = threadIdx.x & 31;
   if (!__any_sync(kFullWarp, s >= 0)) return;
   unsigned peers = __match_any_sync(kFullWarp, s);
@@ -100,8 +110,10 @@ VARIANTS = {
         COMMITTED, [(ITEMS, ITEMS.replace("4;", "8;"))], None),
     "one launch, 16 items a thread": (
         COMMITTED, [(ITEMS, ITEMS.replace("4;", "16;"))], None),
+    "one launch, warp fold always": (COMMITTED, [FOLD_ALWAYS], None),
     "one launch, no warp fold": (COMMITTED, [NO_FOLD], None),
-    "one launch, __match_any_sync fold": (COMMITTED, [MATCH_ANY], None),
+    "one launch, __match_any_sync fold always": (COMMITTED, [MATCH_ANY],
+                                                 None),
 }
 
 
@@ -179,35 +191,101 @@ def callers(name, lib):
 
 
 def readings(x):
-    """(label, kernel, combine, inputs, bytes the function must move)."""
-    seg_b = lambda s, n_out: cs._bytes_scatter(s, 4 * n_out)  # noqa: E731
-    seg, _, r = x["seg"]
-    _, _, ts = x["seg_add"]
-    dseg, _, mail = x["deliver"]
-    fseg, _, fmail = x["deliver_add"]
+    """Synthetic readings: (label, kernel, combine, [inputs])."""
     return [
-        ("segment_combine min, P$ (sorted)", "segment", "min", x["seg"],
-         seg_b(seg, r)),
-        ("segment_combine add, P$ (sorted)", "segment", "add", x["seg"],
-         seg_b(seg, r)),
+        ("segment_combine min, P$ (sorted)", "segment", "min", [x["seg"]]),
+        ("segment_combine add, P$ (sorted)", "segment", "add", [x["seg"]]),
         ("segment_combine add, flush wave (sorted)", "segment", "add",
-         x["seg_add"], seg_b(x["seg_add"][0], ts)),
-        ("segment_combine min, unsorted", "segment", "min", x["seg_rand"],
-         seg_b(x["seg_rand"][0], x["seg_rand"][2])),
-        ("deliver_fused min, BFS shapes", "deliver", "min", x["deliver"],
-         seg_b(dseg, 3 * mail.numel())),
-        ("deliver_fused add, BFS shapes", "deliver", "add", x["deliver"],
-         seg_b(dseg, 3 * mail.numel())),
-        ("deliver_fused add, flush wave", "deliver", "add", x["deliver_add"],
-         seg_b(fseg, 3 * fmail.numel())),
+         [x["seg_add"]]),
+        ("segment_combine min, unsorted", "segment", "min", [x["seg_rand"]]),
+        ("deliver_fused min, BFS shapes", "deliver", "min", [x["deliver"]]),
+        ("deliver_fused add, BFS shapes", "deliver", "add", [x["deliver"]]),
+        ("deliver_fused add, flush wave", "deliver", "add",
+         [x["deliver_add"]]),
     ]
+
+
+def engine_readings(dev):
+    """Readings on the engine's own calls: the main path's RMAT-22 apps
+    run through the package (kernels backend), every KEEP-th call of each
+    call shape kept."""
+    wl = cs.workloads()
+    out = []
+    for app, (fn, args, kw) in cs.main_path_apps(wl).items():
+        with cs.EngineIds(keep=KEEP) as ids:
+            fn(*args, device=dev, **kw)
+        torch.cuda.synchronize()
+        ids.report(app)
+        for (name, combine, n, limit), kept in sorted(ids.kept.items()):
+            out.append((f"{app}: {name} {combine}, {n} records into "
+                        f"{limit} (engine ids, {len(kept)} of "
+                        f"{ids.calls[name, combine, n, limit]} calls)",
+                        "segment" if name == "segment_combine" else "deliver",
+                        combine, kept))
+    return out
+
+
+def call_bytes(kernel, args) -> int:
+    """Bytes the function must move on these inputs: every id, each live
+    record's value, the outputs once (deliver_fused: the mailbox read,
+    values and counts written)."""
+    seg, _, third = args
+    n_out = third if kernel == "segment" else 3 * third.numel()
+    return cs._bytes_scatter(seg, 4 * n_out)
+
+
+def rotation(calls_args, nbytes):
+    """The calls' inputs, cloned round until one pass through them
+    streams more than twice the L2 cache."""
+    sets = list(calls_args)
+    while nbytes * len(sets) < 2 * cs.L2_BYTES:
+        sets += [tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                       for a in args) for args in calls_args]
+    return sets
+
+
+def measure(label, kernel, combine, calls_args, names, calls, plain):
+    """Check every variant on every call against the plain version, then
+    time them in turns; prints the reading's JSON line and returns the
+    names of the variants that disagreed."""
+    errs, wrong = {n: 0.0 for n in names}, []
+    for args in calls_args:
+        want = plain[kernel](*args, combine)
+        for n in names:
+            got = calls[n][kernel](*args, combine)
+            torch.cuda.synchronize()
+            try:
+                errs[n] = max(errs[n], cs._agree(
+                    f"{n}: {label}", combine == "min", got, want,
+                    cs.ADD_RTOL, cs.ADD_ATOL))
+            except cs.SmokeFailure as e:
+                print(f"DISAGREES: {e}", flush=True)
+                wrong.append(n)
+    nbytes = sum(call_bytes(kernel, a) for a in calls_args) / len(calls_args)
+    sets = rotation(calls_args, nbytes)
+    iters = len(sets) * -(-40 // len(sets))
+    ms = {n: [] for n in names}
+    for n in names + names[::-1]:
+        ms[n].append(cs.time_cuda(
+            lambda *a, f=calls[n][kernel]: f(*a, combine), sets, iters))
+    plain_ms = cs.time_cuda(lambda *a: plain[kernel](*a, combine), sets,
+                            iters)
+    live = sum(int((a[0] >= 0).sum()) for a in calls_args) / len(calls_args)
+    print(json.dumps(dict(
+        reading=label, calls=len(calls_args),
+        records=int(calls_args[0][0].numel()), live=live, bytes=nbytes,
+        bound_ms=nbytes / cs.HBM_BYTES_PER_S * 1e3, plain_ms=plain_ms,
+        ms=ms, max_abs_err=errs)), flush=True)
+    return wrong
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("engine_kernel_variants: no CUDA device", file=sys.stderr)
         return 2
-    names = sys.argv[1:] or list(VARIANTS)
+    argv = sys.argv[1:]
+    engine = "--no-engine" not in argv
+    names = [a for a in argv if a != "--no-engine"] or list(VARIANTS)
     unknown = set(names) - set(VARIANTS)
     if unknown:
         raise SystemExit(f"unknown variants {sorted(unknown)}")
@@ -215,37 +293,24 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     dev = torch.device("cuda", 0)
+    cs.build()
     libs = build(names)
     calls = {n: dict(zip(("segment", "deliver"), callers(n, libs[n])))
              for n in names}
     plain = dict(segment=sc.plain, deliver=df.plain)
     gen = torch.Generator(device=dev)
     gen.manual_seed(cs.SEED)
-    x = cs.kernel_inputs(gen, dev)
-    for label, kernel, combine, args, nbytes in readings(x):
-        want = plain[kernel](*args, combine)
-        errs = {}
-        for n in names:
-            got = calls[n][kernel](*args, combine)
-            torch.cuda.synchronize()
-            try:
-                errs[n] = cs._agree(f"{n}: {label}", combine == "min", got,
-                                    want, cs.ADD_RTOL, cs.ADD_ATOL)
-            except cs.SmokeFailure as e:
-                raise SystemExit(str(e))
-        sets = cs.copies(args, nbytes)
-        ms = {n: [] for n in names}
-        for n in names + names[::-1]:
-            ms[n].append(cs.time_cuda(
-                lambda *a, f=calls[n][kernel]: f(*a, combine), sets))
-        plain_ms = cs.time_cuda(lambda *a: plain[kernel](*a, combine), sets)
-        print(json.dumps(dict(
-            reading=label, records=int(args[0].numel()),
-            live=int((args[0] >= 0).sum()), bytes=nbytes,
-            bound_ms=nbytes / cs.HBM_BYTES_PER_S * 1e3, plain_ms=plain_ms,
-            ms=ms, max_abs_err=errs)), flush=True)
-        del sets
+    todo = readings(cs.kernel_inputs(gen, dev))
+    if engine:
+        todo += engine_readings(dev)
+    wrong = []
+    for reading in todo:
+        wrong += measure(*reading, names, calls, plain)
     print(smi)
+    if wrong:
+        print(f"variants that disagreed: {sorted(set(wrong))}",
+              file=sys.stderr)
+        return 1
     return 0
 
 

@@ -9,31 +9,28 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxDevices = 64;
 
 // The current device's SM count (cudaDevAttrMultiProcessorCount), read
-// once per device.  A failed query gives 1 and leaves its error for the
-// launcher's cudaGetLastError().
-inline int sm_count() {
-  static int cached[kMaxDevices] = {};
+// on every call (the runtime answers from its own tables).  Returns the
+// query's error; `sms` is left untouched on failure.
+inline cudaError_t sm_count(int* sms) {
   int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
-  if (dev < kMaxDevices && cached[dev] > 0) return cached[dev];
-  int sms = 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      sms < 1) {
-    return 1;
-  }
-  if (dev < kMaxDevices) cached[dev] = sms;
-  return sms;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int got = 0;
+  err = cudaDeviceGetAttribute(&got, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) *sms = got;
+  return err;
 }
 
 // One block per kThreads elements, at most 8 resident blocks of kThreads
 // on every SM, twice over: enough to fill the card; the grid-stride loop
-// covers the rest.
+// covers the rest.  A failed SM-count query gives one block and leaves
+// its error for the launcher's cudaGetLastError().
 inline int blocks_for(long long n) {
-  const long long most = 16LL * sm_count();
+  int sms = 1;
+  sm_count(&sms);
+  const long long most = 16LL * sms;
   long long b = (n + kThreads - 1) / kThreads;
   if (b > most) b = most;
   if (b < 1) b = 1;

@@ -134,11 +134,14 @@ __device__ __forceinline__ float key_float(int k) {
 // order_key order.
 template <typename Leader>
 __device__ __forceinline__ void fold_runs(int s, float v, bool is_min,
-                                          Leader leader) {
+                                          bool fold, Leader leader) {
   const int lane = threadIdx.x & 31;
   if (!__any_sync(kFullWarp, s >= 0)) return;      // a slice of padding
-  const int prev = __shfl_up_sync(kFullWarp, s, 1);
-  const unsigned heads = __ballot_sync(kFullWarp, lane == 0 || s != prev);
+  unsigned heads = kFullWarp;                       // no fold: every lane
+  if (fold) {
+    const int prev = __shfl_up_sync(kFullWarp, s, 1);
+    heads = __ballot_sync(kFullWarp, lane == 0 || s != prev);
+  }
   const unsigned later = heads & (0xfffffffeu << lane);
   const int end = later ? __ffs(later) - 1 : 32;  // this lane's run: [., end)
   float x = v;
@@ -174,6 +177,8 @@ __device__ __forceinline__ void scatter_folded(
     long long n, long long limit, bool is_min, Leader leader) {
   const int lane = threadIdx.x & 31;
   const long long stride = grid_stride();
+  // fold only where a thread takes more than one batch
+  const bool fold = n > kItemsPerThread * stride;
   for (long long base = first_index() - lane; base < n;
        base += kItemsPerThread * stride) {
     int s[kItemsPerThread];
@@ -190,7 +195,7 @@ __device__ __forceinline__ void scatter_folded(
     }
 #pragma unroll
     for (int k = 0; k < kItemsPerThread; ++k) {
-      fold_runs(s[k], v[k], is_min, leader);
+      fold_runs(s[k], v[k], is_min, fold, leader);
     }
   }
 }
@@ -313,27 +318,22 @@ int launch_status(cudaError_t err) {
 
 // A cooperative launch of `kernel` over `work` elements in its larger
 // phase: kItemsPerThread a thread, at most the blocks that can be
-// resident at once (occupancy x SM count, read once per device into
-// `resident`).  A launch that CUDA refuses is returned, not retried.
-cudaError_t launch_cooperative(const void* kernel, int* resident,
-                               long long work, void* args,
-                               cudaStream_t stream) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+// resident at once (occupancy x the device's SM count, both read on every
+// call).  A query or launch that CUDA refuses is returned, not retried.
+cudaError_t launch_cooperative(const void* kernel, long long work,
+                               void* args, cudaStream_t stream) {
+  int sms = 0, per_sm = 0;
+  cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
-  int most = dev < kMaxDevices ? resident[dev] : 0;
-  if (most < 1) {
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, 0);
-    if (err != cudaSuccess) return err;
-    most = per_sm * sm_count();
-    if (dev < kMaxDevices) resident[dev] = most;
-  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, 0);
+  if (err != cudaSuccess) return err;
   const long long per_block = static_cast<long long>(kThreads) *
                               kItemsPerThread;
   long long blocks = (work + per_block - 1) / per_block;
-  if (blocks > most) blocks = most;
+  if (blocks > static_cast<long long>(per_sm) * sms) {
+    blocks = static_cast<long long>(per_sm) * sms;
+  }
   if (blocks < 1) blocks = 1;
   void* params[] = {args};
   return cudaLaunchCooperativeKernel(kernel, dim3(static_cast<int>(blocks)),
@@ -385,13 +385,12 @@ int relax_launch(const void* values, const void* mail, const void* flag,
 int segment_combine_launch(const void* seg, const void* val, void* out,
                            long long n, long long num_segments, int is_min,
                            void* stream) {
-  static int resident[kMaxDevices];
   SegmentArgs a{static_cast<const int32_t*>(seg),
                 static_cast<const float*>(val), static_cast<float*>(out),
                 n, num_segments, is_min, aligned16(out)};
   const long long fill = a.vec ? num_segments / 4 : num_segments;
   return launch_status(launch_cooperative(
-      reinterpret_cast<const void*>(segment_combine_kernel), resident,
+      reinterpret_cast<const void*>(segment_combine_kernel),
       n > fill ? n : fill, &a, static_cast<cudaStream_t>(stream)));
 }
 
@@ -404,7 +403,6 @@ int deliver_fused_launch(const void* seg, const void* val, const void* mail,
                          void* out, void* count, void* pair, long long n,
                          long long nd, int is_min, int int_counts,
                          void* stream) {
-  static int resident[kMaxDevices];
   DeliverArgs a{static_cast<const int32_t*>(seg),
                 static_cast<const float*>(val),
                 static_cast<const float*>(mail),
@@ -418,7 +416,7 @@ int deliver_fused_launch(const void* seg, const void* val, const void* mail,
                 aligned16(mail) && aligned16(out) && aligned16(count)};
   const long long init = a.vec && !a.pair ? nd / 4 : nd;
   return launch_status(launch_cooperative(
-      reinterpret_cast<const void*>(deliver_fused_kernel), resident,
+      reinterpret_cast<const void*>(deliver_fused_kernel),
       n > init ? n : init, &a, static_cast<cudaStream_t>(stream)));
 }
 

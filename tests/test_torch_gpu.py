@@ -98,7 +98,8 @@ def _values(rng, layout, n, combine):
     (1, 1, "random"), (70_001, 9_999, "random"),
     (262_144, 1 << 20, "random"), (5_000, 1, "random"),
     (70_001, 9_999, "one index"), (70_001, 9_999, "runs"),
-    (70_001, 9_999, "runs, padded"), (262_144, 1 << 20, "runs")])
+    (70_001, 9_999, "runs, padded"), (262_144, 1 << 20, "runs"),
+    (2_097_152, 524_288, "runs"), (2_097_152, 524_288, "runs, padded")])
 def test_kernels_match_plain_on_card(combine, n, nd, layout):
     """relax, segment_combine and deliver_fused against their plain
     versions: min bitwise, counts exact; add within rtol 1e-5 / atol 1e-6
@@ -106,8 +107,10 @@ def test_kernels_match_plain_on_card(combine, n, nd, layout):
     version's own f32 sum, one atomic add after another, is further off
     than that).  nd = 1, every record on one index (a whole warp of
     peers), sorted runs across warps and blocks, padding interleaved and
-    at the end, +-inf and -0.0.  add takes the paired form where the
-    records outnumber the entries."""
+    at the end, +-inf and -0.0; runs again at 2,097,152 records, more
+    than one batch for every thread of a resident grid, where the
+    kernels fold runs within a warp.  add takes the paired form where
+    the records outnumber the entries."""
     dev = _card()
     rng = np.random.default_rng(n)
 
