@@ -14,7 +14,7 @@ on past a failure:
 4. the kernels, each against its plain PyTorch version on the card:
    relax, segment_combine and deliver_fused at the BFS path's shapes for
    min and add, and in their add form at the write-back flush wave's
-   shapes (deliver_fused's counting path and paired add printed);
+   shapes (deliver_fused's counting path printed);
    histogram_bin on the Histogram input (bitwise); spmv_bcsr on
    RMAT-14 in 128x128 BCSR (rtol/atol 1e-4; its library call a
    ``torch.sparse_bsr_tensor`` product).  Each timed (CUDA events,
@@ -47,6 +47,12 @@ on past a failure:
    oracle;
 10. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
     the last line, ``{"ok": true, "device": {...}}``.
+
+The engine's runs (phases 5 and 6) also print, per call shape of
+segment_combine and deliver_fused, how the ids the engine hands them
+fall in the kernels' 32-record warp slices (``EngineIds``): the share
+of live records in runs of neighbours and repeated in their slice, and
+the atomics a fold would leave.
 
 Each main-path run (phases 5-8) sets every kernel's launch count to 0
 just before it and reads the counts just after; a kernel on the path
@@ -361,22 +367,21 @@ def kernel_phase(dev, wl) -> list:
         "src/repro/kernels/segment_combine.py:55", main, add)
 
     # deliver_fused: the mailbox read once, mailbox and counts written
-    def plan(seg, mail, combine):
-        n, nd = seg.numel(), mail.numel()
-        return (f"{n} records into {nd}, {df.counting_path(n)} counts"
-                + (", paired add" if df.paired_add(n, nd, combine) else ""))
+    def plan(seg, mail):
+        n = seg.numel()
+        return f"{n} records into {mail.numel()}, {df.counting_path(n)} counts"
 
     dseg, dval, mail = x["deliver"]
     nbytes = _bytes_scatter(dseg, 12 * mail.numel())
     main = _measure("deliver_fused", "min", x["deliver"], df.deliver_fused,
-                    df.plain, nbytes, what=plan(dseg, mail, "min"))
+                    df.plain, nbytes, what=plan(dseg, mail))
     _measure("deliver_fused", "add", x["deliver"], df.deliver_fused,
-             df.plain, nbytes, what=plan(dseg, mail, "add"))
+             df.plain, nbytes, what=plan(dseg, mail))
     dseg, dval, mail = x["deliver_add"]
     add = _measure("deliver_fused", "add", x["deliver_add"],
                    df.deliver_fused, df.plain,
                    _bytes_scatter(dseg, 12 * mail.numel()),
-                   what=plan(dseg, mail, "add") + " (Histogram flush wave)")
+                   what=plan(dseg, mail) + " (Histogram flush wave)")
     row("deliver_fused", "engine_kernels.cu",
         "src/repro/kernels/deliver_fused.py:68", main, add)
 

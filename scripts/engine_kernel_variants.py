@@ -6,10 +6,11 @@ engine itself hands them.
     python3 scripts/engine_kernel_variants.py [--no-engine] [variant ...]
 
 The variants (``VARIANTS``): the committed one-launch design
-(``kernels/csrc/engine_kernels.cu``, with the wrapper's choice of paired
-add and the kernel's own choice of warp fold), the same with the paired
-add forced on or off, with the records a thread takes changed, with the
-warp fold always on or always off, or folding every repeat in a warp
+(``kernels/csrc/engine_kernels.cu``: segment_combine folds runs within a
+warp where a thread takes more than one batch, deliver_fused never),
+the same with the records a thread takes changed, with segment_combine's
+fold always on or always off, with deliver_fused folding by
+segment_combine's rule, or with both folding every repeat in a warp
 through ``__match_any_sync`` in place of runs of neighbours; and the
 multi-launch design it replaced (``scripts/engine_kernels_multilaunch.cu``:
 fill + scatter, and copy + scatter + count conversion).  Each is built by
@@ -53,9 +54,12 @@ MULTILAUNCH = Path(__file__).resolve().parent / "engine_kernels_multilaunch.cu"
 OUT = _build.BUILD_DIR / "engine_variants"
 KEEP = 500                 # engine readings: every KEEP-th call of a shape
 ITEMS = "constexpr int kItemsPerThread = 4;"
-FOLD_RULE = "const bool fold = n > kItemsPerThread * stride;"
+FOLD_RULE = "const bool fold = a.n > kItemsPerThread * grid_stride();"
 FOLD_ALWAYS = (FOLD_RULE, "const bool fold = true;")
 NO_FOLD = (FOLD_RULE, "const bool fold = false;")
+DELIVER = "scatter_batched(a.seg, a.val, a.n, a.nd, a.is_min, false,"
+DELIVER_FOLD = (DELIVER, DELIVER.replace(
+    "false,", "a.n > kItemsPerThread * grid_stride(),"))
 FOLD = "template <typename Leader>\n__device__ __forceinline__ void fold_runs("
 # the fold of every repeat in a warp slice, neighbours or not: the lanes
 # of one id from __match_any_sync, folded in a tree over their lanes
@@ -97,23 +101,20 @@ def _function(text: str, head: str) -> str:
 
 
 MATCH_ANY = (_function(COMMITTED.read_text(), FOLD), MATCH_ANY_FOLD)
-# name: (source, substitutions in it, paired add: None = the wrapper's
-# choice, else forced)
+# name: (source, substitutions in it)
 VARIANTS = {
-    "multi-launch": (MULTILAUNCH, [], None),
-    "one launch": (COMMITTED, [], None),
-    "one launch, paired add forced": (COMMITTED, [], True),
-    "one launch, paired add off": (COMMITTED, [], False),
+    "multi-launch": (MULTILAUNCH, []),
+    "one launch": (COMMITTED, []),
     "one launch, 1 item a thread": (
-        COMMITTED, [(ITEMS, ITEMS.replace("4;", "1;"))], None),
+        COMMITTED, [(ITEMS, ITEMS.replace("4;", "1;"))]),
     "one launch, 8 items a thread": (
-        COMMITTED, [(ITEMS, ITEMS.replace("4;", "8;"))], None),
+        COMMITTED, [(ITEMS, ITEMS.replace("4;", "8;"))]),
     "one launch, 16 items a thread": (
-        COMMITTED, [(ITEMS, ITEMS.replace("4;", "16;"))], None),
-    "one launch, warp fold always": (COMMITTED, [FOLD_ALWAYS], None),
-    "one launch, no warp fold": (COMMITTED, [NO_FOLD], None),
-    "one launch, __match_any_sync fold always": (COMMITTED, [MATCH_ANY],
-                                                 None),
+        COMMITTED, [(ITEMS, ITEMS.replace("4;", "16;"))]),
+    "one launch, segment fold always": (COMMITTED, [FOLD_ALWAYS]),
+    "one launch, no segment fold": (COMMITTED, [NO_FOLD]),
+    "one launch, deliver folds by the rule": (COMMITTED, [DELIVER_FOLD]),
+    "one launch, __match_any_sync fold always": (COMMITTED, [MATCH_ANY]),
 }
 
 
@@ -122,7 +123,7 @@ def build(names):
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for i, name in enumerate(names):
-        source, subs, _ = VARIANTS[name]
+        source, subs = VARIANTS[name]
         text = source.read_text()
         for old, new in subs:
             if old not in text:
@@ -152,9 +153,9 @@ def callers(name, lib):
                        + [ctypes.c_int, ctypes.c_void_p])
     seg_fn.restype = ctypes.c_int
     multi = VARIANTS[name][0] == MULTILAUNCH
-    forced = VARIANTS[name][2]
     del_fn = lib.deliver_fused_launch
-    del_fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
+    del_fn.argtypes = ([ctypes.c_void_p] * (6 if multi else 5)
+                       + [ctypes.c_longlong] * 2
                        + [ctypes.c_int] * (1 if multi else 2)
                        + [ctypes.c_void_p])
     del_fn.restype = ctypes.c_int
@@ -178,12 +179,8 @@ def callers(name, lib):
                           cnt.data_ptr(), n, nd, int(combine == "min"),
                           stream())
             return out, cnt
-        paired = (df.paired_add(n, nd, combine) if forced is None
-                  else forced and combine == "add")
-        pair = torch.empty((2 * nd,), device=mail.device) if paired else None
         _build.launch(name, del_fn, seg.data_ptr(), val.data_ptr(),
-                      mail.data_ptr(), out.data_ptr(), cnt.data_ptr(),
-                      None if pair is None else pair.data_ptr(), n, nd,
+                      mail.data_ptr(), out.data_ptr(), cnt.data_ptr(), n, nd,
                       int(combine == "min"),
                       int(df.counting_path(n) == "i32"), stream())
         return out, cnt

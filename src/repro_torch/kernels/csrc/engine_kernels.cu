@@ -45,23 +45,29 @@
 //    path from the record count, a host-known shape) the counts are
 //    int32 atomics into the same buffer, converted to f32 in place after
 //    a second grid barrier, still in the one launch.
-//  * Atomics folded within a warp.  Runs of equal ids in neighbouring
-//    lanes of a warp slice are found with head flags (a shuffle up and a
-//    ballot) and folded by a segmented reduction down the lanes; the
-//    run's first lane then makes one value atomic and one count atomic
-//    that adds the run's length.  The engine's sorted segment ids put
-//    each run of equal ids in neighbouring lanes, so a run costs one
-//    atomic per slice, not one a record; a slice without runs (random
-//    ids) skips the fold.  (__match_any_sync, which also folds repeats
-//    that are not neighbours, cost more than it saved on the card.)
 //  * Loads in flight together.  A thread loads kItemsPerThread ids, then
-//    their live values, before it folds and scatters any of them.
-//  * Paired add (deliver_fused, add, f32 counts, chosen by the wrapper
-//    where records outnumber the mailbox): value and count share one
-//    interleaved (value, count) scratch and one Hopper vector
-//    atomicAdd(float2); a third phase, after another grid barrier,
-//    splits it into the two outputs.  Half the atomics, for 16 B of
-//    scratch traffic per mailbox entry.
+//    their live values, before it scatters any of them.
+//  * segment_combine folds runs within a warp where atomics set the
+//    pace.  Runs of equal ids in neighbouring lanes of a warp slice are
+//    found with head flags (a shuffle up and a ballot) and folded by a
+//    segmented reduction down the lanes; the run's first lane makes the
+//    one atomic.  The engine hands over sorted group ids, so every
+//    repeat in a slice is a neighbour: on its RMAT-22 calls 12-16% of
+//    the live records of a P$ call (BFS, SpMV), 83% (Histogram) and 56%
+//    of the flush wave's sit in runs.  The fold's shuffles lengthen
+//    each warp's path, which pays only where a thread of the resident
+//    grid takes more than one batch (records > kItemsPerThread x the
+//    grid's threads): the 2.1 M-record flush wave folds, a 131 K-record
+//    P$ call does not.  On an H100 SXM (scripts/engine_kernel_variants.py,
+//    on the engine's own calls) folding was 11% faster at the flush wave
+//    and 2-12% slower at P$ calls, runs or none.
+//  * deliver_fused does not fold: on the engine's RMAT-22 calls (P$
+//    group leaders and flushed P$ entries) no live id repeats within a
+//    warp slice, neighbour or not, so a fold, __match_any_sync's
+//    included, finds nothing to save.  Nor does it pair value and count
+//    in one atomicAdd(float2): on the engine's flush waves, a quarter of
+//    the records live, the paired scratch cost more than the atomics it
+//    saved (10-28% slower on the same card and script).
 //
 // Semantics (those of the plain versions, kernels/ref.py):
 //  * min uses atomicMin on order-preserving float bits: a non-negative
@@ -121,17 +127,17 @@ __device__ __forceinline__ float key_float(int k) {
   return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
 }
 
-// Fold the warp's runs of equal ids (neighbouring lanes; the engine's
-// sorted ids put every repeat beside its kin, and unsorted repeats that
-// are not neighbours simply stay separate) and call leader(index, folded
-// value, records) once per run with an id >= 0, on its first lane.  Every
-// lane of the warp calls it; s < 0 marks a lane without a record.  A warp
-// whose ids all differ from their neighbours (random ids, almost always)
-// goes straight to the atomics; otherwise a segmented reduction down the
-// lanes (log2 of the longest run's length in shuffle steps, each lane
-// adding its partner's partial while the partner is in its run) leaves
-// each run's fold on its first lane, in a fixed order.  min folds in
-// order_key order.
+// Fold the warp's runs of equal ids (neighbouring lanes; sorted ids put
+// every repeat beside its kin, and unsorted repeats that are not
+// neighbours simply stay separate) and call leader(index, folded value,
+// records) once per run with an id >= 0, on its first lane; without
+// `fold` (warp-uniform), once per lane with an id >= 0.  Every lane of the
+// warp calls it; s < 0 marks a lane without a record.  A slice whose ids
+// all differ from their neighbours goes straight to the atomics;
+// otherwise a segmented reduction down the lanes (log2 of the longest
+// run's length in shuffle steps, each lane adding its partner's partial
+// while the partner is in its run) leaves each run's fold on its first
+// lane, in a fixed order.  min folds in order_key order.
 template <typename Leader>
 __device__ __forceinline__ void fold_runs(int s, float v, bool is_min,
                                           bool fold, Leader leader) {
@@ -168,17 +174,15 @@ __device__ __forceinline__ void fold_runs(int s, float v, bool is_min,
 // Walk the records [0, n) in warp slices, the lanes of a warp together
 // (every lane reaches the warp intrinsics), kItemsPerThread slices a
 // batch: a thread loads the ids of its batch, then the values of its live
-// records, then folds and scatters slice by slice, so a batch's loads are
-// in flight together.  Ids < 0 or >= limit are padding, and the value of
-// a padding record is not read.
+// records, then scatters slice by slice (folding runs where `fold`), so a
+// batch's loads are in flight together.  Ids < 0 or >= limit are padding,
+// and the value of a padding record is not read.
 template <typename Leader>
-__device__ __forceinline__ void scatter_folded(
+__device__ __forceinline__ void scatter_batched(
     const int32_t* __restrict__ seg, const float* __restrict__ val,
-    long long n, long long limit, bool is_min, Leader leader) {
+    long long n, long long limit, bool is_min, bool fold, Leader leader) {
   const int lane = threadIdx.x & 31;
   const long long stride = grid_stride();
-  // fold only where a thread takes more than one batch
-  const bool fold = n > kItemsPerThread * stride;
   for (long long base = first_index() - lane; base < n;
        base += kItemsPerThread * stride) {
     int s[kItemsPerThread];
@@ -239,14 +243,16 @@ __global__ void __launch_bounds__(kThreads)
   init_phase(nullptr, a.is_min ? __int_as_float(kInfBits) : 0.0f, a.out,
              nullptr, a.num_segments, a.vec);
   cg::this_grid().sync();
-  scatter_folded(a.seg, a.val, a.n, a.num_segments, a.is_min,
-                 [&](int s, float x, int) {
-                   if (a.is_min) {
-                     atomic_min_f32(a.out + s, x);
-                   } else {
-                     atomicAdd(a.out + s, x);
-                   }
-                 });
+  // fold where a thread takes more than one batch (see the note above)
+  const bool fold = a.n > kItemsPerThread * grid_stride();
+  scatter_batched(a.seg, a.val, a.n, a.num_segments, a.is_min, fold,
+                  [&](int s, float x, int) {
+                    if (a.is_min) {
+                      atomic_min_f32(a.out + s, x);
+                    } else {
+                      atomicAdd(a.out + s, x);
+                    }
+                  });
 }
 
 struct DeliverArgs {
@@ -255,7 +261,6 @@ struct DeliverArgs {
   const float* mail;
   float* out;
   float* count;   // f32 counts; int32 bits until the last phase (int_counts)
-  float2* pair;   // (value, count) scratch of the paired add, or null
   long long n, nd;
   int is_min, int_counts, vec;
 };
@@ -263,45 +268,30 @@ struct DeliverArgs {
 __global__ void __launch_bounds__(kThreads)
     deliver_fused_kernel(const DeliverArgs a) {
   cg::grid_group grid = cg::this_grid();
-  if (a.pair) {
-    for (long long j = first_index(); j < a.nd; j += grid_stride()) {
-      a.pair[j] = make_float2(a.mail[j], 0.0f);
-    }
-  } else {
-    // int32 zero and f32 zero are the same bits
-    init_phase(a.mail, 0.0f, a.out, a.count, a.nd, a.vec);
-  }
+  // int32 zero and f32 zero are the same bits
+  init_phase(a.mail, 0.0f, a.out, a.count, a.nd, a.vec);
   grid.sync();
   // min touches only the indices some record hits: the mailbox
-  // legitimately holds +inf elsewhere and keeps it
-  scatter_folded(a.seg, a.val, a.n, a.nd, a.is_min,
-                 [&](int s, float x, int records) {
-                   if (a.pair) {
-                     atomicAdd(a.pair + s,
-                               make_float2(x, static_cast<float>(records)));
-                     return;
-                   }
-                   if (a.is_min) {
-                     atomic_min_f32(a.out + s, x);
-                   } else {
-                     atomicAdd(a.out + s, x);
-                   }
-                   if (a.int_counts) {
-                     atomicAdd(reinterpret_cast<int*>(a.count) + s, records);
-                   } else {
-                     atomicAdd(a.count + s, static_cast<float>(records));
-                   }
-                 });
-  if (!a.pair && !a.int_counts) return;
+  // legitimately holds +inf elsewhere and keeps it.  No fold (see the
+  // note above).
+  scatter_batched(a.seg, a.val, a.n, a.nd, a.is_min, false,
+                  [&](int s, float x, int records) {
+                    if (a.is_min) {
+                      atomic_min_f32(a.out + s, x);
+                    } else {
+                      atomicAdd(a.out + s, x);
+                    }
+                    if (a.int_counts) {
+                      atomicAdd(reinterpret_cast<int*>(a.count) + s,
+                                records);
+                    } else {
+                      atomicAdd(a.count + s, static_cast<float>(records));
+                    }
+                  });
+  if (!a.int_counts) return;
   grid.sync();
   for (long long j = first_index(); j < a.nd; j += grid_stride()) {
-    if (a.pair) {
-      const float2 p = a.pair[j];
-      a.out[j] = p.x;
-      a.count[j] = p.y;
-    } else {
-      a.count[j] = static_cast<float>(__float_as_int(a.count[j]));
-    }
+    a.count[j] = static_cast<float>(__float_as_int(a.count[j]));
   }
 }
 
@@ -396,25 +386,22 @@ int segment_combine_launch(const void* seg, const void* val, void* out,
 
 // deliver_fused: out = mail with every record folded in at seg[i];
 // count[j] = number of records with seg == j, as f32.  int_counts: count
-// with int32 atomics and convert in place (2^24 records or more).  pair:
-// null, or 2 * nd floats of scratch for the paired add (add, f32 counts).
-// One launch.
+// with int32 atomics and convert in place (2^24 records or more).  One
+// launch.
 int deliver_fused_launch(const void* seg, const void* val, const void* mail,
-                         void* out, void* count, void* pair, long long n,
-                         long long nd, int is_min, int int_counts,
-                         void* stream) {
+                         void* out, void* count, long long n, long long nd,
+                         int is_min, int int_counts, void* stream) {
   DeliverArgs a{static_cast<const int32_t*>(seg),
                 static_cast<const float*>(val),
                 static_cast<const float*>(mail),
                 static_cast<float*>(out),
                 static_cast<float*>(count),
-                static_cast<float2*>(pair),
                 n,
                 nd,
                 is_min,
                 int_counts,
                 aligned16(mail) && aligned16(out) && aligned16(count)};
-  const long long init = a.vec && !a.pair ? nd / 4 : nd;
+  const long long init = a.vec ? nd / 4 : nd;
   return launch_status(launch_cooperative(
       reinterpret_cast<const void*>(deliver_fused_kernel),
       n > init ? n : init, &a, static_cast<cudaStream_t>(stream)));

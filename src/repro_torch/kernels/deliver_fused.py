@@ -5,17 +5,15 @@ Replaces ``repro/kernels/deliver_fused.py`` ``deliver_fused``.  The TPU
 kernel revisited each mailbox block once per record block with a one-hot
 compare; this one (``csrc/engine_kernels.cu``) is one cooperative launch:
 it copies the mailbox and zeroes the counts, waits at a grid barrier, and
-scatters every record with L2 atomics (min on order-preserving bits
-touches only hit indices), each run of records with the same index in
-neighbouring lanes of a warp folded first into one value atomic and one
-count atomic.  The counts are f32 atomics straight into the output below
-2^24 records (exact: every partial count is an integer below 2^24), int32
-atomics converted in place after a second barrier at or above it
-(``counting_path``).  Where records outnumber the mailbox, the add form
-pairs value and count in one vector ``atomicAdd(float2)`` on an
-interleaved scratch (``paired_add``).  Bound by device-memory bytes where
-the mailbox is large (it is read once and written twice, values and
-counts), by the L2 atomics where the records outnumber it.
+scatters every record with L2 atomics, one for the value (min on
+order-preserving bits touches only hit indices) and one for the count.
+The counts are f32 atomics straight into the output below 2^24 records
+(exact: every partial count is an integer below 2^24), int32 atomics
+converted in place after a second barrier at or above it
+(``counting_path``).  No warp fold: the engine's deliveries never repeat
+an id within a warp.  Bound by device-memory bytes where the mailbox is
+large (it is read once and written twice, values and counts), by the L2
+atomics where the records outnumber it.
 """
 from __future__ import annotations
 
@@ -35,14 +33,6 @@ def counting_path(n: int) -> str:
     return "f32" if n < F32_COUNT_LIMIT else "i32"
 
 
-def paired_add(n: int, nd: int, combine: str) -> bool:
-    """Whether the add form folds value and count with one vector atomic
-    into an interleaved (value, count) scratch of 8 B per mailbox entry:
-    where the ``n`` records at least match the ``nd`` entries, so the
-    atomics, not the mailbox bytes, set the pace; f32 counts only."""
-    return combine == "add" and counting_path(n) == "f32" and n >= nd
-
-
 def deliver_fused(seg, val, mail_val, combine: str = "min"):
     """Hopper kernel.  seg: (N,) int32 CUDA tensor of mailbox indices,
     < 0 = padding; val: (N,) f32; mail_val: (Nd,) f32.  Returns
@@ -57,18 +47,16 @@ def deliver_fused(seg, val, mail_val, combine: str = "min"):
                  None, dev)
     out = torch.empty_like(mail_val)
     cnt = torch.empty((nd,), dtype=torch.float32, device=dev)
-    pair = (torch.empty((2 * nd,), dtype=torch.float32, device=dev)
-            if paired_add(n, nd, combine) else None)
-    fn = _build.bind("engine_kernels", "deliver_fused_launch", 6, 2, 2)
+    fn = _build.bind("engine_kernels", "deliver_fused_launch", 5, 2, 2)
     with torch.cuda.device(dev):
         _build.launch("deliver_fused", fn, seg.data_ptr(), val.data_ptr(),
                       mail_val.data_ptr(), out.data_ptr(), cnt.data_ptr(),
-                      None if pair is None else pair.data_ptr(), n, nd,
-                      int(combine == "min"), int(counting_path(n) == "i32"),
+                      n, nd, int(combine == "min"),
+                      int(counting_path(n) == "i32"),
                       torch.cuda.current_stream(dev).cuda_stream)
     deliver_fused.launches += 1
     return out, cnt
 
 
 deliver_fused.launches = 0
-__all__ = ["deliver_fused", "plain", "counting_path", "paired_add"]
+__all__ = ["deliver_fused", "plain", "counting_path"]

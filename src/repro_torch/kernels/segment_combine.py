@@ -4,12 +4,14 @@ Replaces ``repro/kernels/segment_combine.py`` ``segment_combine``: a
 dense segment min/add over (segment id, value) records.  The TPU kernel
 compared every record with every segment of a block (one-hot); this one
 (``csrc/engine_kernels.cu``) is one cooperative launch: the identity
-fill, a grid barrier, then one scatter pass of float atomics in which
-each run of equal ids in neighbouring lanes of a warp is folded first,
-so a run (the engine hands over sorted ids) costs one atomic per warp.
-The job is small on the engine's path, so the launch bounds it.  Ids
-need not be sorted.  min is bitwise order-free; add re-associates from
-run to run.
+fill, a grid barrier, then one scatter pass of float atomics.  Where a
+thread of the resident grid takes more than one batch of records (the
+write-back flush wave, where the atomics set the pace), each run of
+equal ids in neighbouring lanes of a warp is folded first, so a run (the
+engine hands over sorted ids) costs one atomic per warp; a smaller job
+(a P$ call) goes straight to the atomics, its pace set by the launch.
+Ids need not be sorted.  min is bitwise order-free; add re-associates
+from run to run.
 """
 from __future__ import annotations
 

@@ -109,8 +109,7 @@ def test_kernels_match_plain_on_card(combine, n, nd, layout):
     peers), sorted runs across warps and blocks, padding interleaved and
     at the end, +-inf and -0.0; runs again at 2,097,152 records, more
     than one batch for every thread of a resident grid, where the
-    kernels fold runs within a warp.  add takes the paired form where
-    the records outnumber the entries."""
+    kernels fold runs within a warp."""
     dev = _card()
     rng = np.random.default_rng(n)
 
@@ -178,15 +177,17 @@ def test_deliver_fused_counts_exact_on_card(n, combine):
 
 
 def test_engine_kernels_replay_in_a_cuda_graph():
-    """segment_combine and deliver_fused (min, add, and the paired add
-    where records outnumber the entries) captured in a CUDA graph: one launch each at capture and none at
-    replay; a replay on fresh inputs copied into the captured buffers
-    equals the eager calls on them, bitwise for min and the counts,
-    within rtol 1e-5 / atol 1e-6 for add."""
+    """segment_combine and deliver_fused (min and add; records fewer and
+    more than the entries; 2,097,152 records, where segment_combine
+    folds runs within a warp) captured in a CUDA graph: one launch each
+    at capture and none at replay; a replay on fresh inputs copied into
+    the captured buffers equals the eager calls on them, bitwise for min
+    and the counts, within rtol 1e-5 / atol 1e-6 for add."""
     dev = _card()
     rng = np.random.default_rng(11)
     for combine, n, nd in (("min", 70_001, 9_999), ("add", 9_999, 70_001),
-                           ("add", 20_000, 4_096)):
+                           ("add", 20_000, 4_096),
+                           ("min", 2_097_152, 524_288)):
         def inputs():
             return [torch.from_numpy(a).to(dev) for a in (
                 _segments(rng, "runs, padded", n, nd),

@@ -157,18 +157,6 @@ def test_deliver_fused_counting_path(n, path):
     assert df.counting_path(n) == path
 
 
-@pytest.mark.parametrize("n,nd,combine,paired", [
-    (2_097_152, 524_288, "add", True),      # the flush wave
-    (2_097_152, 524_288, "min", False),     # min has no vector atomic
-    (262_144, 4_194_304, "add", False),     # the BFS shapes: bytes bound
-    (4_096, 4_096, "add", True),
-    ((1 << 24) + 5, 8, "add", False)])      # int32 counts: no f32 pair
-def test_deliver_fused_paired_add(n, nd, combine, paired):
-    """The paired (value, count) vector atomic only for add with f32
-    counts, where the records at least match the mailbox entries."""
-    assert df.paired_add(n, nd, combine) is paired
-
-
 @pytest.mark.parametrize("kernel", [rx.relax, sc.segment_combine,
                                     df.deliver_fused, hb.histogram_bin,
                                     sp.spmv_bcsr, da.decode_attention])
