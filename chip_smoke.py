@@ -15,7 +15,9 @@ on past a failure:
    relax, segment_combine and deliver_fused at the BFS path's shapes for
    min and add, and in their add form at the write-back flush wave's
    shapes (deliver_fused's counting path printed);
-   histogram_bin on the Histogram input (bitwise); spmv_bcsr on
+   histogram_bin on the Histogram input and on the RMAT-22 degree
+   histogram (bitwise; its path, slices and resident blocks printed);
+   spmv_bcsr on
    RMAT-14 in 128x128 BCSR (rtol/atol 1e-4; its library call a
    ``torch.sparse_bsr_tensor`` product).  Each timed (CUDA events,
    inputs rotated past L2) beside its bound, its plain version and, where
@@ -252,6 +254,16 @@ def kernel_inputs(gen, dev):
                      rand(nd_histo) * 64))
 
 
+def histogram_readings(wl) -> dict:
+    """histogram_bin's two readings at the Histogram app's bins: the
+    paper's input ((i + w_i) mod bins: a warp's ids nearly distinct and
+    neighbouring) and the RMAT-22 destination ids mod bins (the degree
+    histogram: hubs make hot bins)."""
+    col = wl[SCALE].col_idx
+    return {"Histogram input": wl["histo"],
+            "degree histogram": (col % wl["bins"]).astype(np.int32)}
+
+
 def _bytes_scatter(seg, n_out_bytes):
     """Bytes a scatter must move: every 4 B segment id, the 4 B value of
     each live (seg >= 0) record only, and the outputs once."""
@@ -316,12 +328,9 @@ def kernel_phase(dev, wl) -> list:
     src = "src/repro_torch/kernels/csrc/"
     rows = []
 
-    def row(name, source, replaces, main, add=None):
-        r = dict(name=name, route="cuda", source=src + source,
-                 replaces=replaces, launches=0, **main)
-        if add is not None:
-            r["add"] = add
-        rows.append(r)
+    def row(name, source, replaces, main, **readings):
+        rows.append(dict(name=name, route="cuda", source=src + source,
+                         replaces=replaces, launches=0, **main, **readings))
 
     # relax: bytes 14 per element (values, mail, flag read; values,
     # improved written)
@@ -333,7 +342,7 @@ def kernel_phase(dev, wl) -> list:
     add = _measure("relax", "add", x["relax_add"], rx.relax, rx.plain,
                    14 * nd, what=f"n {nd} (SpMV values)")
     row("relax", "engine_kernels.cu", "src/repro/kernels/relax_min.py:32",
-        main, add)
+        main, add=add)
 
     # segment_combine; the library call is one scatter_reduce_ (min) /
     # index_add_ (add) into an identity-filled buffer with the padding
@@ -364,7 +373,7 @@ def kernel_phase(dev, wl) -> list:
                    library=(lambda o, i, v: o.index_add_(0, i, v),
                             lib_sets(seg, val, ts, 0.0, nbytes)))
     row("segment_combine", "engine_kernels.cu",
-        "src/repro/kernels/segment_combine.py:55", main, add)
+        "src/repro/kernels/segment_combine.py:55", main, add=add)
 
     # deliver_fused: the mailbox read once, mailbox and counts written
     def plan(seg, mail):
@@ -383,20 +392,35 @@ def kernel_phase(dev, wl) -> list:
                    _bytes_scatter(dseg, 12 * mail.numel()),
                    what=plan(dseg, mail) + " (Histogram flush wave)")
     row("deliver_fused", "engine_kernels.cu",
-        "src/repro/kernels/deliver_fused.py:68", main, add)
+        "src/repro/kernels/deliver_fused.py:68", main, add=add)
 
-    # histogram_bin on the Histogram app's input: 4 B per id read, 4 B
-    # per bin written; the library call is torch.bincount (ids are all
-    # non-negative here)
-    idx = torch.from_numpy(wl["histo"]).to(dev)
+    # histogram_bin on the Histogram app's input and on the RMAT-22
+    # degree histogram (hub-heavy: hot bins), bitwise: 4 B per id read,
+    # 4 B per bin written; the library call is torch.bincount (ids are
+    # all non-negative here)
     bins = wl["bins"]
-    nbytes = 4 * idx.numel() + 4 * bins
-    main = _measure("histogram_bin", None, (idx, bins), hb.histogram_bin,
-                    hb.plain, nbytes, what=f"{idx.numel()} ids, {bins} bins",
-                    library=(lambda i, b: torch.bincount(i, minlength=b),
-                             copies((idx, bins), nbytes)), bitwise=True)
+    readings = {}
+    for label, ids in histogram_readings(wl).items():
+        idx = torch.from_numpy(ids).to(dev)
+        nbytes = 4 * idx.numel() + 4 * bins
+        readings[label] = _measure(
+            "histogram_bin", None, (idx, bins), hb.histogram_bin, hb.plain,
+            nbytes, what=f"{label}: {idx.numel()} ids, {bins} bins",
+            library=(lambda i, b: torch.bincount(i, minlength=b),
+                     copies((idx, bins), nbytes)), bitwise=True)
+        p, resident = hb.histogram_bin.last
+        print(f"  histogram_bin {label}: path {p.path}, {p.slices} slices "
+              f"x {p.per_block} bins, {resident} resident blocks; "
+              f"{readings[label]['ms']:.4f} ms vs bound "
+              f"{readings[label]['bound_ms']:.4f} ms, torch.bincount "
+              f"{readings[label]['library_ms']:.4f} ms")
+        readings[label].update(path=p.path, slices=p.slices,
+                               resident=resident)
+        del idx
+    main, degrees = readings.values()
     row("histogram_bin", "histogram_bin.cu",
-        "src/repro/kernels/histogram_bin.py:39", main)
+        "src/repro/kernels/histogram_bin.py:39", main,
+        degree_histogram=degrees)
 
     # spmv_bcsr on RMAT-14 in 128x128 BCSR
     g = wl[SPMV_KERNEL_SCALE]

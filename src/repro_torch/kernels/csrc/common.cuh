@@ -1,6 +1,7 @@
 // Launch geometry shared by the kernels in this directory: grid-stride
-// loops over 256-thread blocks sized from the device's SM count, and the
-// int32 -> f32 count conversion histogram_bin ends with.
+// loops over 256-thread blocks sized from the device's SM count, a
+// launcher's error code, and the int32 -> f32 count conversion
+// histogram_bin ends with.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,6 +36,13 @@ inline int blocks_for(long long n) {
   if (b > most) b = most;
   if (b < 1) b = 1;
   return static_cast<int>(b);
+}
+
+// The CUDA error of a launch (`err`, else the last one recorded), with
+// the last error cleared either way.
+inline int launch_status(cudaError_t err) {
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 __device__ __forceinline__ long long first_index() {

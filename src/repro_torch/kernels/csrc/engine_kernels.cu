@@ -299,13 +299,6 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// The CUDA error of a launch (`err`, else the last one recorded), with
-// the last error cleared either way.
-int launch_status(cudaError_t err) {
-  const cudaError_t last = cudaGetLastError();
-  return static_cast<int>(err != cudaSuccess ? err : last);
-}
-
 // A cooperative launch of `kernel` over `work` elements in its larger
 // phase: kItemsPerThread a thread, at most the blocks that can be
 // resident at once (occupancy x the device's SM count, both read on every

@@ -225,21 +225,86 @@ def test_engine_kernels_replay_in_a_cuda_graph():
         assert torch.equal(captured[2], eager[2])
 
 
-@pytest.mark.parametrize("n,bins", [(1, 1), (100_003, 700),
-                                    (1_000_000, 12_288),
-                                    (1_000_000, 524_288)])
-def test_histogram_bin_matches_plain_on_card(n, bins):
-    """Both the shared-memory path (bins fit in 48 KB) and the global one;
-    negative ids and ids past the last bin are skipped; bitwise."""
+# (n, bins, path on an H100: 232,448 B of shared memory a block)
+HISTOGRAM_CASES = [
+    (1, 1, "private"), (0, 700, "private"), (100_003, 700, "private"),
+    (1_000_000, 12_288, "private"), (1_000_000, 58_112, "private"),
+    (1_000_000, 58_113, "sliced"), (1_000_000, 100_003, "sliced"),
+    (0, 524_288, "sliced"), (1_000_000, 524_288, "sliced"),
+    (8_000_003, 524_288, "sliced"), (1_000_000, 524_289, "sliced"),
+    (1_000_000, 929_792, "sliced"), (1_000_000, 929_793, "sliced"),
+    (3_000_000, 7_438_336, "sliced"), (3_000_000, 7_438_337, "global"),
+]
+
+
+@pytest.mark.parametrize("n,bins,path", HISTOGRAM_CASES)
+def test_histogram_bin_matches_plain_on_card(n, bins, path):
+    """Every path and each boundary between them, bitwise: negative ids
+    and ids past the last bin are skipped; at 524,288 bins (the Histogram
+    app's) the sliced path of 16 slices of 32,768 ran."""
     dev = _card()
     rng = np.random.default_rng(n + bins)
     idx = torch.from_numpy(rng.integers(-5, bins + 5, n).astype(np.int32))
     launches = hb.histogram_bin.launches
     got = hb.histogram_bin(idx.to(dev), bins)
     assert hb.histogram_bin.launches == launches + 1
+    p, resident = hb.histogram_bin.last
+    assert p.path == path
+    if path != "global":
+        assert resident >= p.slices
+    if bins == 524_288:
+        assert (p.slices, p.per_block) == (16, 32_768)
     assert torch.equal(got.cpu(), hb.plain(idx, bins))
     assert torch.equal(ops.histogram(idx.to(dev), bins).cpu(),
                        hb.plain(idx, bins))
+
+
+@pytest.mark.parametrize("bins", [700, 58_113, 100_003, 524_288, 929_793])
+def test_histogram_bin_neighbouring_ids_on_card(bins):
+    """The Histogram app's kind of ids, (i + w_i) mod bins with w_i in
+    [1, 255], with padding mixed in: on the sliced path nearly every id
+    falls in its block's own slice; same bits."""
+    dev = _card()
+    rng = np.random.default_rng(bins)
+    n = 3_000_017
+    idx = (np.arange(n) + rng.integers(1, 256, n)) % bins
+    idx = np.where(rng.random(n) < 0.01, -1, idx).astype(np.int32)
+    idx = torch.from_numpy(idx)
+    assert torch.equal(hb.histogram_bin(idx.to(dev), bins).cpu(),
+                       hb.plain(idx, bins))
+
+
+@pytest.mark.parametrize("bins", [700, 524_288, 7_438_337])
+def test_histogram_bin_unaligned_ids_on_card(bins):
+    """ids that start 4 bytes past a 16-byte boundary take the scalar
+    loads; same bits."""
+    dev = _card()
+    rng = np.random.default_rng(bins)
+    idx = torch.from_numpy(rng.integers(-3, bins + 3, 300_001)
+                           .astype(np.int32))
+    got = hb.histogram_bin(idx.to(dev)[1:], bins)
+    assert torch.equal(got.cpu(), hb.plain(idx[1:], bins))
+
+
+@pytest.mark.parametrize("bins", [3, 524_288])
+def test_histogram_bin_hot_bin_past_f32_on_card(bins):
+    """One bin takes 2^24 + 1 ids, where f32 rounds (to 2^24): the counts
+    stay int32 until the one conversion, as in the plain version."""
+    dev = _card()
+    idx = torch.full(((1 << 24) + 1 + 1000,), bins - 1, dtype=torch.int32)
+    idx[-1000:] = torch.arange(1000, dtype=torch.int32) % (bins - 1)
+    got = hb.histogram_bin(idx.to(dev), bins).cpu()
+    want = hb.plain(idx, bins)
+    assert torch.equal(got, want)
+    assert got[bins - 1] == float(1 << 24)
+
+
+def test_histogram_bin_refuses_int64_ids_on_card():
+    dev = _card()
+    before = hb.histogram_bin.launches
+    with pytest.raises(ValueError, match="dtype"):
+        hb.histogram_bin(torch.zeros(8, dtype=torch.int64, device=dev), 4)
+    assert hb.histogram_bin.launches == before
 
 
 @pytest.mark.parametrize("scale,bm,bk", [(7, 32, 48), (9, 128, 128),
