@@ -23,12 +23,20 @@ on past a failure:
    inputs rotated past L2) beside its bound, its plain version and, where
    one PyTorch call computes the same function, that call;
 5. BFS on RMAT-22 over one 64x64-tile package (4096 tiles) with the
-   Table-II write-through proxy, backend ``kernels``; values checked
-   against scipy's BFS hop distances; a ``torch.profiler`` window;
+   Table-II write-through proxy, backend ``kernels``, through the
+   default chunked run loop (16 supersteps a host fetch, each a CUDA
+   graph replay); values checked against scipy's BFS hop distances;
+   then the same call on the per-step loop (``run_chunk=0``), equal to
+   the chunked run (values bitwise; counters, trace, supersteps,
+   ``time_s``) and timed beside it (the run loop alone, without the
+   app's set-up: ``LoopClock``); two ``torch.profiler`` windows, 20
+   supersteps of the per-step loop and 20 graph replays;
 6. SpMV (write-back P$, selective 2-level cascade) and Histogram
-   (write-back P$) on RMAT-22 over 4096 tiles, backend ``kernels``;
-   checked against scipy's ``A @ x`` and ``np.bincount``; a profiler
-   window of SpMV;
+   (write-back P$) on RMAT-22 over 4096 tiles, backend ``kernels``,
+   chunked; checked against scipy's ``A @ x`` and ``np.bincount``; each
+   also on the per-step loop (equal in counters, trace, supersteps and
+   ``time_s``, values bitwise for Histogram, within rtol 1e-4 / atol
+   1e-5 for SpMV) with the two profiler windows;
 7. the kernel entry points ``ops.histogram`` on the Histogram input
    (bitwise equal to the engine's counts and ``np.bincount``) and
    ``ops.spmv`` on RMAT-14 (against scipy and the engine's SpMV);
@@ -42,16 +50,19 @@ on past a failure:
    the plain version and ``scaled_dot_product_attention`` (its backend
    printed); which split kernel ran (bf16 on the tensor cores, f32 on
    the CUDA cores) and the bf16 error beside the CUDA-core kernel's;
-9. backend agreement at RMAT-18: BFS, SpMV, Histogram and PageRank
-   (epochs=3) with ``kernels`` and with ``torch``: counters, trace,
-   supersteps and ``time_s`` exact, values bitwise (BFS, Histogram) or
-   within rtol 1e-4 / atol 1e-5 (SpMV, PageRank); PageRank against its
-   oracle;
+9. backend agreement at RMAT-18, chunked: BFS, SpMV, Histogram and
+   PageRank (epochs=3) with ``kernels`` and with ``torch``: counters,
+   trace, supersteps and ``time_s`` exact, values bitwise (BFS,
+   Histogram) or within rtol 1e-4 / atol 1e-5 (SpMV, PageRank);
+   Histogram and PageRank also on the per-step loop against the chunked
+   one; PageRank against its oracle;
 10. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
     the last line, ``{"ok": true, "device": {...}}``.
 
-The engine's runs (phases 5 and 6) also print, per call shape of
-segment_combine and deliver_fused, how the ids the engine hands them
+Every app run prints its supersteps, wall seconds, ms per superstep,
+host syncs, CUDA-graph replays, peak device memory and launches per
+kernel.  The per-step runs of phases 5 and 6 also print, per call shape
+of segment_combine and deliver_fused, how the ids the engine hands them
 fall in the kernels' 32-record warp slices (``EngineIds``): the share
 of live records in runs of neighbours and repeated in their slice, and
 the atomics a fold would leave.
@@ -59,7 +70,10 @@ the atomics a fold would leave.
 Each main-path run (phases 5-8) sets every kernel's launch count to 0
 just before it and reads the counts just after; a kernel on the path
 that did not launch (at least once per superstep, on the engine's
-paths) fails the run.
+paths) fails the run.  A graph replay counts the launches captured in
+it, so on the chunked loop the counts include the idle rows of a
+chunk (after the run drained, or after a flush the device scheduled),
+which are printed as the surplus.
 
 Without a CUDA device, or without the repo's ``src/repro_torch`` beside
 it, the script prints no result and exits nonzero.
@@ -528,6 +542,9 @@ class EngineIds:
 
     def _tap(self, name, fn):
         def call(seg, val, third, combine="min"):
+            # a graph replay would not run the tap: per-step runs only
+            require(not torch.cuda.is_current_stream_capturing(),
+                    "EngineIds taps the per-step loop (run_chunk=0) only")
             limit = third if name == "segment_combine" else third.numel()
             key = (name, combine, seg.numel(), limit)
             i = self.calls.get(key, 0)
@@ -584,67 +601,119 @@ def main_path_apps(wl) -> dict:
 
 
 # ------------------------------------------------------------ app runs
+class LoopClock:
+    """While entered, sums the host-clock seconds spent inside
+    ``DataLocalEngine.run``: the run loop alone, without the app's
+    set-up.  Each run ends in its last fetch, which waits for all the
+    work it enqueued, so the sum is the loop's wall time."""
+
+    def __enter__(self):
+        from repro_torch.core.engine import DataLocalEngine
+        self.seconds = 0.0
+        self._run = run = DataLocalEngine.run
+
+        def timed(eng, *args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return run(eng, *args, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t0
+        DataLocalEngine.run = timed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.engine import DataLocalEngine
+        DataLocalEngine.run = self._run
+
+
 def app_run(dev, label: str, fn, *args, **kw):
     """One app call as a user makes it, timed on the host clock around
-    work that ends in a synchronise; every kernel's launch count is set
-    to 0 just before and read just after."""
+    work that ends in a synchronise, and its run loop alone
+    (``LoopClock``); every kernel's launch count is set to 0 just before
+    and read just after.  Returns (result, launches, readings)."""
+    from repro_torch.core.engine import EngineConfig
     from repro_torch.kernels import ops
     from repro_torch.obs.metrics import default_registry
-    syncs = default_registry().counter("engine.host_syncs")
-    syncs0 = syncs.value
+    reg = default_registry()
+    syncs, replays = (reg.counter("engine.host_syncs"),
+                      reg.counter("engine.graph_replays"))
+    syncs0, replays0 = syncs.value, replays.value
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    res = fn(*args, device=dev, **kw)
+    with LoopClock() as clock:
+        res = fn(*args, device=dev, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in ops.KERNELS}
+    launches = ops.launch_counts()
     run = res.run
-    print(f"  {label} backend={kw.get('backend', 'kernels')}: "
-          f"{run.supersteps} supersteps in {wall:.2f} s wall on the card "
-          f"({wall / run.supersteps * 1e3:.3f} ms per superstep, "
-          f"{syncs.value - syncs0:.0f} host syncs), peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    chunk = kw.get("run_chunk", EngineConfig.run_chunk)
+    loop = "per-step loop" if chunk == 0 else f"chunked loop, {chunk} a fetch"
+    readings = dict(supersteps=run.supersteps, chunk=chunk, wall_s=wall,
+                    loop_s=clock.seconds,
+                    ms_per_superstep=clock.seconds / run.supersteps * 1e3,
+                    host_syncs=syncs.value - syncs0,
+                    graph_replays=replays.value - replays0,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"  {label} backend={kw.get('backend', 'kernels')}, {loop}: "
+          f"{run.supersteps} supersteps in {wall:.2f} s wall on the card, "
+          f"{clock.seconds:.2f} s of it in the run loop "
+          f"({readings['ms_per_superstep']:.3f} ms per superstep, "
+          f"{readings['host_syncs']:.0f} host syncs, "
+          f"{readings['graph_replays']:.0f} graph replays), peak device "
+          f"memory {readings['peak_gib']:.3f} GiB")
     print(f"    modelled Tascade chip (BSP cost model, not the H100): "
           f"time_s {run.time_s:.6e}, {res.gteps:.2f} GTEPS")
     print(f"    counters {json.dumps(run.counters.as_dict())}")
     print(f"    launches {json.dumps(launches)}")
-    return res, launches
+    return res, launches, readings
 
 
-def require_launches(label, launches, steps, names) -> None:
+def require_launches(label, launches, readings, names) -> None:
     """Every kernel of the path launched at least once per superstep
     (the engine calls each one in every superstep; flush supersteps
-    call segment_combine and deliver_fused more than once)."""
+    call segment_combine and deliver_fused more than once), and relax
+    exactly once in each superstep run.  The chunked loop replays CUDA
+    graphs and runs each chunk's full length of predicated supersteps,
+    its idle rows included: the surplus over the supersteps is
+    printed."""
+    steps = readings["supersteps"]
     for name in names:
         require(launches[name] >= steps,
                 f"{label}: {name} launched {launches[name]} times in "
                 f"{steps} supersteps")
+    ran = steps
+    if readings["chunk"]:
+        require(readings["graph_replays"] > 0,
+                f"{label}: no CUDA graph replayed")
+        ran = readings["host_syncs"] * readings["chunk"]
+    require(launches["relax"] == ran,
+            f"{label}: relax launched {launches['relax']} times in "
+            f"{ran:.0f} supersteps run")
+    surplus = {n: launches[n] - steps for n in names}
     print(f"    {label}: every engine kernel launched at least once per "
-          f"superstep ({steps})")
+          f"superstep ({steps}); surplus over the supersteps "
+          f"{json.dumps(surplus)} (idle rows {ran - steps:.0f} of "
+          f"{ran:.0f} predicated supersteps)")
 
 
-def profile_supersteps(dev, eng, state, label: str, n: int = 20) -> None:
-    """Where a superstep's time goes: ``n`` supersteps of the engine
-    under ``torch.profiler`` (after 5 warm-up supersteps), the
-    device-busy share and the ops with the most device time.  The
-    profiler adds host overhead of its own."""
+def compare_loops(label, chunked, per_step) -> None:
+    """The two run loops' readings side by side."""
+    print(f"    {label} loops: ms per superstep chunked "
+          f"{chunked['ms_per_superstep']:.3f} vs per-step "
+          f"{per_step['ms_per_superstep']:.3f} "
+          f"({per_step['loop_s'] / chunked['loop_s']:.2f}x; wall with the "
+          f"set-up {chunked['wall_s']:.2f} vs {per_step['wall_s']:.2f} s); "
+          f"host syncs {chunked['host_syncs']:.0f} vs "
+          f"{per_step['host_syncs']:.0f}; peak GiB "
+          f"{chunked['peak_gib']:.3f} vs {per_step['peak_gib']:.3f}")
+
+
+def _profile_report(prof, wall: float, n: int, label: str) -> None:
+    """The device-busy share of a profiled window of ``n`` supersteps
+    and the entries with the most device and host time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.engine import fetch_stats
-    for _ in range(5):
-        state, stats = eng._superstep(state)
-        fetch_stats(stats)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            state, stats = eng._superstep(state)
-            fetch_stats(stats)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     kernels, host_ops = [], []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", 0.0)
@@ -672,6 +741,48 @@ def profile_supersteps(dev, eng, state, label: str, n: int = 20) -> None:
     for cpu_us, dev_us, count, key in sorted(host_ops, reverse=True)[:10]:
         print(f"    {cpu_us / n:9.1f} {dev_us / n:9.1f} {count / n:6.1f}  "
               f"{key[:70]}")
+
+
+def profile_supersteps(dev, eng, state, label: str, n: int = 20) -> None:
+    """Where a superstep's time goes, on both run loops, from the same
+    initial state: ``n`` supersteps of the per-step loop (after 5
+    warm-up supersteps), then ``n`` graph replays of the chunked loop
+    (one chunk of ``n`` after a first chunk of ``n``, which runs the
+    eager superstep and the capture), each under ``torch.profiler``
+    with its one fetch.  The profiler adds host overhead of its own."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.engine import fetch_stats
+    from repro_torch.obs.metrics import default_registry
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    st = state
+    for _ in range(5):
+        st, stats = eng._superstep(st)
+        fetch_stats(stats)
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            st, stats = eng._superstep(st)
+            fetch_stats(stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _profile_report(prof, wall, n, f"{label}, per-step loop")
+    del st, stats
+    replays = default_registry().counter("engine.graph_replays")
+    runner = eng.chunk_runner(state, n)
+    runner.launch(10 * n, False)
+    runner.fetch()
+    before = replays.value
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        runner.launch(10 * n, False)
+        _, _, rows = runner.fetch()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    require(replays.value - before == n and rows[:, -1].sum() == n,
+            f"profile {label}: {replays.value - before:.0f} replays, "
+            f"{rows[:, -1].sum():.0f} active rows, expected {n}")
+    _profile_report(prof, wall, n, f"{label}, {n} graph replays")
 
 
 def scipy_csr(g):
@@ -737,8 +848,21 @@ def same_run(a, b, what: str, rtol=None, atol=None) -> None:
 ENGINE_KERNELS = ("relax", "segment_combine", "deliver_fused")
 
 
+def per_step_run(dev, label, res, fn, args, kw, rtol=None, atol=None):
+    """The same call on the per-step loop (``run_chunk=0``) with the
+    ``EngineIds`` tap: its launches checked, and the run equal to the
+    chunked one ``res``.  Returns its readings."""
+    with EngineIds() as ids:
+        ref, launches, readings = app_run(dev, label, fn, *args,
+                                          run_chunk=0, **kw)
+    ids.report(label)
+    require_launches(f"{label} per-step", launches, readings,
+                     ENGINE_KERNELS)
+    same_run(res, ref, f"{label} chunked vs per-step loop", rtol, atol)
+    return readings
+
+
 def bfs_phase(dev, wl) -> dict:
-    from repro_torch.core.engine import DataLocalEngine, EngineConfig
     from repro_torch.graph import apps
     print(f"== 5. main path: BFS, backend=kernels, RMAT-{SCALE} on {TILES} "
           f"tiles, write-through P$")
@@ -748,22 +872,14 @@ def bfs_phase(dev, wl) -> dict:
     root, proxy = args[1], kw["proxy"]
     print(f"  root {root}; P$ {proxy.region_ny}x{proxy.region_nx} regions, "
           f"{proxy.slots} slots, write-through")
-    with EngineIds() as ids:
-        res, launches = app_run(dev, "bfs", fn, *args, **kw)
-    ids.report("bfs")
+    res, launches, chunked = app_run(dev, "bfs", fn, *args, **kw)
     check_bfs(g, root, res)
-    for name in ENGINE_KERNELS:
-        require(launches[name] == res.run.supersteps,
-                f"bfs: {name} launched {launches[name]} times in "
-                f"{res.run.supersteps} supersteps")
-    print(f"    every engine kernel launched once per superstep "
-          f"({res.run.supersteps})")
-    cfg = EngineConfig(grid=grid, n_src=g.n_rows, n_dst=g.n_cols,
-                       oq_cap=OQ_CAP, proxy=proxy)
-    eng = DataLocalEngine(apps.BFS_SPEC, cfg, g.row_lo, g.row_hi, g.col_idx,
-                          g.weights, device=dev)
-    profile_supersteps(dev, eng, eng.init_state(seed_idx=root, seed_val=0.0),
-                       "bfs")
+    require_launches("bfs", launches, chunked, ENGINE_KERNELS)
+    compare_loops("bfs", chunked,
+                  per_step_run(dev, "bfs", res, fn, args, kw))
+    eng, state, _ = apps.engine_and_state("bfs", g, grid, proxy, root=root,
+                                          oq_cap=OQ_CAP, device=dev)
+    profile_supersteps(dev, eng, state, "bfs")
     print(f"  BFS phase {time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -780,14 +896,15 @@ def add_apps_phase(dev, wl) -> dict:
     proxy = kw["proxy"]
     print(f"  SpMV: P$ {proxy.region_ny}x{proxy.region_nx} regions, "
           f"{proxy.slots} slots, write-back, cascade {proxy.cascade}")
-    with EngineIds() as ids:
-        res, launches = app_run(dev, "spmv", fn, *args, **kw)
-    ids.report("spmv")
+    res, launches, chunked = app_run(dev, "spmv", fn, *args, **kw)
     check_spmv(g, wl["x"], res.values, "SpMV y")
     require(res.run.counters.cascade_combined > 0,
             "spmv: the cascade merged no records")
-    require_launches("spmv", launches, res.run.supersteps, ENGINE_KERNELS)
+    require_launches("spmv", launches, chunked, ENGINE_KERNELS)
     out["spmv"] = launches
+    compare_loops("spmv", chunked,
+                  per_step_run(dev, "spmv", res, fn, args, kw, AGREE_RTOL,
+                               AGREE_ATOL))
     t1 = time.perf_counter()
     eng, state, _ = apps.engine_and_state("spmv", g, grid, proxy, x=wl["x"],
                                           oq_cap=OQ_CAP, device=dev)
@@ -803,13 +920,18 @@ def add_apps_phase(dev, wl) -> dict:
     proxy = kw["proxy"]
     print(f"  Histogram: P$ {proxy.region_ny}x{proxy.region_nx} regions, "
           f"{proxy.slots} slots, write-back, no cascade")
-    with EngineIds() as ids:
-        res, launches = app_run(dev, "histo", fn, *args, **kw)
-    ids.report("histo")
+    res, launches, chunked = app_run(dev, "histo", fn, *args, **kw)
     check_histo(wl["histo"], wl["bins"], res.values, "Histogram counts")
-    require_launches("histo", launches, res.run.supersteps, ENGINE_KERNELS)
+    require_launches("histo", launches, chunked, ENGINE_KERNELS)
     wl["histo_counts"] = res.values
     out["histo"] = launches
+    compare_loops("histo", chunked,
+                  per_step_run(dev, "histo", res, fn, args, kw))
+    eng, state, _ = apps.engine_and_state(
+        "histo", None, grid, proxy, histo_values=wl["histo"],
+        bins=wl["bins"], oq_cap=OQ_CAP, device=dev)
+    profile_supersteps(dev, eng, state, "histo")
+    del eng, state
     print(f"  Histogram phase {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -826,7 +948,7 @@ def ops_phase(dev, wl) -> dict:
     counts = ops.histogram(idx, wl["bins"]).cpu().numpy()
     spmv_y = ops.spmv(mat, wl["bcsr_x"]).cpu().numpy()
     del idx, mat
-    launches = {k.__name__: k.launches for k in ops.KERNELS}
+    launches = ops.launch_counts()
     print(f"  launches {json.dumps(launches)}")
     require(launches["histogram_bin"] == 1 and launches["spmv_bcsr"] == 1,
             f"ops path did not launch each kernel once: {launches}")
@@ -992,7 +1114,8 @@ def agreement_phase(dev, wl) -> None:
     from repro_torch.graph import apps, oracles
     from repro_torch.graph.rmat import histogram_input
     print(f"== 9. backend agreement (kernels vs torch) at RMAT-{AGREE_SCALE} "
-          f"on {TILES} tiles")
+          f"on {TILES} tiles, chunked; Histogram and PageRank also against "
+          f"the per-step loop")
     g, grid = wl[AGREE_SCALE], wl["grid"]
     bins = g.n_rows // 8
     hv = histogram_input(g, bins)
@@ -1016,6 +1139,11 @@ def agreement_phase(dev, wl) -> None:
                         **kw)[0] for b in ("kernels", "torch")]
         same_run(runs[0], runs[1], f"{name} kernels vs torch",
                  *(tol or (None, None)))
+        if name in ("histo", "pagerank"):
+            per_step = app_run(dev, name, fn, *args, oq_cap=OQ_CAP,
+                               run_chunk=0, **kw)[0]
+            same_run(runs[0], per_step, f"{name} chunked vs per-step loop",
+                     *(tol or (None, None)))
         if name == "pagerank":
             check_close("PageRank vs its oracle", runs[0].values,
                         oracles.pagerank_oracle(g, epochs=PAGERANK_EPOCHS)

@@ -204,13 +204,14 @@ def readings(x):
 
 def engine_readings(dev):
     """Readings on the engine's own calls: the main path's RMAT-22 apps
-    run through the package (kernels backend), every KEEP-th call of each
-    call shape kept."""
+    run through the package (kernels backend) on the per-step loop, where
+    the tap sees every call, every KEEP-th call of each call shape
+    kept."""
     wl = cs.workloads()
     out = []
     for app, (fn, args, kw) in cs.main_path_apps(wl).items():
         with cs.EngineIds(keep=KEEP) as ids:
-            fn(*args, device=dev, **kw)
+            fn(*args, device=dev, run_chunk=0, **kw)
         torch.cuda.synchronize()
         ids.report(app)
         for (name, combine, n, limit), kept in sorted(ids.kept.items()):

@@ -34,12 +34,19 @@ tensor, their plain versions on a CPU tensor.  ``backend="torch"`` is the
 inline plain-torch path, the counterpart of the reference's ``"jnp"``
 oracle.
 
+``run`` runs ``EngineConfig.run_chunk`` supersteps (16 by default) per
+host fetch, the reference's device-resident chunked loop: on the card
+each superstep of a chunk is one replay of a captured CUDA graph
+(``core/chunk.py``), on the CPU the same predicated step runs eagerly.
+``chunk=0`` selects the per-step loop, one host sync per superstep.  The
+two give identical counters, trace, supersteps and ``time_s``, and
+identical values for the min apps.
+
 Not in this slice, and refused with ``NotImplementedError`` naming the
-ROADMAP item rather than ignored: the device-resident chunked loop (A.5:
-``run`` always steps one superstep per host round trip); active-set
-compaction (A.7); telemetry, the sanitizer and observers (A.8);
-multi-chip partitions and double buffering, with the flush's off-chip
-buffer sizing ``_flush_off_len`` (A.9); checkpoints (A.10).
+ROADMAP item rather than ignored: active-set compaction (A.7);
+telemetry, the sanitizer and observers (A.8); multi-chip partitions and
+double buffering, with the flush's off-chip buffer sizing
+``_flush_off_len`` (A.9); checkpoints (A.10).
 """
 from __future__ import annotations
 
@@ -53,6 +60,7 @@ from . import netstats
 from .. import device as _device
 from ..kernels import ops as kops
 from ..obs.metrics import default_registry
+from .chunk import ChunkRunner
 from .costmodel import (CLOCK_GHZ, PU_OPS_PER_EDGE, PU_OPS_PER_RECORD,
                         DCRA_SRAM, PackageConfig, link_provisioning,
                         step_cycles)
@@ -86,8 +94,8 @@ class AppSpec:
 class EngineConfig:
     """The reference's configuration, field for field.  Fields this
     slice does not run must keep their defaults (``DataLocalEngine``
-    refuses the others); ``run_chunk`` is accepted and read by nothing
-    yet (see ``DataLocalEngine.run``)."""
+    refuses the others).  ``run_chunk`` is the supersteps per host fetch
+    of ``DataLocalEngine.run``'s chunked loop (0: the per-step loop)."""
 
     grid: TileGrid
     n_src: int                       # items with edge cursors
@@ -141,8 +149,9 @@ def _refuse_unported(cfg: EngineConfig, part: ChipPartition) -> None:
             "not ported to repro_torch yet: " + ", ".join(unported))
 
 
-# Scalar stats of one superstep, in the order ``_superstep`` packs them
-# into the one tensor the run loop fetches per superstep.
+# Scalar stats of one superstep, in the order the per-step loop packs
+# them into the one tensor it fetches (``fetch_stats``) and the chunked
+# loop into each row of its chunk buffer (with ``active`` last).
 STAT_KEYS = ("edges_processed", "records_consumed", "compute_per_tile_max",
              "filtered_at_proxy", "coalesced_at_proxy", "cascade_combined",
              "pending", "p_resident", "delivered_max_per_tile",
@@ -200,6 +209,13 @@ class DataLocalEngine:
         self.weights = _to(weights, torch.float32, dev)
         self._tile_gids = self.part.global_tile(
             0, torch.arange(T, dtype=torch.int32, device=dev))
+        # the source tile of each emitted record and of each P$ entry,
+        # fixed per engine: made once, so no superstep sizes an output
+        # on the host
+        self._src_tile = torch.repeat_interleave(self._tile_gids, cfg.oq_cap)
+        self._pcache_src = (None if cfg.proxy is None else
+                            torch.repeat_interleave(self._tile_gids,
+                                                    cfg.proxy.slots))
 
     # ---------------------------------------------------------------- state
     def init_state(self, seed_idx=None, seed_val=None):
@@ -258,7 +274,7 @@ class DataLocalEngine:
             return torch.ones_like(cval)
         raise ValueError(ev)
 
-    def _front_dense(self, row_lo, row_hi, state, tile_gids):
+    def _front_dense(self, row_lo, row_hi, state):
         """Dense IQ drain + OQ emit over all T tiles.
 
         Returns (new_vals, mail_val, mail_flag, cur_lo, cur_hi, cur_val,
@@ -325,16 +341,15 @@ class DataLocalEngine:
 
         # flatten records (tile ids are global; dst indices are global)
         R = T * B
-        src_tile = torch.repeat_interleave(tile_gids, B)
         return (new_vals, mail_val, mail_flag, cur_lo, cur_hi, cur_val,
                 consumed_per_tile, total_take, dst.reshape(R),
-                cand.reshape(R), emit_mask.reshape(R), src_tile)
+                cand.reshape(R), emit_mask.reshape(R), self._src_tile)
 
     def _superstep(self, state, flush: bool = False):
         """One monolithic superstep: (new_state, stats) with every stat a
         0-d tensor on the device.  ``flush`` (a host bool, decided by the
-        run loop from the previous superstep's fetched stats) spills the
-        write-back P$ in this superstep."""
+        run loop from the previous superstep's or chunk's fetched stats)
+        spills the write-back P$ in this superstep."""
         return self._step(self.row_lo, self.row_hi, state, flush)
 
     def _step(self, row_lo, row_hi, state, flush=False):
@@ -343,8 +358,7 @@ class DataLocalEngine:
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         (new_vals, mail_val, mail_flag, cur_lo, cur_hi, cur_val,
          consumed_vec, edges_vec, dst, cand, emit_mask,
-         src_tile) = self._front_dense(row_lo, row_hi, state,
-                                       self._tile_gids)
+         src_tile) = self._front_dense(row_lo, row_hi, state)
         owner = torch.clamp(dst // self.Cd, max=self.Tg - 1)
 
         stats = dict(edges_processed=torch.sum(edges_vec),
@@ -496,7 +510,7 @@ class DataLocalEngine:
             ft = p_tag.reshape(-1)
             all_dst.append(torch.where(ft >= 0, ft, self.Ngd))
             all_val.append(torch.where(ft >= 0, p_val.reshape(-1), ident))
-            all_src.append(torch.repeat_interleave(self._tile_gids, S))
+            all_src.append(self._pcache_src)
         cat_dst = torch.cat(all_dst)
         cat_val = torch.cat(all_val)
         cat_src = torch.cat(all_src)
@@ -548,19 +562,19 @@ class DataLocalEngine:
 
         The reference takes this leg under ``lax.cond`` and returns zero
         charges on the other supersteps; here the run loop already holds
-        the flush decision on the host (it comes from the stats fetched
-        the superstep before), so the caller skips the leg with a Python
-        ``if`` at no extra host sync.  Adding zero charges changes no
-        sum, so the counters and trace are the reference's.  Returns
+        the flush decision on the host (from the stats fetched the
+        superstep before, or from the chunk's fetch, after which the next
+        chunk starts with the flush step), so the caller skips the leg
+        with a Python ``if`` at no extra host sync.  Adding zero charges
+        changes no sum, so the counters and trace are the reference's.  Returns
         (mail_val, mail_flag, merged_leg, owner_leg, per_tile,
         level_max, n_combined); the caller clears the P$."""
         ident = self.app.identity
-        S = self.cfg.proxy.slots
         ft = p_tag.reshape(-1)
         fmask = ft >= 0
         fdst = torch.where(fmask, ft, self.Ngd)
         fval = torch.where(fmask, p_val.reshape(-1), ident)
-        fsrc = torch.repeat_interleave(self._tile_gids, S)
+        fsrc = self._pcache_src
         if self._cascade_levels:
             # selective write-back: the dense flush wave is exactly the
             # record set that profits from the reduction tree
@@ -688,41 +702,69 @@ class DataLocalEngine:
         return out.index_add_(0, idx, torch.where(smask, sval, 0.0))
 
     # ----------------------------------------------------------------- run
+    def chunk_runner(self, state, length: int) -> ChunkRunner:
+        """The device side of chunks of ``length`` supersteps over a copy
+        of ``state`` (``core/chunk.py``)."""
+        return ChunkRunner(self._superstep, state, length, self._write_back,
+                           STAT_KEYS)
+
     def run(self, state, max_supersteps: Optional[int] = None,
             progress_every: int = 0, chunk: Optional[int] = None,
             observer=None):
         """Run supersteps until drained; returns (state, RunResult).
 
-        This slice always runs the per-step loop (the reference's
-        ``_run_legacy``): one superstep, then ONE device-to-host transfer
-        of its packed scalar stats, which the ``engine.host_syncs``
-        counter counts.  ``chunk`` and ``EngineConfig.run_chunk`` are
-        accepted and change nothing: the reference's own contract
-        (``tests/test_chunked.py``) is that its chunked and per-step
-        loops give bit-identical results, so the per-step loop is what
-        the chunked one must reproduce.  The device-resident chunked loop
-        is ROADMAP A.5."""
+        ``chunk`` overrides ``EngineConfig.run_chunk``: supersteps per
+        host fetch.  ``chunk=0`` selects the per-step loop (the
+        reference's ``_run_legacy``: one superstep, then ONE transfer of
+        its packed stats); any K >= 1 runs the chunked loop, K supersteps
+        per fetch, with identical results (the reference's contract,
+        ``tests/test_chunked.py``).  Every fetch increments the
+        ``engine.host_syncs`` counter.  ``progress_every`` reports at
+        chunk granularity on the chunked loop: the first chunk boundary
+        at or past each multiple prints the true executed superstep
+        count."""
         if observer is not None:
             raise NotImplementedError(
                 "not ported to repro_torch yet: observer= (ROADMAP A.8)")
         cfg = self.cfg
         maxs = max_supersteps or cfg.max_supersteps
+        K = cfg.run_chunk if chunk is None else int(chunk)
         counters = TrafficCounters()
         trace = SuperstepTrace(double_buffer=cfg.double_buffer)
         cycles = 0.0
         pkg = cfg.pkg
         links = link_provisioning(cfg.grid, pkg)
+        fill = links["diameter"] * 0.5
 
         def account(stats):
+            """The per-step loop's accounting.  The chunked loop uses its
+            vectorized twin, ``account_chunk``: edit both in lockstep."""
             nonlocal cycles
             counters.add(superstep_counters(stats))
             trace.append_step(stats, element_bits=cfg.element_bits)
             # ---- BSP time model for this superstep ----------------------
             sc = superstep_cycles(stats, pkg, links)
             if sc > 0 or stats["pending"] > 0:
-                cycles += sc + links["diameter"] * 0.5   # pipeline fill
+                cycles += sc + fill                     # pipeline fill
 
-        state, steps = self._run_legacy(state, maxs, progress_every, account)
+        def account_chunk(stacked, n_act):
+            nonlocal cycles
+            counters.add(chunk_counters(stacked, n_act))
+            trace.append_chunk(stacked, n_act, element_bits=cfg.element_bits)
+            # the BSP terms vectorized, accumulated in execution order:
+            # bit-identical to account() per step
+            sc = chunk_cycles(stacked, n_act, pkg, links)
+            for s, pend in zip(sc.tolist(),
+                               stacked["pending"][:n_act].tolist()):
+                if s > 0 or pend > 0:
+                    cycles += s + fill
+
+        if K <= 0:
+            state, steps = self._run_legacy(state, maxs, progress_every,
+                                            account)
+        else:
+            state, steps = self._run_chunked(state, maxs, K, progress_every,
+                                             account_chunk)
         counters.supersteps = steps
         time_s = cycles / (CLOCK_GHZ * 1e9)
         return state, RunResult(counters=counters, cycles=cycles,
@@ -755,6 +797,33 @@ class DataLocalEngine:
                 print(f"  [{self.app.name}] step {steps} "
                       f"pending={stats['pending']:.0f}")
         return state, steps
+
+    def _run_chunked(self, state, maxs, K, progress_every, account_chunk):
+        """The chunked loop (the reference's ``_drain_chunked``): per
+        chunk, K predicated supersteps enqueued on the device
+        (``ChunkRunner.launch``), ONE host fetch of ``done``, the flush
+        flag and the stats rows, then vectorized accounting of the active
+        rows.  The flush and termination rules run on the device; a flush
+        it schedules idles the rest of the chunk, and the next chunk
+        starts with the flush step."""
+        sync_ctr = default_registry().counter("engine.host_syncs")
+        progress = _ProgressReporter(self.app.name, progress_every)
+        runner = self.chunk_runner(state, K)
+        keys = STAT_KEYS + ("active",)
+        steps, flush = 0, False
+        while steps < maxs:
+            runner.launch(maxs - steps, flush)
+            done, flush, rows = runner.fetch()       # the chunk's one sync
+            sync_ctr.inc()
+            stacked = {k: rows[:, i] for i, k in enumerate(keys)}
+            n_act = int(np.sum(stacked["active"]))
+            if n_act:
+                account_chunk(stacked, n_act)
+            steps += n_act
+            progress.report(steps, stacked, n_act)
+            if done or n_act == 0:
+                break
+        return runner.state, steps
 
 
 def fetch_stats(stats) -> dict:
@@ -805,6 +874,92 @@ def superstep_cycles(stats, pkg, links: dict) -> float:
         die_bits=float(stats["inter_die_crossings"]) * bits,
         pkg_bits=float(stats["inter_pkg_crossings"]) * bits,
         endpoint_bits=float(stats["delivered_max_per_tile"]) * bits))
+
+
+def chunk_counters(stacked, n_active: int) -> TrafficCounters:
+    """One chunk's accumulated traffic as a TrafficCounters delta: the
+    chunked loop's rendering of :func:`superstep_counters`, one numpy sum
+    per field per chunk.  Bit-identical to per-step accumulation because
+    every counter is an integer-valued count: float64 sums of integers
+    below 2**53 are exact under any association."""
+    n = int(n_active)
+
+    def tot(key):
+        a = stacked.get(key)
+        if a is None:
+            return 0.0
+        return float(np.sum(np.asarray(a[:n], dtype=np.float64)))
+
+    return TrafficCounters(
+        messages=tot("messages"), hop_msgs=tot("hop_msgs"),
+        owner_msgs=tot("owner_msgs"),
+        owner_hop_msgs=tot("owner_hop_msgs"),
+        intra_die_hops=tot("intra_die_hops"),
+        inter_die_crossings=tot("inter_die_crossings"),
+        inter_pkg_crossings=tot("inter_pkg_crossings"),
+        filtered_at_proxy=tot("filtered_at_proxy"),
+        coalesced_at_proxy=tot("coalesced_at_proxy"),
+        cascade_combined=tot("cascade_combined"),
+        cross_region_msgs=tot("cross_region_msgs"),
+        off_chip_msgs=tot("off_chip_msgs"),
+        off_chip_hop_msgs=tot("off_chip_hop_msgs"),
+        edges_processed=tot("edges_processed"),
+        records_consumed=tot("records_consumed"), supersteps=n)
+
+
+def chunk_cycles(stacked, n_active: int, pkg, links: dict) -> np.ndarray:
+    """Vectorized :func:`superstep_cycles` over a chunk's stacked stats:
+    one ``costmodel.step_cycles`` call on ``(n_active,)`` float64 vectors
+    (elementwise identical to the per-step scalar calls)."""
+    n = int(n_active)
+    bits = MSG_BITS
+
+    def vec(key):
+        return np.asarray(stacked[key][:n], dtype=np.float64)
+
+    return np.atleast_1d(step_cycles(
+        pkg, links,
+        compute_ops=vec("compute_per_tile_max"),
+        intra_bits=vec("intra_die_hops") * bits,
+        die_bits=vec("inter_die_crossings") * bits,
+        pkg_bits=vec("inter_pkg_crossings") * bits,
+        endpoint_bits=vec("delivered_max_per_tile") * bits))
+
+
+class _ProgressReporter:
+    """Chunk-granularity progress for the chunked run loop: reports the
+    true executed superstep count at the first chunk boundary at or past
+    each ``every`` multiple (the per-step loop's ``steps % every == 0``
+    would skip multiples that fall inside a chunk).
+
+    Progress flows through the metrics registry -- gauges
+    ``progress.<app>.steps`` and ``.pending`` set every chunk, counter
+    ``progress.<app>.reports`` per printed line -- so harnesses read it
+    without scraping stdout.  The reference's compaction gauges and
+    sanitizer count come with ROADMAP A.7 and A.8."""
+
+    def __init__(self, name: str, every: int):
+        self.name = name
+        self.every = every
+        self._next = every
+        reg = default_registry()
+        self._g_steps = reg.gauge(f"progress.{name}.steps")
+        self._g_pending = reg.gauge(f"progress.{name}.pending")
+        self._c_reports = reg.counter(f"progress.{name}.reports")
+
+    def report(self, steps: int, stacked, n_act: int) -> None:
+        if n_act == 0:
+            return
+        pending = float(stacked["pending"][n_act - 1])
+        self._g_steps.set(steps)
+        self._g_pending.set(pending)
+        if not self.every or steps < self._next:
+            return
+        self._c_reports.inc()
+        print(f"  [{self.name}] step {steps} (chunk of {n_act}) "
+              f"pending={pending:.0f}")
+        while self._next <= steps:
+            self._next += self.every
 
 
 def _lex_group(key, sub, mask, *vals):

@@ -3,6 +3,9 @@
 A CUDA tensor goes to the Hopper kernel (built on first use; a failed
 build or launch raises); a CPU tensor goes to the kernel's plain version.
 Nothing else decides the route, and nothing falls back.
+
+Each kernel wrapper counts its launches (``launches``); a CUDA graph's
+replays are added by the graph's owner (``add_launches``).
 """
 from __future__ import annotations
 
@@ -81,3 +84,17 @@ def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     for k in KERNELS:
         k.launches = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count, by kernel name."""
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def add_launches(counts: dict, times: int = 1) -> None:
+    """Add ``times`` x ``counts`` (by kernel name) to the launch counts.
+    A CUDA graph's replay runs the kernels captured in it without calling
+    their wrappers, so the graph's owner counts them here, once per
+    replay (and takes back what the capture counted, ``times=-1``)."""
+    for k in KERNELS:
+        k.launches += times * counts.get(k.__name__, 0)

@@ -220,8 +220,9 @@ def test_flush_step_from_carried_state_matches_reference(inputs, app,
 
 
 def test_one_host_sync_per_superstep_write_back(inputs):
-    """Write-back runs flush, and the flush decision costs no sync of its
-    own: still exactly one host sync per superstep."""
+    """Write-back runs flush, and on the per-step loop (``chunk=0``) the
+    flush decision costs no sync of its own: still exactly one host sync
+    per superstep.  (The chunked loop's syncs: test_torch_chunked.py.)"""
     ctr = default_registry().counter("engine.host_syncs")
     before = ctr.value
     grid = square_grid(TILES)
@@ -229,7 +230,7 @@ def test_one_host_sync_per_superstep_write_back(inputs):
         "histo", inputs["g"], grid, apps.table2_proxy(grid, "histo"),
         histo_values=inputs["hv"], bins=inputs["bins"], oq_cap=OQ_CAP,
         device="cpu")
-    _, run = eng.run(state)
+    _, run = eng.run(state, chunk=0)
     assert ctr.value - before == run.supersteps
     # a drained superstep that is not the last: a flush superstep followed
     assert 0.0 in run.trace.pending[:-1]

@@ -154,14 +154,23 @@ def test_engine_takes_device_tensors(graphs):
 
 
 def test_one_host_sync_per_superstep(graphs):
+    """One host sync a superstep at ``chunk=0`` (the per-step loop); one
+    a chunk on the default chunked loop (``run_chunk`` 16 supersteps,
+    and BFS drains without a flush)."""
     g, _ = graphs
     ctr = default_registry().counter("engine.host_syncs")
     before = ctr.value
-    r = _run(apps, square_grid, "bfs", g, True, device="cpu")
+    r = _run(apps, square_grid, "bfs", g, True, device="cpu", run_chunk=0)
     assert ctr.value - before == r.run.supersteps
+    before = ctr.value
+    r = _run(apps, square_grid, "bfs", g, True, device="cpu")
+    assert ctr.value - before == -(-r.run.supersteps // 16)
+    assert r.run.supersteps > 16
 
 
 def test_chunk_is_accepted_and_changes_nothing(graphs):
+    """``chunk=0`` (the per-step loop) and the default (the chunked loop)
+    give identical results."""
     g, _ = graphs
     base = _run(apps, square_grid, "bfs", g, True, device="cpu")
     r = _run(apps, square_grid, "bfs", g, True, device="cpu", run_chunk=0)

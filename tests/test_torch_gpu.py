@@ -2,7 +2,8 @@
 (edge cases of the scatters, exact counts past 2^24, replay in a CUDA
 graph), the engine through the kernels against the same engine on the
 CPU (the min apps and the write-back add apps), a superstep that makes
-no host sync of its own, and ``ops.decode_attention`` through its
+no host sync of its own, the chunked run loop's CUDA-graph replays
+against the per-step loop, and ``ops.decode_attention`` through its
 kernel.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
@@ -25,6 +26,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import relax_min as rx
 from repro_torch.kernels import segment_combine as sc
 from repro_torch.kernels import spmv_csr as sp
+from repro_torch.obs.metrics import default_registry
 
 pytestmark = pytest.mark.gpu
 
@@ -410,13 +412,17 @@ def test_engine_on_card_matches_cpu(app, proxied):
     args = (g, grid) if app == "wcc" else (g, int(np.argmax(g.out_degree())),
                                            grid)
     fn = getattr(apps, app)
+    syncs = default_registry().counter("engine.host_syncs")
     ops.reset_launches()
+    before = syncs.value
     on_card = fn(*args, proxy=px, oq_cap=16, device=dev)
-    steps = on_card.run.supersteps
-    # the segment combine is the P$ group reduction: proxied runs only
+    # the default chunked loop ran 16 predicated supersteps a chunk (the
+    # idle rows of the last one included), each kernel once in each; the
+    # segment combine is the P$ group reduction: proxied runs only
+    ran = 16 * (syncs.value - before)
+    assert ran >= on_card.run.supersteps
     assert (rx.relax.launches, sc.segment_combine.launches,
-            df.deliver_fused.launches) == (steps, steps if proxied else 0,
-                                           steps)
+            df.deliver_fused.launches) == (ran, ran if proxied else 0, ran)
     for res in (fn(*args, proxy=px, oq_cap=16, device=dev, backend="torch"),
                 fn(*args, proxy=px, oq_cap=16, device="cpu")):
         assert np.array_equal(on_card.values, res.values)
@@ -481,3 +487,119 @@ def test_superstep_makes_no_host_sync():
         finally:
             torch.cuda.set_sync_debug_mode("default")
         assert engine.fetch_stats(stats)["pending"] > 0
+
+
+# ------------------------------------------------- the chunked run loop
+def _chunk_case(app, scale=12, tiles=256):
+    """An app call at RMAT-``scale`` on ``tiles`` tiles: (fn, args, kw)."""
+    g = rmat_edges(scale, edge_factor=8, seed=1)
+    grid = square_grid(tiles)
+    if app == "bfs":
+        return apps.bfs, (g, int(np.argmax(g.out_degree())), grid), dict(
+            proxy=apps.table2_proxy(grid, "bfs"), oq_cap=16)
+    x = np.random.default_rng(0).random(g.n_cols).astype(np.float32)
+    return apps.spmv, (g, x, grid), dict(
+        proxy=apps.table2_proxy(grid, "spmv", cascade_levels=2), oq_cap=16)
+
+
+def _same_run(a, b, app):
+    if app == "bfs":
+        assert np.array_equal(a.values, b.values)
+    else:
+        np.testing.assert_allclose(a.values, b.values, rtol=1e-4, atol=1e-5)
+    assert a.run.counters.as_dict() == b.run.counters.as_dict()
+    assert a.run.trace.to_dict() == b.run.trace.to_dict()
+    assert a.run.supersteps == b.run.supersteps
+    assert a.run.time_s == b.run.time_s
+
+
+@pytest.mark.parametrize("app", ["bfs", "spmv"])
+def test_chunked_graph_replays_match_per_step_on_card(app):
+    """The default chunked loop (16 supersteps a host fetch, each a CUDA
+    graph replay after each graph's first, eager, superstep) against the
+    per-step loop at RMAT-12 on 256 tiles: BFS bitwise; SpMV (write-back,
+    selective 2-level cascade) exact in counters, trace, supersteps and
+    ``time_s``, values to f32 re-association of the atomic adds."""
+    dev = _card()
+    fn, args, kw = _chunk_case(app)
+    reg = default_registry()
+    syncs, replays = (reg.counter("engine.host_syncs"),
+                      reg.counter("engine.graph_replays"))
+    per_step = fn(*args, device=dev, run_chunk=0, **kw)
+    s0, r0 = syncs.value, replays.value
+    chunked = fn(*args, device=dev, **kw)
+    _same_run(chunked, per_step, app)
+    chunks, graphs = syncs.value - s0, 1
+    if app == "bfs":
+        assert chunks == -(-chunked.run.supersteps // 16)
+    else:
+        assert 0.0 in chunked.run.trace.pending[:-1]   # it flushed
+        graphs = 2                 # the no-flush and the flush graph
+    assert replays.value - r0 == 16 * chunks - graphs
+
+
+def _runner(app, length, scale=9, tiles=64):
+    g = rmat_edges(scale, edge_factor=8, seed=1)
+    grid = square_grid(tiles)
+    eng, state, _ = apps.engine_and_state(
+        app, g, grid, apps.table2_proxy(
+            grid, app, cascade_levels=2 if app == "spmv" else 0),
+        root=int(np.argmax(g.out_degree())),
+        x=np.ones(g.n_cols, np.float32), oq_cap=16, device=_card())
+    return eng.chunk_runner(state, length)
+
+
+def test_chunk_replays_make_no_host_sync():
+    """Once captured, a chunk of replays -- the no-flush graph, and the
+    flush graph of write-back SpMV with the cascade -- makes no sync that
+    PyTorch's sync debug mode detects; its one fetch comes after."""
+    for app in ("bfs", "spmv"):
+        runner = _runner(app, 4)
+        for flush in (False, True):
+            runner.launch(10_000, flush)          # warm-up and capture
+            runner.fetch()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for flush in (False, True):
+                runner.launch(10_000, flush)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        done, _, rows = runner.fetch()
+        assert not done and rows[:, -1].sum() >= 1
+
+
+def test_chunk_launch_counts_are_replays_times_captures():
+    """Every kernel's count after chunks of BFS (write-through P$) is the
+    predicated supersteps run times its launches per graph, the first,
+    eager superstep included; the capture itself adds nothing."""
+    runner = _runner("bfs", 4)
+    replays = default_registry().counter("engine.graph_replays")
+    before = replays.value
+    ops.reset_launches()
+    runner.launch(10_000, False)
+    runner.fetch()
+    per_graph = runner.captured[False]
+    assert per_graph == {"relax": 1, "segment_combine": 1,
+                         "deliver_fused": 1}
+    want = {k.__name__: 4 * per_graph.get(k.__name__, 0)
+            for k in ops.KERNELS}
+    assert ops.launch_counts() == want
+    runner.launch(10_000, False)
+    runner.fetch()
+    assert replays.value - before == 7
+    assert ops.launch_counts() == {k: 2 * n for k, n in want.items()}
+
+
+@pytest.mark.parametrize("edge", ["last row", "first row"])
+def test_flush_at_a_chunk_edge_on_card(edge):
+    """SpMV's first flush scheduled by a chunk's last row (the next chunk
+    starts with a replay of the flush graph) and by a chunk's first row
+    (the rest of the chunk idles): both give the per-step result."""
+    dev = _card()
+    fn, args, kw = _chunk_case("spmv", scale=10, tiles=64)
+    per_step = fn(*args, device=dev, run_chunk=0, **kw)
+    d = per_step.run.trace.pending[:-1].index(0.0)
+    assert d >= 2
+    chunked = fn(*args, device=dev,
+                 run_chunk=d + 1 if edge == "last row" else d, **kw)
+    _same_run(chunked, per_step, "spmv")
