@@ -13,8 +13,10 @@ on past a failure:
    its Histogram input, RMAT-18 and RMAT-14;
 4. the kernels, each against its plain PyTorch version on the card:
    relax, segment_combine and deliver_fused at the BFS path's shapes for
-   min and add, and in their add form at the write-back flush wave's
-   shapes (deliver_fused's counting path printed);
+   min and add, again at the shapes of each compaction window below the
+   dense one (phase 6b's: 1024, 256 and 64 tiles), and in their add
+   form at the write-back flush wave's shapes (deliver_fused's counting
+   path printed);
    histogram_bin on the Histogram input and on the RMAT-22 degree
    histogram (bitwise; its path, slices and resident blocks printed);
    spmv_bcsr on
@@ -37,6 +39,20 @@ on past a failure:
    also on the per-step loop (equal in counters, trace, supersteps and
    ``time_s``, values bitwise for Histogram, within rtol 1e-4 / atol
    1e-5 for SpMV) with the two profiler windows;
+6b. active-set compaction (``compaction=3``: windows of 4096, 1024, 256
+   and 64 tiles) on the chunked loop: BFS, SpMV and Histogram at RMAT-22,
+   each equal to its dense chunked run of phase 5 or 6 (counters, trace,
+   supersteps and ``time_s``; values bitwise for BFS and Histogram,
+   within rtol 1e-4 / atol 1e-5 for SpMV), BFS against scipy again; for
+   each the active-tile share a superstep (mean, median, p90), the
+   supersteps per reference rung and per window run, the window
+   overflows, host syncs, ms a superstep (``LoopClock``), peak memory
+   and graphs captured beside the dense run's; at the rung each app
+   spends most supersteps in (BFS's first), from a state there: 20
+   replays in that window against 20 dense replays from the same state
+   (unprofiled, in turns), a ``torch.profiler`` window of 20 replays,
+   and 20 eager supersteps split into ops with a full-length (T*C)
+   operand and the rest;
 7. the kernel entry points ``ops.histogram`` on the Histogram input
    (bitwise equal to the engine's counts and ``np.bincount``) and
    ``ops.spmv`` on RMAT-14 (against scipy and the engine's SpMV);
@@ -55,7 +71,9 @@ on past a failure:
    trace, supersteps and ``time_s`` exact, values bitwise (BFS,
    Histogram) or within rtol 1e-4 / atol 1e-5 (SpMV, PageRank);
    Histogram and PageRank also on the per-step loop against the chunked
-   one; PageRank against its oracle;
+   one; BFS and PageRank with ``compaction=3`` on both loops against the
+   dense chunked run (window overflows printed), and on the chunked loop
+   with ``torch`` against ``kernels``; PageRank against its oracle;
 10. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
     the last line, ``{"ok": true, "device": {...}}``.
 
@@ -67,10 +85,11 @@ fall in the kernels' 32-record warp slices (``EngineIds``): the share
 of live records in runs of neighbours and repeated in their slice, and
 the atomics a fold would leave.
 
-Each main-path run (phases 5-8) sets every kernel's launch count to 0
-just before it and reads the counts just after; a kernel on the path
-that did not launch (at least once per superstep, on the engine's
-paths) fails the run.  A graph replay counts the launches captured in
+Each main-path run (phases 5-8, 6b included) sets every kernel's launch
+count to 0 just before it and reads the counts just after; a kernel on
+the path that did not launch (at least once per superstep, on the
+engine's paths) fails the run.  The JSON line counts the compacted runs
+under their own path, ``compaction``.  A graph replay counts the launches captured in
 it, so on the chunked loop the counts include the idle rows of a
 chunk (after the run drained, or after a flush the device scheduled),
 which are printed as the surplus.
@@ -222,14 +241,18 @@ def workloads() -> dict:
 
 
 # ------------------------------------------------------------- 4. kernels
-def kernel_inputs(gen, dev):
-    """Synthetic inputs at the engine's shapes.  BFS path (min and add):
-    Nd mailbox entries, R = T*oq_cap P$ records, 2R delivery records (the
-    forwarded leg + the eviction leg).  Write-back flush wave (add): the
-    T*S P$ entries of SpMV's cascade levels into as many segments, and
-    Histogram's flush of T*S records into its Nd = T*Cd mailbox."""
+def kernel_inputs(gen, dev, tiles: int = TILES):
+    """Synthetic inputs at the engine's shapes over ``tiles`` tiles (the
+    dense step's T, or a compaction window's W).  BFS path (min and add):
+    W*Cd drained mailbox entries, R = W*oq_cap P$ records, 2R delivery
+    records (the forwarded leg + the eviction leg) into the whole Nd
+    mailbox.  At T only, the write-back flush wave (add), which no
+    window shrinks: the T*S P$ entries of SpMV's cascade levels into as
+    many segments, and Histogram's flush of T*S records into its
+    Nd = T*Cd mailbox."""
     nd = (1 << SCALE)          # chunk_dst * T = 2**22 at RMAT-22
-    r = TILES * OQ_CAP
+    n = tiles * (nd // TILES)
+    r = tiles * OQ_CAP
     ts = TILES * 512           # T * P$ slots
     nd_histo = TILES * -(-(nd // 8) // TILES)
 
@@ -253,19 +276,62 @@ def kernel_inputs(gen, dev):
                            torch.randint(0, nseg, (n,), generator=gen,
                                          device=dev), -1).to(torch.int32)
 
-    relax_in = (with_inf(rand(nd) * 64, 0.5), with_inf(rand(nd) * 64, 0.3),
-                rand(nd) < 0.5)
+    relax_in = (with_inf(rand(n) * 64, 0.5), with_inf(rand(n) * 64, 0.3),
+                rand(n) < 0.5)
     dseg = torch.cat([scattered(r, nd, 0.6),
                       torch.full((r,), -1, dtype=torch.int32, device=dev)])
-    return dict(
+    out = dict(
         relax=relax_in,
-        relax_add=(rand(nd) * 64, rand(nd) * 64, rand(nd) < 0.5),
+        relax_add=(rand(n) * 64, rand(n) * 64, rand(n) < 0.5),
         seg=(sorted_gids(r, 0.6), rand(r) * 64, r),
         seg_rand=(scattered(r, r, 0.7), rand(r) * 64, r),
-        seg_add=(sorted_gids(ts, 0.8), rand(ts) * 64, ts),
-        deliver=(dseg, rand(2 * r) * 64, with_inf(rand(nd) * 64, 0.5)),
-        deliver_add=(scattered(ts, nd_histo, 0.9), rand(ts) * 64,
-                     rand(nd_histo) * 64))
+        deliver=(dseg, rand(2 * r) * 64, with_inf(rand(nd) * 64, 0.5)))
+    if tiles == TILES:
+        out.update(
+            seg_add=(sorted_gids(ts, 0.8), rand(ts) * 64, ts),
+            deliver_add=(scattered(ts, nd_histo, 0.9), rand(ts) * 64,
+                         rand(nd_histo) * 64))
+    return out
+
+
+def window_readings(gen, dev) -> dict:
+    """The compacted path's shapes (phase 6b): relax, segment_combine and
+    deliver_fused at every window of ``capacity_ladder(TILES,
+    COMPACTION)`` below the dense one, min and add, each against its
+    plain version on the same inputs and timed.  Returns {kernel: {W:
+    the min reading with the add one under ``add``}}."""
+    from repro_torch.core.engine import capacity_ladder
+    from repro_torch.kernels import deliver_fused as df
+    from repro_torch.kernels import relax_min as rx
+    from repro_torch.kernels import segment_combine as sc
+    out = {k: {} for k in ENGINE_KERNELS}
+    for w in capacity_ladder(TILES, COMPACTION)[1:]:
+        x = kernel_inputs(gen, dev, tiles=w)
+        n = x["relax"][0].numel()
+        seg, _, r = x["seg"]
+        dseg, _, mail = x["deliver"]
+        cases = (
+            ("relax", rx.relax, rx.plain, ("relax", "relax_add"), 14 * n,
+             f"n {n}"),
+            ("segment_combine", sc.segment_combine, sc.plain, ("seg",) * 2,
+             _bytes_scatter(seg, 4 * r), f"{r} sorted records (P$)"),
+            ("deliver_fused", df.deliver_fused, df.plain, ("deliver",) * 2,
+             _bytes_scatter(dseg, 12 * mail.numel()),
+             f"{dseg.numel()} records into {mail.numel()}, "
+             f"{df.counting_path(dseg.numel())} counts"))
+        for name, kernel, plain, keys, nbytes, what in cases:
+            got = {c: _measure(name, c, x[k], kernel, plain, nbytes,
+                               what=f"window {w}: {what}")
+                   for c, k in zip(("min", "add"), keys)}
+            out[name][w] = dict(got["min"], add=got["add"])
+        # unsorted ids, padding interleaved, at the window's length too
+        for combine in ("min", "add"):
+            _agree(f"segment_combine[unsorted, window {w}]/{combine}",
+                   combine == "min",
+                   sc.segment_combine(*x["seg_rand"], combine),
+                   sc.plain(*x["seg_rand"], combine), ADD_RTOL, ADD_ATOL)
+        del x
+    return out
 
 
 def histogram_readings(wl) -> dict:
@@ -339,6 +405,7 @@ def kernel_phase(dev, wl) -> list:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     x = kernel_inputs(gen, dev)
+    windows = window_readings(gen, dev)
     src = "src/repro_torch/kernels/csrc/"
     rows = []
 
@@ -407,6 +474,8 @@ def kernel_phase(dev, wl) -> list:
                    what=plan(dseg, mail) + " (Histogram flush wave)")
     row("deliver_fused", "engine_kernels.cu",
         "src/repro/kernels/deliver_fused.py:68", main, add=add)
+    for r_ in rows:
+        r_["windows"] = windows[r_["name"]]
 
     # histogram_bin on the Histogram app's input and on the RMAT-22
     # degree histogram (hub-heavy: hot bins), bitwise: 4 B per id read,
@@ -776,7 +845,7 @@ def profile_supersteps(dev, eng, state, label: str, n: int = 20) -> None:
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         runner.launch(10 * n, False)
-        _, _, rows = runner.fetch()
+        rows = runner.fetch().rows
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     require(replays.value - before == n and rows[:, -1].sum() == n,
@@ -875,6 +944,7 @@ def bfs_phase(dev, wl) -> dict:
     res, launches, chunked = app_run(dev, "bfs", fn, *args, **kw)
     check_bfs(g, root, res)
     require_launches("bfs", launches, chunked, ENGINE_KERNELS)
+    wl["dense"] = dict(bfs=(res, chunked))
     compare_loops("bfs", chunked,
                   per_step_run(dev, "bfs", res, fn, args, kw))
     eng, state, _ = apps.engine_and_state("bfs", g, grid, proxy, root=root,
@@ -902,6 +972,7 @@ def add_apps_phase(dev, wl) -> dict:
             "spmv: the cascade merged no records")
     require_launches("spmv", launches, chunked, ENGINE_KERNELS)
     out["spmv"] = launches
+    wl["dense"]["spmv"] = (res, chunked)
     compare_loops("spmv", chunked,
                   per_step_run(dev, "spmv", res, fn, args, kw, AGREE_RTOL,
                                AGREE_ATOL))
@@ -925,6 +996,7 @@ def add_apps_phase(dev, wl) -> dict:
     require_launches("histo", launches, chunked, ENGINE_KERNELS)
     wl["histo_counts"] = res.values
     out["histo"] = launches
+    wl["dense"]["histo"] = (res, chunked)
     compare_loops("histo", chunked,
                   per_step_run(dev, "histo", res, fn, args, kw))
     eng, state, _ = apps.engine_and_state(
@@ -934,6 +1006,263 @@ def add_apps_phase(dev, wl) -> dict:
     del eng, state
     print(f"  Histogram phase {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# ------------------------------------------------------- 6b. compaction
+COMPACTION = 3     # capacity_ladder(4096, 3): windows of 4096, 1024, 256, 64
+
+
+class CompactionRows:
+    """While entered, keeps the ``active_tiles`` and ``bucket_cap`` stats
+    of every superstep the chunked loop accounts (the rows its one fetch a
+    chunk brought; nothing more is fetched)."""
+
+    def __enter__(self):
+        from repro_torch.core import engine
+        self.active, self.rungs = [], []
+        self._report = report = engine._ProgressReporter.report
+
+        def tapped(rep, steps, stacked, n_act):
+            if n_act and "active_tiles" in stacked:
+                self.active.append(np.array(stacked["active_tiles"][:n_act]))
+                self.rungs.append(np.array(stacked["bucket_cap"][:n_act]))
+            return report(rep, steps, stacked, n_act)
+        engine._ProgressReporter.report = tapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import engine
+        engine._ProgressReporter.report = self._report
+
+    def per_step(self):
+        return np.concatenate(self.active), np.concatenate(self.rungs)
+
+
+def counter_values(prefix: str) -> dict:
+    """The registry's counters whose names start with ``prefix``."""
+    from repro_torch.obs.metrics import default_registry
+    return {k: v for k, v in default_registry().snapshot()["counters"]
+            .items() if k.startswith(prefix)}
+
+
+def counter_deltas(before: dict, after: dict) -> dict:
+    return {k: v - before.get(k, 0.0) for k, v in after.items()
+            if v != before.get(k, 0.0)}
+
+
+def compacted_run(dev, label, fn, args, kw, dense, tol=(None, None)):
+    """One compacted app call on the chunked loop, equal to the dense
+    chunked ``dense = (result, readings)``, with what compaction did:
+    the active-tile share, supersteps per reference rung and per window
+    run, overflows, host syncs, ms a superstep and peak memory beside the
+    dense run's, and the graphs captured.  Returns (result, launches,
+    readings)."""
+    before = counter_values("engine.")
+    with CompactionRows() as rows:
+        res, launches, readings = app_run(dev, f"{label} compacted", fn,
+                                          *args, compaction=COMPACTION, **kw)
+    moved = counter_deltas(before, counter_values("engine."))
+    require_launches(f"{label} compacted", launches, readings, ENGINE_KERNELS)
+    dres, dread = dense
+    same_run(dres, res, f"{label} compacted vs dense chunked", *tol)
+    active, rungs = rows.per_step()
+    T = TILES
+    require(len(active) == res.run.supersteps,
+            f"{label}: {len(active)} rows for {res.run.supersteps} supersteps")
+    share = active / T
+    by_rung = {int(c): int(np.sum(rungs == c))
+               for c in sorted(set(rungs.tolist()), reverse=True)}
+    by_window = {int(k.rsplit(".", 1)[1]): int(v) for k, v in moved.items()
+                 if k.startswith("engine.window_occupancy.")}
+    for cap, n in by_rung.items():
+        require(moved.get(f"engine.bucket_occupancy.{cap}") == n,
+                f"{label}: engine.bucket_occupancy.{cap} is not the rows' "
+                f"count {n}")
+    require(sum(by_window.values()) == res.run.supersteps,
+            f"{label}: window occupancy {by_window} does not sum to the "
+            f"supersteps")
+    overflows = int(moved.get("engine.window_overflows", 0))
+    captures = int(moved.get("engine.graph_captures", 0))
+    capture_s = moved.get("engine.graph_capture_seconds", 0.0)
+    readings.update(
+        active_share_mean=float(share.mean()),
+        active_share_median=float(np.median(share)),
+        active_share_p90=float(np.percentile(share, 90)),
+        supersteps_by_rung=by_rung, supersteps_by_window=by_window,
+        overflows=overflows, graphs_captured=captures,
+        graph_capture_s=capture_s,
+        dense_ms_per_superstep=dread["ms_per_superstep"],
+        dense_host_syncs=dread["host_syncs"], dense_peak_gib=dread["peak_gib"],
+        rungs=rungs)
+    print(f"    {label} active tiles per superstep: mean "
+          f"{share.mean():.1%}, median {np.median(share):.1%}, p90 "
+          f"{np.percentile(share, 90):.1%} of {T}")
+    print(f"    {label} supersteps by reference rung {json.dumps(by_rung)}; "
+          f"by window run {json.dumps(by_window)}; overflows {overflows}; "
+          f"graphs captured {captures} ({capture_s:.3f} s of host time "
+          f"capturing)")
+    print(f"    {label} compacted vs dense chunked (this call): ms per "
+          f"superstep {readings['ms_per_superstep']:.3f} vs "
+          f"{dread['ms_per_superstep']:.3f} "
+          f"({dread['ms_per_superstep'] / readings['ms_per_superstep']:.2f}x)"
+          f"; host syncs {readings['host_syncs']:.0f} vs "
+          f"{dread['host_syncs']:.0f}; peak GiB {readings['peak_gib']:.3f} "
+          f"vs {dread['peak_gib']:.3f}")
+    return res, launches, readings
+
+
+def full_length_share(prof, full_n: int):
+    """(device us of ops with an operand of at least ``full_n`` elements,
+    device us of all ops) in a profile taken with ``record_shapes``: each
+    host op's own device time (the kernels it launched), so each kernel
+    counts once."""
+    from torch.autograd import DeviceType
+    full = total = 0.0
+    for e in prof.key_averages(group_by_input_shape=True):
+        dev_us = getattr(e, "self_device_time_total", 0.0)
+        if e.device_type != DeviceType.CPU or dev_us <= 0:
+            continue
+        total += dev_us
+        if any(math.prod(sh) >= full_n for sh in e.input_shapes
+               if isinstance(sh, (list, tuple)) and sh
+               and all(isinstance(d, int) for d in sh)):
+            full += dev_us
+    return full, total
+
+
+def replay_ms(eng, state, window, n: int):
+    """Host ms a superstep of ``n`` graph replays in ``window`` (None:
+    dense), unprofiled, from the state ``n`` supersteps after ``state``
+    (a first chunk runs the eager superstep, the capture and replays).
+    Returns (ms, active rows, the runner)."""
+    runner = eng.chunk_runner(state, n)
+    runner.launch(10 * n, False, window)
+    runner.fetch()
+    t0 = time.perf_counter()
+    runner.launch(10 * n, False, window)
+    got = runner.fetch()
+    return ((time.perf_counter() - t0) / n * 1e3,
+            int(got.rows[:, -1].sum()), runner)
+
+
+def profile_window(eng, state, window, label: str, n: int = 20) -> dict:
+    """Where a compacted superstep's time goes at ``window`` tiles, from
+    ``state``: below the dense window, ``n`` replays in the window
+    against ``n`` dense replays from the same state, unprofiled and in
+    turns (window, dense, dense, window); ``n`` graph replays in the
+    window under the profiler; then ``n`` eager windowed supersteps with
+    their operands' shapes, which split the device time into ops with a
+    full-length (T*C) operand and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.engine import fetch_stats
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    out = dict(window=window)
+    if window is not None:
+        ms, rows = {window: [], None: []}, {}
+        for w in (window, None, None, window):
+            t, rows[w], runner = replay_ms(eng, state, w, n)
+            ms[w].append(t)
+            del runner
+        out.update(window_ms=float(np.mean(ms[window])),
+                   dense_ms=float(np.mean(ms[None])))
+        print(f"  {label}, same state, {n} replays unprofiled, in turns: "
+              f"window {window} {ms[window][0]:.3f} / {ms[window][1]:.3f} "
+              f"ms a replay ({rows[window]} rows active), dense "
+              f"{ms[None][0]:.3f} / {ms[None][1]:.3f} ({rows[None]} active; "
+              f"{out['dense_ms'] / out['window_ms']:.2f}x)")
+    runner = eng.chunk_runner(state, n)
+    runner.launch(10 * n, False, window)
+    runner.fetch()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        runner.launch(10 * n, False, window)
+        got = runner.fetch()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    active_rows = int(got.rows[:, -1].sum())
+    print(f"  profile {label}: window {window}, {active_rows} of {n} rows "
+          f"active, overflow {got.overflow}")
+    _profile_report(prof, wall, n, f"{label}, {n} graph replays at window "
+                    f"{window}")
+    del runner
+    # as a graph replay does: the window's rows written in place
+    st = {k: v.clone() for k, v in state.items()}
+    commit = torch.ones((), dtype=torch.bool, device=eng.device)
+    with profile(activities=activities, record_shapes=True) as prof:
+        for _ in range(n):
+            st, stats = eng._superstep(st, False, window, commit)
+            fetch_stats(stats, eng.stat_keys)
+        torch.cuda.synchronize()
+    full_n = eng.T * min(eng.Cd, eng.Cs)
+    full, total = full_length_share(prof, full_n)
+    print(f"  {label}, {n} eager supersteps at window {window}: device "
+          f"{total / n / 1e3:.3f} ms a superstep, of it {full / n / 1e3:.3f} "
+          f"ms ({full / max(total, 1e-9):.1%}) in ops with an operand of "
+          f">= {full_n} elements (T*C, full length)")
+    return dict(out, active_rows=active_rows, eager_busy_ms=total / n / 1e3,
+                full_length_ms=full / n / 1e3)
+
+
+def profile_rung(dev, wl, label: str, rungs) -> dict:
+    """``profile_window`` at the rung ``label`` spends most supersteps in
+    (per-superstep reference rungs ``rungs``), from the state at the
+    start of the longest stretch of supersteps at that rung."""
+    from repro_torch.graph import apps
+    caps, counts = np.unique(rungs, return_counts=True)
+    cap = int(caps[np.argmax(counts)])
+    at = np.flatnonzero(rungs == cap)
+    breaks = np.flatnonzero(np.diff(at) > 1)
+    starts = np.concatenate([[0], breaks + 1])
+    ends = np.concatenate([breaks, [len(at) - 1]])
+    i = int(np.argmax(ends - starts))
+    start, length = int(at[starts[i]]), int(ends[i] - starts[i] + 1)
+    print(f"  {label} spends most supersteps ({int(counts.max())}) at rung "
+          f"{cap}; longest stretch there: {length} supersteps from "
+          f"superstep {start}")
+    g, grid = wl[SCALE], wl["grid"]
+    kw = main_path_apps(wl)[label][2]
+    eng, state, _ = apps.engine_and_state(
+        label, g, grid, kw["proxy"], root=int(np.argmax(g.out_degree())),
+        x=wl["x"], histo_values=wl["histo"], bins=wl["bins"], oq_cap=OQ_CAP,
+        device=dev, compaction=COMPACTION)
+    if start:
+        state, _ = eng.run(state, max_supersteps=start)
+    return dict(profile_window(eng, state, None if cap == TILES else cap,
+                               f"{label} compacted"),
+                rung=cap, stretch=length, start=start)
+
+
+def compaction_phase(dev, wl) -> dict:
+    from repro_torch.core.engine import capacity_ladder
+    print(f"== 6b. active-set compaction={COMPACTION} (windows "
+          f"{capacity_ladder(TILES, COMPACTION)}), chunked: BFS, SpMV and "
+          f"Histogram at RMAT-{SCALE} on {TILES} tiles, each against its "
+          f"dense chunked run of phases 5 and 6")
+    g = wl[SCALE]
+    calls = main_path_apps(wl)
+    launches, out = {}, {}
+    for label, tol in (("bfs", (None, None)),
+                       ("spmv", (AGREE_RTOL, AGREE_ATOL)),
+                       ("histo", (None, None))):
+        t0 = time.perf_counter()
+        fn, args, kw = calls[label]
+        res, n, readings = compacted_run(dev, label, fn, args, kw,
+                                         wl["dense"][label], tol)
+        if label == "bfs":
+            check_bfs(g, args[1], res)
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+        out[label] = readings
+        print(f"  {label} compacted {time.perf_counter() - t0:.1f} s")
+    # a profiler window at the rung each app spends most supersteps in
+    # (BFS's first), from a state inside the longest stretch there
+    t0 = time.perf_counter()
+    for label in ("bfs", "spmv", "histo"):
+        out[label]["profile"] = profile_rung(dev, wl, label,
+                                             out[label].pop("rungs"))
+    print(f"  compaction profiles {time.perf_counter() - t0:.1f} s")
+    print(f"  compaction readings {json.dumps(out)}")
+    return launches
 
 
 def ops_phase(dev, wl) -> dict:
@@ -1111,11 +1440,13 @@ def decode_phase(dev) -> tuple:
 
 
 def agreement_phase(dev, wl) -> None:
+    from repro_torch.core.engine import EngineConfig
     from repro_torch.graph import apps, oracles
     from repro_torch.graph.rmat import histogram_input
     print(f"== 9. backend agreement (kernels vs torch) at RMAT-{AGREE_SCALE} "
           f"on {TILES} tiles, chunked; Histogram and PageRank also against "
-          f"the per-step loop")
+          f"the per-step loop; BFS and PageRank with compaction={COMPACTION} "
+          f"on both loops")
     g, grid = wl[AGREE_SCALE], wl["grid"]
     bins = g.n_rows // 8
     hv = histogram_input(g, bins)
@@ -1144,6 +1475,31 @@ def agreement_phase(dev, wl) -> None:
                                run_chunk=0, **kw)[0]
             same_run(runs[0], per_step, f"{name} chunked vs per-step loop",
                      *(tol or (None, None)))
+        if name in ("bfs", "pagerank"):
+            # the per-step loop's window chosen every superstep, and the
+            # chunked loop's overflows, against the dense chunked run
+            # the chunked loop's also with the torch backend: the
+            # kernels at the windows' shapes against torch's ops there
+            for chunk, backend in ((0, "kernels"),
+                                   (EngineConfig.run_chunk, "kernels"),
+                                   (EngineConfig.run_chunk, "torch")):
+                before = counter_values("engine.window_overflows")
+                comp = app_run(dev, f"{name} compacted", fn, *args,
+                               oq_cap=OQ_CAP, run_chunk=chunk,
+                               compaction=COMPACTION, backend=backend,
+                               **kw)[0]
+                moved = counter_deltas(
+                    before, counter_values("engine.window_overflows"))
+                same_run(runs[0], comp, f"{name} compacted (run_chunk "
+                         f"{chunk}, {backend}) vs dense chunked",
+                         *(tol or (None, None)))
+                if backend == "torch":
+                    same_run(comp_kernels, comp, f"{name} compacted "
+                             f"kernels vs torch", *(tol or (None, None)))
+                comp_kernels = comp
+                print(f"    {name} compacted, run_chunk {chunk}, {backend}: "
+                      f"overflows "
+                      f"{moved.get('engine.window_overflows', 0):.0f}")
         if name == "pagerank":
             check_close("PageRank vs its oracle", runs[0].values,
                         oracles.pagerank_oracle(g, epochs=PAGERANK_EPOCHS)
@@ -1170,6 +1526,7 @@ def main() -> int:
     rows = kernel_phase(dev, wl)
     by_path = dict(bfs=bfs_phase(dev, wl))
     by_path.update(add_apps_phase(dev, wl))
+    by_path["compaction"] = compaction_phase(dev, wl)
     by_path["ops"] = ops_phase(dev, wl)
     decode_row, by_path["decode"] = decode_phase(dev)
     rows.append(decode_row)

@@ -5,11 +5,20 @@ XLA compiles into one program.  Here a :class:`ChunkRunner` holds the
 engine state, the carry and the chunk's stats rows in static tensors,
 and runs each superstep as one *predicated step* over them:
 
-  * ``active = ~done & (left > 0)``, and on a no-flush step also
-    ``~flush`` (a flush the device scheduled idles the rest of the chunk:
-    the host sees it in the chunk's fetch and starts the next chunk with
-    a flush step);
-  * the engine superstep, its new state kept only where ``active``;
+  * ``active = ~done & (left > 0) & ~overflow``, and on a no-flush step
+    also ``~flush`` (a flush the device scheduled idles the rest of the
+    chunk: the host sees it in the chunk's fetch and starts the next
+    chunk with a flush step);
+  * the engine superstep, its new state kept only where ``active``; in a
+    compaction window of W tiles (the chunk's, picked by the host) also
+    only where the state's active tiles fit in W, and a row that does
+    not fit sets ``overflow``, which idles the rest of the chunk the way
+    a scheduled flush does: the host starts the next chunk in the window
+    that fits, from the active-tile count the fetch carries.  In a
+    window the superstep writes the W rows of ``values`` and the cursors
+    into the static tensors itself, under the same predicate (the
+    engine's ``commit``), and only the arrays it returns anew are
+    selected here;
   * the stats row, with ``active`` last, written into row ``row`` of the
     ``(K, len(keys) + 1)`` f64 buffer (exact for every f32 charge and
     every int32 count, so the reference's int32 side channel
@@ -23,9 +32,11 @@ this predicated step: an idle row computes a superstep, keeps nothing of
 it and is discarded by the host (``active = 0``), as in the reference.
 
 On a CUDA device each superstep of a chunk is one replay of a captured
-``torch.cuda.CUDAGraph``, one graph per flush value (``flush`` is a host
-bool that selects Python branches of the superstep), both over the same
-static tensors and one memory pool.  The first superstep of each graph
+``torch.cuda.CUDAGraph``, one graph per flush value and window
+(``flush`` is a host bool that selects Python branches of the superstep,
+the window sets its shapes), all over the same static tensors and one
+memory pool: nothing a graph leaves in the pool outlives its replay, so
+the graphs replay in any order.  The first superstep of each graph
 runs eagerly: it builds and loads every kernel and warms the allocator,
 and then the same step is captured, under
 ``torch.cuda.set_sync_debug_mode("error")``.  A failed capture or replay
@@ -39,7 +50,8 @@ kernel ran.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence, Tuple
+import time
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,17 +60,32 @@ from ..kernels import ops as kops
 from ..obs.metrics import default_registry
 
 
+class Fetched(NamedTuple):
+    """What one chunk's fetch brings to the host."""
+
+    done: bool
+    flush: bool             # the next chunk starts with a flush step
+    overflow: bool          # a superstep outgrew the chunk's window
+    active_tiles: int       # active tiles of the state after the chunk
+    rows: np.ndarray        # (length, len(keys) + 1) f64, ``active`` last
+
+
 class ChunkRunner:
     """Runs chunks of ``length`` predicated supersteps of ``step`` (the
-    engine's ``_superstep(state, flush) -> (new_state, stats)``) over a
-    copy of ``state``.  ``keys`` orders the scalar stats in a row."""
+    engine's ``_superstep(state, flush, window, commit) -> (new_state,
+    stats)``)
+    over a copy of ``state``.  ``keys`` orders the scalar stats in a row.
+    ``count_active(state)``, given with compaction, counts the active
+    tiles on the device for the fetch."""
 
     def __init__(self, step: Callable, state: Dict[str, torch.Tensor],
-                 length: int, write_back: bool, keys: Sequence[str]):
+                 length: int, write_back: bool, keys: Sequence[str],
+                 count_active: Optional[Callable] = None):
         if length < 1:
             raise ValueError(f"a chunk holds at least one superstep, got "
                              f"{length}")
         self._step = step
+        self._count_active = count_active
         self._write_back = write_back
         self.keys = tuple(keys)
         self.length = length
@@ -68,26 +95,38 @@ class ChunkRunner:
         dev = next(iter(self.state.values())).device
         self.flush = torch.zeros((), dtype=torch.bool, device=dev)
         self.done = torch.zeros((), dtype=torch.bool, device=dev)
+        self.overflow = torch.zeros((), dtype=torch.bool, device=dev)
         self.left = torch.zeros((), dtype=torch.int64, device=dev)
         self.row = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.rows = torch.zeros((length, len(self.keys) + 1),
                                 dtype=torch.float64, device=dev)
         self._pool = (torch.cuda.graph_pool_handle() if dev.type == "cuda"
                       else None)
-        # flush value -> its graph, and the kernel launches captured in it
-        self._graphs: Dict[bool, torch.cuda.CUDAGraph] = {}
-        self.captured: Dict[bool, Dict[str, int]] = {}
-        self._replays = default_registry().counter("engine.graph_replays")
+        # (flush value, window) -> its graph, and the kernel launches
+        # captured in it
+        self._graphs: Dict[Tuple[bool, Optional[int]],
+                           torch.cuda.CUDAGraph] = {}
+        self.captured: Dict[Tuple[bool, Optional[int]], Dict[str, int]] = {}
+        reg = default_registry()
+        self._replays = reg.counter("engine.graph_replays")
+        self._captures = reg.counter("engine.graph_captures")
+        # host seconds spent capturing (a capture runs nothing on the
+        # device): what each new (flush, window) key costs the loop
+        self._capture_s = reg.counter("engine.graph_capture_seconds")
 
     # ------------------------------------------------------------ the step
-    def step(self, flush: bool) -> None:
+    def step(self, flush: bool, window: Optional[int] = None) -> None:
         """One predicated superstep on the static tensors: the body every
         graph captures, and the eager step."""
         st = self.state
-        active = ~self.done & (self.left > 0)
+        active = ~self.done & (self.left > 0) & ~self.overflow
         if not flush:
             active = active & ~self.flush
-        new_state, stats = self._step(st, flush)
+        new_state, stats = self._step(st, flush, window, active)
+        if window is not None:
+            fits = stats["active_tiles"] <= window
+            self.overflow.copy_(self.overflow | (active & ~fits))
+            active = active & fits
         for k, v in new_state.items():
             if v is not st[k]:                 # in place: one pass each
                 torch.where(active, v, st[k], out=st[k])
@@ -104,51 +143,60 @@ class ChunkRunner:
         self.left.sub_(active.to(torch.int64))
         self.row.add_(1)
 
-    def _capture(self, flush: bool):
+    def _capture(self, key: Tuple[bool, Optional[int]]):
+        t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         before = kops.launch_counts()
         with torch.cuda.graph(graph, pool=self._pool):
             mode = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                self.step(flush)
+                self.step(*key)
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
         captured = {k: n - before[k]
                     for k, n in kops.launch_counts().items() if n > before[k]}
         kops.add_launches(captured, -1)       # a capture runs nothing
-        self._graphs[flush] = graph
-        self.captured[flush] = captured
+        self._graphs[key] = graph
+        self.captured[key] = captured
+        self._captures.inc()
+        self._capture_s.inc(time.perf_counter() - t0)
 
-    def _superstep(self, flush: bool) -> None:
+    def _superstep(self, flush: bool, window: Optional[int]) -> None:
         if self._pool is None:
-            self.step(flush)
+            self.step(flush, window)
             return
-        graph = self._graphs.get(flush)
+        key = (flush, window)
+        graph = self._graphs.get(key)
         if graph is None:
-            self.step(flush)           # warm-up, then capture the same step
-            self._capture(flush)
+            self.step(flush, window)   # warm-up, then capture the same step
+            self._capture(key)
             return
         graph.replay()
-        kops.add_launches(self.captured[flush])
+        kops.add_launches(self.captured[key])
         self._replays.inc()
 
     # ----------------------------------------------------------- the chunk
-    def launch(self, left: int, flush: bool) -> None:
+    def launch(self, left: int, flush: bool,
+               window: Optional[int] = None) -> None:
         """Enqueue one chunk: ``length`` supersteps within a budget of
         ``left``, the first a flush step when ``flush`` (the flag the
-        previous chunk's fetch returned).  No host sync."""
+        previous chunk's fetch returned), each in compaction window
+        ``window`` (None: dense).  No host sync."""
         self.left.fill_(left)
         self.row.zero_()
+        self.overflow.zero_()
         for r in range(self.length):
-            self._superstep(flush and r == 0)
+            self._superstep(flush and r == 0, window)
 
-    def fetch(self) -> Tuple[bool, bool, np.ndarray]:
-        """``(done, flush, rows)`` of the chunk just launched, in ONE
-        device-to-host transfer; ``rows`` is ``(length, len(keys) + 1)``
-        f64 with ``active`` last."""
-        packed = torch.cat([self.rows.reshape(-1),
-                            torch.stack([self.done, self.flush]).to(
-                                torch.float64)]).cpu().numpy()
-        return (bool(packed[-2]), bool(packed[-1]),
-                packed[:-2].reshape(self.rows.shape))
+    def fetch(self) -> Fetched:
+        """The chunk just launched, in ONE device-to-host transfer."""
+        count = (self._count_active(self.state) if self._count_active
+                 else torch.zeros((), dtype=torch.int32,
+                                  device=self.rows.device))
+        packed = torch.cat([self.rows.reshape(-1), torch.stack(
+            [t.to(torch.float64) for t in (self.done, self.flush,
+                                           self.overflow, count)])])
+        packed = packed.cpu().numpy()
+        return Fetched(bool(packed[-4]), bool(packed[-3]), bool(packed[-2]),
+                       int(packed[-1]), packed[:-4].reshape(self.rows.shape))

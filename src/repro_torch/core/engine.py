@@ -42,11 +42,28 @@ each superstep of a chunk is one replay of a captured CUDA graph
 two give identical counters, trace, supersteps and ``time_s``, and
 identical values for the min apps.
 
+**Active-set compaction** (``EngineConfig.compaction = L > 0``): a
+superstep runs its IQ drain and OQ emit over the smallest window of the
+ladder ``capacity_ladder(T, L)`` that holds the tiles with pending
+mailbox flags or open edge cursors (``_front_compact``), so the record
+stream the P$, the cascade and delivery work on shrinks from
+``T*oq_cap`` to ``W*oq_cap``.  The reference switches windows on the
+device (``lax.switch``); a CUDA graph cannot branch, so here the host
+picks the window from an active-tile count that rides a fetch the loop
+makes anyway: on the per-step loop the count of the state each
+superstep will step, on the chunked loop the count after each chunk,
+with one rung of headroom (``CHUNK_HEADROOM``; one graph per flush
+value and window; a superstep whose tiles outgrow its chunk's window
+idles the rest of the chunk, ``core/chunk.py``).
+The first superstep or chunk runs dense.  Every window gives the dense
+result bit for bit, and the stats carry the reference's
+``active_tiles`` and ``bucket_cap`` (the rung the reference would pick).
+
 Not in this slice, and refused with ``NotImplementedError`` naming the
-ROADMAP item rather than ignored: active-set compaction (A.7);
-telemetry, the sanitizer and observers (A.8); multi-chip partitions and
-double buffering, with the flush's off-chip buffer sizing
-``_flush_off_len`` (A.9); checkpoints (A.10).
+ROADMAP item rather than ignored: telemetry, the sanitizer and
+observers (A.8); multi-chip partitions and double buffering, with the
+flush's off-chip buffer sizing ``_flush_off_len`` (A.9); checkpoints
+(A.10).
 """
 from __future__ import annotations
 
@@ -70,6 +87,16 @@ from .proxy import (ProxyConfig, cascade_proxy_tile, make_pcache,
 from .tilegrid import ChipPartition, TileGrid
 
 INF = float("inf")
+# the state arrays the IQ drain and OQ emit read and write, in
+# ``_front_rows``' argument order
+# The chunked loop sizes a chunk's window for this many times the active
+# tiles its fetch counted, one rung of the ladder (rungs are 4x apart):
+# the active set grows inside a chunk (a BFS frontier), and a superstep
+# that outgrows its window idles the rest of the chunk.  The per-step
+# loop counts the very state it steps and needs none.
+CHUNK_HEADROOM = 4
+_FRONT_KEYS = ("values", "mail_val", "mail_flag", "cur_lo", "cur_hi",
+               "cur_val")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,8 +159,6 @@ class EngineConfig:
 def _refuse_unported(cfg: EngineConfig, part: ChipPartition) -> None:
     """Raise on every setting this slice does not run."""
     unported = []
-    if cfg.compaction > 0:
-        unported.append("compaction > 0 (ROADMAP A.7)")
     if cfg.telemetry:
         unported.append("telemetry (ROADMAP A.8)")
     if cfg.sanitize:
@@ -158,6 +183,9 @@ STAT_KEYS = ("edges_processed", "records_consumed", "compute_per_tile_max",
              "messages", "hop_msgs", "intra_die_hops", "inter_die_crossings",
              "inter_pkg_crossings", "cross_region_msgs", "owner_msgs",
              "owner_hop_msgs")
+# With compaction, each superstep also reports its input state's active
+# tiles and the ladder rung that holds them; the accounting ignores both.
+COMPACTION_KEYS = ("active_tiles", "bucket_cap")
 
 
 class DataLocalEngine:
@@ -200,6 +228,8 @@ class DataLocalEngine:
                                      or app.cascade_profitable):
                 self._cascade_levels = casc.levels
         self._write_back = cfg.proxy is not None and cfg.proxy.write_back
+        # an improving mailbox record restarts its item's edge cursor
+        self._reactivates = app.reactivate and self.Nd == self.Ns
         dev = self.device
         self.row_lo = _to(_pad(row_lo, self.Ngs, 0), torch.int32, dev)
         self.row_hi = _to(_pad(row_hi, self.Ngs, 0), torch.int32, dev)
@@ -216,6 +246,12 @@ class DataLocalEngine:
         self._pcache_src = (None if cfg.proxy is None else
                             torch.repeat_interleave(self._tile_gids,
                                                     cfg.proxy.slots))
+        self._ladder = capacity_ladder(T, cfg.compaction)
+        self._compacting = len(self._ladder) > 1
+        self._ladder_t = torch.tensor(self._ladder, dtype=torch.float32,
+                                      device=dev)
+        self.stat_keys = STAT_KEYS + (COMPACTION_KEYS if self._compacting
+                                      else ())
 
     # ---------------------------------------------------------------- state
     def init_state(self, seed_idx=None, seed_val=None):
@@ -281,16 +317,87 @@ class DataLocalEngine:
         consumed_per_tile, edges_per_tile, dst, cand, emit_mask,
         src_tile): full-length state tensors, (T,) per-tile counts and
         the flattened (T*oq_cap,) emission record stream."""
-        app, cfg = self.app, self.cfg
+        return self._front_rows(
+            self.T, *(state[k] for k in _FRONT_KEYS), row_lo,
+            row_hi) + (self._src_tile,)
+
+    def _front_compact(self, row_lo, row_hi, state, active, W,
+                       commit=None):
+        """Compacted IQ drain + OQ emit over a W-tile active window.
+
+        The active tiles are compacted, in tile order, into the leading
+        lanes of a W-lane window and inactive tiles fill the lanes left
+        (``_window_lanes``); the drain and emit run on those W rows and
+        the rows are written back.  An inactive tile has no mailbox flags
+        and no open cursors, so its rows come back as they went and it
+        emits nothing; the lanes are distinct rows, so the write-back is
+        one ``index_copy_``.  Live records keep the dense path's
+        tile-major order, so the sorts, segment reductions and delivery
+        downstream see the same live sequence and the f32 sums the same
+        order: state, counters and trace equal ``_front_dense``'s.  Same
+        return contract, with (W,) per-lane counts (their sums and
+        maxima are the dense ones: the lanes cover every tile with work)
+        and a (W*oq_cap,) record stream.
+
+        ``commit`` (a 0-d bool, the chunk runner's predicate) writes the
+        rows of the arrays only the front changes (``values`` and the
+        cursors) into ``state``'s own tensors, where it holds and the
+        active tiles fit in W, and returns those tensors: a W-row write
+        in place of a full-length copy.  Without it every array comes
+        back as a new tensor."""
         T, Cs, Cd = self.T, self.Cs, self.Cd
+        lanes = _window_lanes(active, W, T)
+        widths = dict(values=Cd, mail_val=Cd, mail_flag=Cd, cur_lo=Cs,
+                      cur_hi=Cs, cur_val=Cs)
+
+        def rows(a, c):
+            return a.reshape(T, c)[lanes].reshape(-1)
+
+        react = self._reactivates
+        win = {k: rows(state[k], widths[k]) for k in _FRONT_KEYS}
+        out = self._front_rows(
+            W, *(win[k] for k in _FRONT_KEYS),
+            rows(row_lo, Cs) if react else None,
+            rows(row_hi, Cs) if react else None)
+        # cursors without reactivation keep their bounds and values
+        kept = _FRONT_KEYS if react else _FRONT_KEYS[:4]
+        if commit is not None:
+            commit = commit & (torch.sum(active) <= W)
+        new = []
+        for k, part in zip(_FRONT_KEYS, out):
+            full = state[k].reshape(T, widths[k])
+            if k not in kept:
+                new.append(state[k])
+            elif commit is None or k.startswith("mail"):
+                # the mailbox goes on to delivery: a new tensor
+                new.append(full.clone().index_copy_(
+                    0, lanes, part.reshape(W, -1)).reshape(-1))
+            else:
+                full.index_copy_(0, lanes, torch.where(
+                    commit, part, win[k]).reshape(W, -1))
+                new.append(state[k])
+        B = self.cfg.oq_cap
+        src = self.part.global_tile(0, lanes.to(torch.int32))
+        return tuple(new) + out[6:] + (src[:, None].expand(W, B)
+                                       .reshape(-1),)
+
+    def _front_rows(self, n, values, mail_val, mail_flag, cur_lo, cur_hi,
+                    cur_val, row_lo, row_hi):
+        """IQ drain + OQ emit over ``n`` rows of tiles: the state arrays
+        and the graph's row bounds hold the rows' items, (n*Cd,) or
+        (n*Cs,).  Returns (new_vals, mail_val, mail_flag,
+        cur_lo, cur_hi, cur_val, consumed_per_row, edges_per_row, dst,
+        cand, emit_mask) with the (n*oq_cap,) record stream."""
+        app, cfg = self.app, self.cfg
+        Cs, Cd = self.Cs, self.Cd
         dev = self.device
 
         # ---- 1. IQ drain (budgeted mailbox consumption) -------------------
-        flag2d = state["mail_flag"].reshape(T, Cd)
+        flag2d = mail_flag.reshape(n, Cd)
         csum = torch.cumsum(flag2d.to(torch.int32), dim=1, dtype=torch.int32)
         take2d = flag2d & (csum <= cfg.iq_cap)
         take = take2d.reshape(-1)
-        mval, vals = state["mail_val"], state["values"]
+        mval, vals = mail_val, values
         if cfg.backend == "kernels":
             new_vals, imp8 = kops.relax(vals, mval, take, combine=app.combine)
             improved = imp8.to(torch.bool)
@@ -300,38 +407,35 @@ class DataLocalEngine:
         else:
             improved = take
             new_vals = torch.where(take, vals + mval, vals)
-        mail_flag = state["mail_flag"] & ~take
+        mail_flag = mail_flag & ~take
         mail_val = torch.where(take, app.identity, mval)
         consumed_per_tile = torch.sum(take2d, dim=1)
 
-        cur_lo, cur_hi, cur_val = (state["cur_lo"], state["cur_hi"],
-                                   state["cur_val"])
-        if app.reactivate and self.Nd == self.Ns:
+        if self._reactivates:
             # an improving record restarts the item's edge cursor with the
             # new value (re-expansion of a visited item is the engine's
             # rendering of data staleness: measurable wasted work)
-            re = improved
-            cur_lo = torch.where(re, row_lo, cur_lo)
-            cur_hi = torch.where(re, row_hi, cur_hi)
-            cur_val = torch.where(re, new_vals, cur_val)
+            cur_lo = torch.where(improved, row_lo, cur_lo)
+            cur_hi = torch.where(improved, row_hi, cur_hi)
+            cur_val = torch.where(improved, new_vals, cur_val)
 
         # ---- 2. OQ emit (budgeted edge streaming) -------------------------
         B = cfg.oq_cap
-        rem2d = (cur_hi - cur_lo).reshape(T, Cs)
+        rem2d = (cur_hi - cur_lo).reshape(n, Cs)
         prefix = torch.cumsum(rem2d, dim=1, dtype=torch.int32)  # inclusive
         capped = torch.clamp(prefix, max=B)
         take_v2d = capped - torch.cat(
-            [torch.zeros((T, 1), dtype=torch.int32, device=dev),
+            [torch.zeros((n, 1), dtype=torch.int32, device=dev),
              capped[:, :-1]], dim=1)
-        total_take = capped[:, -1]                               # (T,)
+        total_take = capped[:, -1]                               # (n,)
         b_idx = torch.arange(B, dtype=torch.int32, device=dev)
         # per-row searchsorted(side="right") of every emission slot
-        vslot = torch.searchsorted(capped, b_idx.expand(T, B).contiguous(),
+        vslot = torch.searchsorted(capped, b_idx.expand(n, B).contiguous(),
                                    right=True)
-        vslot = torch.clamp(vslot, max=Cs - 1)                   # (T, B)
+        vslot = torch.clamp(vslot, max=Cs - 1)                   # (n, B)
         capped_prev = capped - take_v2d
         offset = b_idx[None, :] - torch.gather(capped_prev, 1, vslot)
-        vglob = vslot + torch.arange(T, device=dev)[:, None] * Cs
+        vglob = vslot + torch.arange(n, device=dev)[:, None] * Cs
         pos = cur_lo[vglob] + offset
         emit_mask = b_idx[None, :] < total_take[:, None]
         pos = torch.clamp(pos, 0, self.col_idx.shape[0] - 1).to(torch.int64)
@@ -340,28 +444,68 @@ class DataLocalEngine:
         cur_lo = cur_lo + take_v2d.reshape(-1)
 
         # flatten records (tile ids are global; dst indices are global)
-        R = T * B
+        R = n * B
         return (new_vals, mail_val, mail_flag, cur_lo, cur_hi, cur_val,
                 consumed_per_tile, total_take, dst.reshape(R),
-                cand.reshape(R), emit_mask.reshape(R), self._src_tile)
+                cand.reshape(R), emit_mask.reshape(R))
 
-    def _superstep(self, state, flush: bool = False):
+    def _active_tiles(self, state):
+        """(T,) mask of the tiles with pending mailbox flags or open edge
+        cursors: the tiles the dense superstep does non-identity work on
+        (reactivation only touches flagged tiles, so the emission after
+        the drain stays inside this set too)."""
+        T = self.T
+        mail = torch.any(state["mail_flag"].reshape(T, self.Cd), dim=1)
+        cur = torch.any((state["cur_hi"] > state["cur_lo"])
+                        .reshape(T, self.Cs), dim=1)
+        return mail | cur
+
+    def _count_active(self, state):
+        """The active tiles of ``state`` as a 0-d int32 device tensor."""
+        return torch.sum(self._active_tiles(state), dtype=torch.int32)
+
+    def _window(self, n_active):
+        """The window a superstep over ``n_active`` active tiles runs in:
+        the smallest rung of the ladder that holds them, None for the
+        dense one."""
+        w = self._ladder[int(bucket_index(n_active, self._ladder))]
+        return None if w == self.T else w
+
+    def _superstep(self, state, flush: bool = False,
+                   window: Optional[int] = None, commit=None):
         """One monolithic superstep: (new_state, stats) with every stat a
         0-d tensor on the device.  ``flush`` (a host bool, decided by the
         run loop from the previous superstep's or chunk's fetched stats)
-        spills the write-back P$ in this superstep."""
-        return self._step(self.row_lo, self.row_hi, state, flush)
+        spills the write-back P$ in this superstep.  ``window`` (a rung of
+        the compaction ladder below T, picked by the run loop) runs the
+        front over that many active tiles; ``commit`` is
+        ``_front_compact``'s in-place write-back."""
+        return self._step(self.row_lo, self.row_hi, state, flush, window,
+                          commit)
 
-    def _step(self, row_lo, row_hi, state, flush=False):
+    def _step(self, row_lo, row_hi, state, flush=False, window=None,
+              commit=None):
         app, cfg = self.app, self.cfg
         is_min = app.combine == "min"
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        stats = {}
+        if self._compacting:
+            active = self._active_tiles(state)
+            n_act = torch.sum(active, dtype=torch.int32)
+            idx = bucket_index(n_act, self._ladder)
+            stats.update(active_tiles=n_act.to(torch.float32),
+                         bucket_cap=self._ladder_t.index_select(
+                             0, idx.reshape(1)).reshape(()))
+        if window is None:
+            front = self._front_dense(row_lo, row_hi, state)
+        else:
+            front = self._front_compact(row_lo, row_hi, state, active,
+                                        window, commit)
         (new_vals, mail_val, mail_flag, cur_lo, cur_hi, cur_val,
-         consumed_vec, edges_vec, dst, cand, emit_mask,
-         src_tile) = self._front_dense(row_lo, row_hi, state)
+         consumed_vec, edges_vec, dst, cand, emit_mask, src_tile) = front
         owner = torch.clamp(dst // self.Cd, max=self.Tg - 1)
 
-        stats = dict(edges_processed=torch.sum(edges_vec),
+        stats.update(edges_processed=torch.sum(edges_vec),
                      records_consumed=torch.sum(consumed_vec),
                      compute_per_tile_max=torch.max(
                          consumed_vec * PU_OPS_PER_RECORD
@@ -706,7 +850,9 @@ class DataLocalEngine:
         """The device side of chunks of ``length`` supersteps over a copy
         of ``state`` (``core/chunk.py``)."""
         return ChunkRunner(self._superstep, state, length, self._write_back,
-                           STAT_KEYS)
+                           self.stat_keys, count_active=(
+                               self._count_active if self._compacting
+                               else None))
 
     def run(self, state, max_supersteps: Optional[int] = None,
             progress_every: int = 0, chunk: Optional[int] = None,
@@ -773,16 +919,27 @@ class DataLocalEngine:
     def _run_legacy(self, state, maxs, progress_every, account):
         """The per-step loop: one superstep and one host sync each.  The
         flush decision for the next superstep is read from this one's
-        fetched stats, so it costs no sync of its own."""
+        fetched stats, and with compaction so is the next superstep's
+        window (the active tiles of the state it will step, counted on
+        the device), so neither costs a sync of its own.  The first
+        superstep runs dense."""
         sync_ctr = default_registry().counter("engine.host_syncs")
+        keys = self.stat_keys
+        if self._compacting:
+            keys = keys + ("next_active_tiles",)
         steps = 0
-        flush = False
+        flush, window = False, None
         while steps < maxs:
-            state, stats = self._superstep(state, flush)
-            stats = fetch_stats(stats)
+            state, stats = self._superstep(state, flush, window)
+            if self._compacting:
+                stats["next_active_tiles"] = self._count_active(state)
+            stats = fetch_stats(stats, keys)
             sync_ctr.inc()
             steps += 1
             account(stats)
+            if self._compacting:
+                self._count_window(window, 1, False)
+                window = self._window(stats["next_active_tiles"])
             flush = False
             if stats["pending"] == 0:
                 # live work drained; spill any write-back P$ residue (the
@@ -802,36 +959,56 @@ class DataLocalEngine:
         """The chunked loop (the reference's ``_drain_chunked``): per
         chunk, K predicated supersteps enqueued on the device
         (``ChunkRunner.launch``), ONE host fetch of ``done``, the flush
-        flag and the stats rows, then vectorized accounting of the active
-        rows.  The flush and termination rules run on the device; a flush
-        it schedules idles the rest of the chunk, and the next chunk
-        starts with the flush step."""
+        and overflow flags, the active-tile count and the stats rows,
+        then vectorized accounting of the active rows.  The flush and
+        termination rules run on the device; a flush it schedules idles
+        the rest of the chunk, and the next chunk starts with the flush
+        step.  With compaction each chunk runs in the window that holds
+        ``CHUNK_HEADROOM`` times the active tiles the previous fetch
+        counted (the first chunk dense); a superstep that outgrows it
+        idles the rest of the chunk (``engine.window_overflows``), and
+        the next chunk starts in a window that fits."""
         sync_ctr = default_registry().counter("engine.host_syncs")
-        progress = _ProgressReporter(self.app.name, progress_every)
+        progress = _ProgressReporter(self.app.name, progress_every,
+                                     tiles=self.T)
         runner = self.chunk_runner(state, K)
-        keys = STAT_KEYS + ("active",)
-        steps, flush = 0, False
+        keys = self.stat_keys + ("active",)
+        steps, flush, window = 0, False, None
         while steps < maxs:
-            runner.launch(maxs - steps, flush)
-            done, flush, rows = runner.fetch()       # the chunk's one sync
+            runner.launch(maxs - steps, flush, window)
+            got = runner.fetch()                     # the chunk's one sync
             sync_ctr.inc()
-            stacked = {k: rows[:, i] for i, k in enumerate(keys)}
+            flush = got.flush
+            stacked = {k: got.rows[:, i] for i, k in enumerate(keys)}
             n_act = int(np.sum(stacked["active"]))
             if n_act:
                 account_chunk(stacked, n_act)
             steps += n_act
             progress.report(steps, stacked, n_act)
-            if done or n_act == 0:
+            if self._compacting:
+                self._count_window(window, n_act, got.overflow)
+                window = self._window(
+                    min(got.active_tiles * CHUNK_HEADROOM, self.T))
+            if got.done or n_act == 0:
                 break
         return runner.state, steps
 
+    def _count_window(self, window, steps: int, overflow: bool) -> None:
+        """Supersteps run in each window (``engine.window_occupancy.<W>``)
+        and the chunks a window overflowed (``engine.window_overflows``)."""
+        reg = default_registry()
+        reg.counter(f"engine.window_occupancy.{window or self.T}").inc(steps)
+        if overflow:
+            reg.counter("engine.window_overflows").inc()
 
-def fetch_stats(stats) -> dict:
-    """The superstep's scalar stats as Python floats, in ONE transfer:
-    every stat is packed into one f64 tensor (exact for the f32 charges
-    and the integer counts alike) and copied to the host at once."""
-    packed = torch.stack([stats[k].to(torch.float64) for k in STAT_KEYS])
-    return dict(zip(STAT_KEYS, packed.cpu().tolist()))
+
+def fetch_stats(stats, keys=STAT_KEYS) -> dict:
+    """The superstep's scalar stats ``keys`` as Python floats, in ONE
+    transfer: every stat is packed into one f64 tensor (exact for the f32
+    charges and the integer counts alike) and copied to the host at
+    once."""
+    packed = torch.stack([stats[k].to(torch.float64) for k in keys])
+    return dict(zip(keys, packed.cpu().tolist()))
 
 
 @dataclasses.dataclass
@@ -935,17 +1112,24 @@ class _ProgressReporter:
     Progress flows through the metrics registry -- gauges
     ``progress.<app>.steps`` and ``.pending`` set every chunk, counter
     ``progress.<app>.reports`` per printed line -- so harnesses read it
-    without scraping stdout.  The reference's compaction gauges and
-    sanitizer count come with ROADMAP A.7 and A.8."""
+    without scraping stdout.  Compacted runs also feed the
+    ``engine.active_fraction`` gauge (the latest chunk's mean active-tile
+    fraction of ``tiles``) and the ``engine.bucket_occupancy.<cap>``
+    counters (supersteps whose active tiles fit rung ``cap`` of the
+    ladder) from the ``active_tiles`` / ``bucket_cap`` stats, which ride
+    the same fetch.  The reference's sanitizer count comes with ROADMAP
+    A.8."""
 
-    def __init__(self, name: str, every: int):
+    def __init__(self, name: str, every: int, tiles: int = 0):
         self.name = name
         self.every = every
+        self.tiles = tiles
         self._next = every
         reg = default_registry()
         self._g_steps = reg.gauge(f"progress.{name}.steps")
         self._g_pending = reg.gauge(f"progress.{name}.pending")
         self._c_reports = reg.counter(f"progress.{name}.reports")
+        self._g_active = reg.gauge("engine.active_fraction")
 
     def report(self, steps: int, stacked, n_act: int) -> None:
         if n_act == 0:
@@ -953,6 +1137,14 @@ class _ProgressReporter:
         pending = float(stacked["pending"][n_act - 1])
         self._g_steps.set(steps)
         self._g_pending.set(pending)
+        act = stacked.get("active_tiles")
+        if act is not None and self.tiles:
+            self._g_active.set(float(np.mean(act[:n_act])) / self.tiles)
+            caps, cnts = np.unique(np.asarray(stacked["bucket_cap"][:n_act]),
+                                   return_counts=True)
+            for cap, cnt in zip(caps.tolist(), cnts.tolist()):
+                default_registry().counter(
+                    f"engine.bucket_occupancy.{int(cap)}").inc(float(cnt))
         if not self.every or steps < self._next:
             return
         self._c_reports.inc()
@@ -960,6 +1152,61 @@ class _ProgressReporter:
               f"pending={pending:.0f}")
         while self._next <= steps:
             self._next += self.every
+
+
+def capacity_ladder(T: int, levels: int) -> tuple:
+    """Window-capacity ladder for active-set compaction: ``(T, T/4,
+    T/16, ...)``, the dense window plus ``levels`` power-of-two rungs
+    (each a quarter of the previous, floored at 1 tile; rungs that no
+    longer shrink are dropped).  Descending, so ``bucket_index`` can
+    pick the smallest capacity that fits the active count."""
+    caps = [int(T)]
+    for k in range(1, max(int(levels), 0) + 1):
+        c = max(int(T) >> (2 * k), 1)
+        if c < caps[-1]:
+            caps.append(c)
+    return tuple(caps)
+
+
+def bucket_index(n_act, caps: tuple) -> torch.Tensor:
+    """Index of the smallest ladder capacity that holds ``n_act`` active
+    tiles (0 = the dense window), as a 0-d int32 tensor on ``n_act``'s
+    device: no host sync."""
+    n_act = torch.as_tensor(n_act)
+    idx = torch.zeros((), dtype=torch.int32, device=n_act.device)
+    for j, c in enumerate(caps[1:], start=1):
+        idx = torch.where(n_act <= c, j, idx)
+    return idx
+
+
+def _compact_window(active, W: int, T: int):
+    """Stable compaction of the (T,) active mask into a W-slot window.
+
+    Returns (w_valid, w_rows): per-slot validity and the tile row each
+    slot gathers (invalid slots clamp to T-1).  The j-th active tile is
+    the first row where the inclusive cumsum reaches j+1: a
+    searchsorted, no sort and no ``nonzero``, so nothing sizes an output
+    on the host, and the slots keep the tiles' order, which keeps the
+    compacted record stream in the dense one's order.  With more than W
+    active tiles, the first W."""
+    csum = torch.cumsum(active, 0, dtype=torch.int32)
+    tile_map = torch.searchsorted(
+        csum, torch.arange(1, W + 1, dtype=torch.int32, device=active.device))
+    w_valid = tile_map < T
+    return w_valid, torch.clamp(tile_map, max=T - 1)
+
+
+def _window_lanes(active, W: int, T: int):
+    """The W distinct tile rows a window runs on: ``_compact_window``'s
+    valid slots (the active tiles, in order), then, in the slots left,
+    the inactive tiles in order -- the k-th free slot takes the first
+    row where the inactive mask's cumsum reaches k.  W <= T leaves
+    enough of them whenever the active tiles fit."""
+    w_valid, w_rows = _compact_window(active, W, T)
+    k = (torch.arange(1, W + 1, dtype=torch.int32, device=active.device)
+         - torch.sum(active, dtype=torch.int32))
+    idle = torch.searchsorted(torch.cumsum(~active, 0, dtype=torch.int32), k)
+    return torch.where(w_valid, w_rows, idle)
 
 
 def _lex_group(key, sub, mask, *vals):

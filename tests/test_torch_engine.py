@@ -200,7 +200,6 @@ def test_default_device_is_the_card(graphs):
 
 
 UNPORTED = {
-    "compaction": dict(compaction=2),
     "telemetry": dict(telemetry=True),
     "sanitize": dict(sanitize=True),
     "double_buffer": dict(double_buffer=True),

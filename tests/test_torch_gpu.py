@@ -3,8 +3,9 @@
 graph), the engine through the kernels against the same engine on the
 CPU (the min apps and the write-back add apps), a superstep that makes
 no host sync of its own, the chunked run loop's CUDA-graph replays
-against the per-step loop, and ``ops.decode_attention`` through its
-kernel.
+against the per-step loop (with compaction, one graph per flush value
+and window: no sync in any, launch counts per graph, results equal to
+dense), and ``ops.decode_attention`` through its kernel.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 decision is taken inside each test.  On a machine with a card:
@@ -538,14 +539,14 @@ def test_chunked_graph_replays_match_per_step_on_card(app):
     assert replays.value - r0 == 16 * chunks - graphs
 
 
-def _runner(app, length, scale=9, tiles=64):
+def _runner(app, length, scale=9, tiles=64, **kw):
     g = rmat_edges(scale, edge_factor=8, seed=1)
     grid = square_grid(tiles)
     eng, state, _ = apps.engine_and_state(
         app, g, grid, apps.table2_proxy(
             grid, app, cascade_levels=2 if app == "spmv" else 0),
         root=int(np.argmax(g.out_degree())),
-        x=np.ones(g.n_cols, np.float32), oq_cap=16, device=_card())
+        x=np.ones(g.n_cols, np.float32), oq_cap=16, device=_card(), **kw)
     return eng.chunk_runner(state, length)
 
 
@@ -564,8 +565,8 @@ def test_chunk_replays_make_no_host_sync():
                 runner.launch(10_000, flush)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        done, _, rows = runner.fetch()
-        assert not done and rows[:, -1].sum() >= 1
+        got = runner.fetch()
+        assert not got.done and got.rows[:, -1].sum() >= 1
 
 
 def test_chunk_launch_counts_are_replays_times_captures():
@@ -578,7 +579,7 @@ def test_chunk_launch_counts_are_replays_times_captures():
     ops.reset_launches()
     runner.launch(10_000, False)
     runner.fetch()
-    per_graph = runner.captured[False]
+    per_graph = runner.captured[False, None]
     assert per_graph == {"relax": 1, "segment_combine": 1,
                          "deliver_fused": 1}
     want = {k.__name__: 4 * per_graph.get(k.__name__, 0)
@@ -603,3 +604,76 @@ def test_flush_at_a_chunk_edge_on_card(edge):
     chunked = fn(*args, device=dev,
                  run_chunk=d + 1 if edge == "last row" else d, **kw)
     _same_run(chunked, per_step, "spmv")
+
+
+# ------------------------------------------- compaction on the chunked loop
+WINDOWS = (None, 16, 4, 1)     # capacity_ladder(64, 3): dense, then rungs
+
+
+def _compacted_keys(app):
+    return [(flush, w) for flush in ((False, True) if app == "spmv"
+                                     else (False,)) for w in WINDOWS]
+
+
+@pytest.mark.parametrize("app", ["bfs", "spmv"])
+def test_compacted_chunk_replays_make_no_host_sync(app):
+    """With compaction=3, a chunk in every (flush, window) key -- windows
+    the state's active tiles outgrow included, whose rows idle -- replays
+    with no sync that PyTorch's sync debug mode detects."""
+    runner = _runner(app, 4, compaction=3)
+    keys = _compacted_keys(app)
+    for flush, w in keys:                      # warm-up and capture
+        runner.launch(10_000, flush, w)
+        runner.fetch()
+    assert sorted(runner.captured, key=str) == sorted(keys, key=str)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for flush, w in keys:
+            runner.launch(10_000, flush, w)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = runner.fetch()
+    assert not got.done and 0 <= got.active_tiles <= 64
+
+
+def test_compacted_launch_counts_per_key():
+    """Each kernel's count after one chunk in each window of BFS is, per
+    (flush, window) key, the predicated supersteps run times the launches
+    captured in that key's graph; every graph launches each engine kernel
+    once."""
+    runner = _runner("bfs", 4, compaction=3)
+    replays = default_registry().counter("engine.graph_replays")
+    before = replays.value
+    ops.reset_launches()
+    keys = _compacted_keys("bfs")
+    for flush, w in keys:
+        runner.launch(10_000, flush, w)
+        runner.fetch()
+    for key in keys:
+        assert runner.captured[key] == {"relax": 1, "segment_combine": 1,
+                                        "deliver_fused": 1}
+    want = {k.__name__: sum(4 * runner.captured[key].get(k.__name__, 0)
+                            for key in keys) for k in ops.KERNELS}
+    assert ops.launch_counts() == want
+    for flush, w in keys:
+        runner.launch(10_000, flush, w)
+        runner.fetch()
+    assert replays.value - before == (2 * 4 - 1) * len(keys)
+    assert ops.launch_counts() == {k: 2 * n for k, n in want.items()}
+
+
+@pytest.mark.parametrize("app", ["bfs", "spmv"])
+def test_compacted_chunked_run_matches_dense_on_card(app):
+    """A compacted run on the chunked loop (windows picked per chunk,
+    replayed from one graph per flush value and window) equals the dense
+    chunked run: BFS bitwise, SpMV exact in counters, trace, supersteps
+    and ``time_s``, values to f32 re-association."""
+    dev = _card()
+    fn, args, kw = _chunk_case(app)
+    reg = default_registry()
+    captures = reg.counter("engine.graph_captures")
+    dense = fn(*args, device=dev, **kw)
+    c0 = captures.value
+    comp = fn(*args, device=dev, compaction=3, **kw)
+    _same_run(comp, dense, app)
+    assert captures.value - c0 >= 2        # dense and at least one window
