@@ -74,6 +74,20 @@ on past a failure:
    one; BFS and PageRank with ``compaction=3`` on both loops against the
    dense chunked run (window overflows printed), and on the chunked loop
    with ``torch`` against ``kernels``; PageRank against its oracle;
+9b. observability and the sanitizer: BFS at RMAT-22 on the chunked loop,
+   dense and with ``compaction=3``, with ``telemetry=True``,
+   ``sanitize=True`` and a ``TimelineRecorder``: each equal to its run of
+   phase 5 or 6b (values bitwise; counters, trace, supersteps, ``time_s``;
+   host syncs equal), then the same call without the hooks, so ms a
+   superstep (``LoopClock``) is read in turns; peak memory, the
+   recorder's spans and load-vector bytes, and the imbalance report's
+   gini and max/mean of ``tv_delivered``.  At RMAT-18: SpMV, Histogram
+   and PageRank with every hook equal to phase 9's runs, BFS on the
+   per-step loop (one span per superstep), BFS's recorder written as a
+   Perfetto trace (``obs.export.write_trace``) into a temporary
+   directory and parsed back (events by track printed), and BFS with a
+   NaN planted in ``values`` on both loops, which must raise
+   ``SanitizerError``;
 10. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
     the last line, ``{"ok": true, "device": {...}}``.
 
@@ -85,14 +99,15 @@ fall in the kernels' 32-record warp slices (``EngineIds``): the share
 of live records in runs of neighbours and repeated in their slice, and
 the atomics a fold would leave.
 
-Each main-path run (phases 5-8, 6b included) sets every kernel's launch
-count to 0 just before it and reads the counts just after; a kernel on
-the path that did not launch (at least once per superstep, on the
-engine's paths) fails the run.  The JSON line counts the compacted runs
-under their own path, ``compaction``.  A graph replay counts the launches captured in
-it, so on the chunked loop the counts include the idle rows of a
-chunk (after the run drained, or after a flush the device scheduled),
-which are printed as the surplus.
+Each main-path run (phases 5-8, 6b and 9b included) sets every
+kernel's launch count to 0 just before it and reads the counts just
+after; a kernel on the path that did not launch (at least once per
+superstep, on the engine's paths) fails the run.  The JSON line counts
+the compacted runs under their own path, ``compaction``, and phase 9b's
+RMAT-22 runs under ``hooks``.  A graph replay counts the launches
+captured in it, so on the chunked loop the counts include the idle rows
+of a chunk (after the run drained, or after a flush the device
+scheduled), which are printed as the surplus.
 
 Without a CUDA device, or without the repo's ``src/repro_torch`` beside
 it, the script prints no result and exits nonzero.
@@ -1248,6 +1263,7 @@ def compaction_phase(dev, wl) -> dict:
         fn, args, kw = calls[label]
         res, n, readings = compacted_run(dev, label, fn, args, kw,
                                          wl["dense"][label], tol)
+        wl.setdefault("compacted", {})[label] = (res, dict(readings))
         if label == "bfs":
             check_bfs(g, args[1], res)
         for k, v in n.items():
@@ -1470,6 +1486,7 @@ def agreement_phase(dev, wl) -> None:
                         **kw)[0] for b in ("kernels", "torch")]
         same_run(runs[0], runs[1], f"{name} kernels vs torch",
                  *(tol or (None, None)))
+        wl.setdefault("agree", {})[name] = (runs[0], fn, args, kw, tol)
         if name in ("histo", "pagerank"):
             per_step = app_run(dev, name, fn, *args, oq_cap=OQ_CAP,
                                run_chunk=0, **kw)[0]
@@ -1507,6 +1524,159 @@ def agreement_phase(dev, wl) -> None:
         print(f"  {name} agreement {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------ 9b. observability, sanitizer
+def track_counts(trace: dict) -> dict:
+    """Event counts of a Chrome trace by track: ``process / thread`` from
+    its metadata events, for every span ("X") and counter ("C")
+    event."""
+    procs, threads, counts = {}, {}, {}
+    for e in trace["traceEvents"]:
+        if e["ph"] == "M" and e["name"] == "process_name":
+            procs[e["pid"]] = e["args"]["name"]
+        elif e["ph"] == "M":
+            threads[e["pid"], e["tid"]] = e["args"]["name"]
+    for e in trace["traceEvents"]:
+        if e["ph"] in ("X", "C"):
+            track = procs.get(e["pid"], str(e["pid"]))
+            if (e["pid"], e["tid"]) in threads:
+                track += " / " + threads[e["pid"], e["tid"]]
+            key = f"{track} [{e['ph']}]"
+            counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def hooks_phase(dev, wl, smi: str) -> dict:
+    """BFS at RMAT-22, dense and compacted, with telemetry, the sanitizer
+    and a ``TimelineRecorder``, equal to phases 5 and 6b and timed beside
+    a run without them (in turns); the RMAT-18 apps with every hook
+    against phase 9's runs, the per-step loop's spans, a Perfetto trace
+    written and parsed back, and a planted NaN raising on both loops.
+    Returns the RMAT-22 runs' launches."""
+    import tempfile
+    from repro_torch import obs
+    from repro_torch.analysis.invariants import SanitizerError
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.graph import apps
+    print(f"== 9b. observability and the sanitizer (telemetry=True, "
+          f"sanitize=True, observer=TimelineRecorder()), backend=kernels: "
+          f"BFS RMAT-{SCALE} on {TILES} tiles, chunked, dense and "
+          f"compaction={COMPACTION}, each equal to phase 5 or 6b and timed "
+          f"beside a run without the hooks; RMAT-{AGREE_SCALE} apps "
+          f"against phase 9")
+    print(f"  card: {smi}")
+    hooks = dict(telemetry=True, sanitize=True)
+    fn, args, kw = main_path_apps(wl)["bfs"]
+    launches, out = {}, {}
+    for comp, (want, want_read) in ((0, wl["dense"]["bfs"]),
+                                    (COMPACTION, wl["compacted"]["bfs"])):
+        t0 = time.perf_counter()
+        label = "bfs" if comp == 0 else "bfs compacted"
+        rec = obs.TimelineRecorder()
+        on, n, on_read = app_run(dev, f"{label} hooks", fn, *args,
+                                 compaction=comp, observer=rec, **hooks,
+                                 **kw)
+        require_launches(f"{label} hooks", n, on_read, ENGINE_KERNELS)
+        same_run(want, on, f"{label} hooks vs phase "
+                 f"{'5' if comp == 0 else '6b'}")
+        require(on_read["host_syncs"] == want_read["host_syncs"],
+                f"{label}: {on_read['host_syncs']} host syncs with the "
+                f"hooks, {want_read['host_syncs']} without")
+        require(rec.supersteps == on.run.supersteps
+                and not rec.stat_matrix("sanity_violations").any(),
+                f"{label}: the recorder missed supersteps or saw "
+                f"violations")
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+        off, _, off_read = app_run(dev, f"{label} bare", fn, *args,
+                                   compaction=comp, **kw)
+        same_run(want, off, f"{label} bare vs phase "
+                 f"{'5' if comp == 0 else '6b'}")
+        rep = obs.imbalance_report(rec)
+        load = rec.vec_matrix("tv_delivered")
+        require(load.sum() == on.run.counters.owner_msgs,
+                f"{label}: tv_delivered does not sum to owner_msgs")
+        out[label] = dict(
+            ms_hooks=on_read["ms_per_superstep"],
+            ms_bare=off_read["ms_per_superstep"],
+            ms_bare_earlier=want_read["ms_per_superstep"],
+            peak_gib_hooks=on_read["peak_gib"],
+            peak_gib_bare=off_read["peak_gib"],
+            host_syncs=on_read["host_syncs"], spans=len(rec.spans),
+            recorder_mib=sum(v.nbytes for s in rec.spans
+                             for v in s.vecs.values()) / 2**20,
+            total_gini=rep["total_gini"],
+            total_max_over_mean=rep["total_max_over_mean"],
+            mean_step_gini=rep["mean_step_gini"],
+            mean_step_max_over_mean=rep["mean_step_max_over_mean"])
+        print(f"    {label}: ms per superstep with the hooks "
+              f"{on_read['ms_per_superstep']:.3f} vs without "
+              f"{off_read['ms_per_superstep']:.3f} (phase "
+              f"{'5' if comp == 0 else '6b'}: "
+              f"{want_read['ms_per_superstep']:.3f}), in turns in this "
+              f"call on {smi}; peak GiB {on_read['peak_gib']:.3f} vs "
+              f"{off_read['peak_gib']:.3f}; {len(rec.spans)} spans, "
+              f"{out[label]['recorder_mib']:.1f} MiB of load vectors")
+        print(f"    {label} tv_delivered imbalance: total gini "
+              f"{rep['total_gini']:.4f}, total max/mean "
+              f"{rep['total_max_over_mean']:.3f}; per superstep mean gini "
+              f"{rep['mean_step_gini']:.4f}, mean max/mean "
+              f"{rep['mean_step_max_over_mean']:.3f}")
+        del rec, load, on, off
+        print(f"  {label} hooks {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    for name in ("spmv", "histo", "pagerank"):
+        want, afn, aargs, akw, tol = wl["agree"][name]
+        rec = obs.TimelineRecorder()
+        got = app_run(dev, f"{name} hooks", afn, *aargs, oq_cap=OQ_CAP,
+                      observer=rec, **hooks, **akw)[0]
+        same_run(want, got, f"{name} hooks vs phase 9",
+                 *(tol or (None, None)))
+        require(sum(s.n_steps for s in rec.spans) == got.run.supersteps,
+                f"{name}: spans do not cover the supersteps")
+    want, afn, aargs, akw, _ = wl["agree"]["bfs"]
+    rec = obs.TimelineRecorder()
+    got = app_run(dev, "bfs hooks per-step", afn, *aargs, oq_cap=OQ_CAP,
+                  run_chunk=0, observer=rec, **hooks, **akw)[0]
+    same_run(want, got, "bfs hooks per-step vs phase 9 chunked")
+    require(len(rec.spans) == got.run.supersteps
+            and all(s.n_steps == 1 for s in rec.spans),
+            "bfs per-step: not one span per superstep")
+    print(f"    bfs per-step: {len(rec.spans)} spans for "
+          f"{got.run.supersteps} supersteps")
+    rec = obs.TimelineRecorder()
+    got = app_run(dev, "bfs hooks", afn, *aargs, oq_cap=OQ_CAP,
+                  observer=rec, **hooks, **akw)[0]
+    same_run(want, got, "bfs hooks vs phase 9")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = obs.write_trace(rec, str(Path(tmp) / "bfs.json"))
+        size = Path(path).stat().st_size
+        trace = json.loads(Path(path).read_text())
+    counts = track_counts(trace)
+    require(any("sim load" in k for k in counts),
+            "the trace holds no load track")
+    print(f"    bfs RMAT-{AGREE_SCALE} Perfetto trace: {size / 2**20:.1f} "
+          f"MiB, {len(trace['traceEvents'])} events, parsed back; by "
+          f"track {json.dumps(counts)}")
+    for chunk in (0, EngineConfig.run_chunk):
+        eng, state, _ = apps.engine_and_state(
+            "bfs", aargs[0], aargs[2], akw["proxy"], root=aargs[1],
+            oq_cap=OQ_CAP, device=dev, sanitize=True)
+        state["values"][1] = float("nan")
+        try:
+            eng.run(state, chunk=chunk)
+        except SanitizerError as e:
+            print(f"    planted NaN, run_chunk {chunk}: SanitizerError "
+                  f"({str(e).splitlines()[0]})")
+        else:
+            raise SmokeFailure(f"planted NaN, run_chunk {chunk}: no "
+                               f"SanitizerError")
+        del eng, state
+    print(f"  RMAT-{AGREE_SCALE} hooks {time.perf_counter() - t0:.1f} s")
+    print(f"  hooks readings {json.dumps(out)}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1531,6 +1701,7 @@ def main() -> int:
     decode_row, by_path["decode"] = decode_phase(dev)
     rows.append(decode_row)
     agreement_phase(dev, wl)
+    by_path["hooks"] = hooks_phase(dev, wl, c["smi"])
     for row in rows:
         row["launches_by_path"] = {p: n[row["name"]]
                                    for p, n in by_path.items()}

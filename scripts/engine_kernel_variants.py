@@ -3,12 +3,15 @@
 one CUDA card, at ``chip_smoke.py``'s phase-4 shapes and on the ids the
 engine itself hands them.
 
-    python3 scripts/engine_kernel_variants.py [--no-engine] [variant ...]
+    python3 scripts/engine_kernel_variants.py [--no-engine] [--flaky N]
+        [variant ...]
 
 The variants (``VARIANTS``): the committed one-launch design
 (``kernels/csrc/engine_kernels.cu``: segment_combine folds runs within a
-warp where a thread takes more than one batch, deliver_fused never),
-the same with the records a thread takes changed, with segment_combine's
+warp where a thread takes more than one batch, deliver_fused never, and
+both reduce a slice whose live records hold one id in the warp), the
+same without that one-id test (the design before it), the same with the
+records a thread takes changed, with segment_combine's
 fold always on or always off, with deliver_fused folding by
 segment_combine's rule, or with both folding every repeat in a warp
 through ``__match_any_sync`` in place of runs of neighbours; and the
@@ -18,7 +21,9 @@ fill + scatter, and copy + scatter + count conversion).  Each is built by
 C launcher.
 
 Readings: the synthetic inputs of ``chip_smoke.kernel_inputs`` (seed 42),
-one call each; then, unless ``--no-engine``, the engine's own calls:
+one call each, at the dense step's shapes and at each compaction
+window's (``chip_smoke.COMPACTION``); then, unless ``--no-engine``, the
+engine's own calls:
 BFS, SpMV and Histogram at RMAT-22 on 4096 tiles run as
 ``chip_smoke.py``'s main path runs them, with ``chip_smoke.EngineIds``
 keeping the inputs of every ``KEEP``-th call of each call shape (its
@@ -30,6 +35,13 @@ inputs rotated past L2) in turns, forward then backward through the
 variants, beside the byte bound.  Prints one JSON line per reading and
 the ``nvidia-smi`` name and power limit; exits nonzero if a variant
 disagrees (after every reading is printed).
+
+``--flaky N`` first calls segment_combine and deliver_fused of every
+variant N times on ``tests/test_torch_gpu.py``'s "one index" add case
+(70,001 records in [0, 9) on one index of 9,999, the test's own seeded
+inputs) and counts, per kernel, the calls outside the test's tolerance
+of the f64 sum (rtol 1e-5 / atol 1e-6), with the largest relative
+error seen.
 """
 from __future__ import annotations
 
@@ -39,12 +51,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 import chip_smoke as cs                                  # noqa: E402
+from repro_torch.core.engine import capacity_ladder      # noqa: E402
 from repro_torch.kernels import _build                    # noqa: E402
 from repro_torch.kernels import deliver_fused as df       # noqa: E402
 from repro_torch.kernels import segment_combine as sc     # noqa: E402
@@ -101,10 +115,17 @@ def _function(text: str, head: str) -> str:
 
 
 MATCH_ANY = (_function(COMMITTED.read_text(), FOLD), MATCH_ANY_FOLD)
+# the one-id test of a slice where no fold runs, cut out: the design
+# before it
+_TEXT = COMMITTED.read_text()
+_ONE_ID = _TEXT[_TEXT.index("  if (!fold) {\n    // One id"):
+                _TEXT.index("  unsigned heads = kFullWarp;")]
+NO_ONE_ID = (_ONE_ID, "")
 # name: (source, substitutions in it)
 VARIANTS = {
     "multi-launch": (MULTILAUNCH, []),
     "one launch": (COMMITTED, []),
+    "one launch, no one-id test": (COMMITTED, [NO_ONE_ID]),
     "one launch, 1 item a thread": (
         COMMITTED, [(ITEMS, ITEMS.replace("4;", "1;"))]),
     "one launch, 8 items a thread": (
@@ -187,19 +208,56 @@ def callers(name, lib):
     return segment, deliver
 
 
-def readings(x):
-    """Synthetic readings: (label, kernel, combine, [inputs])."""
-    return [
-        ("segment_combine min, P$ (sorted)", "segment", "min", [x["seg"]]),
-        ("segment_combine add, P$ (sorted)", "segment", "add", [x["seg"]]),
-        ("segment_combine add, flush wave (sorted)", "segment", "add",
-         [x["seg_add"]]),
-        ("segment_combine min, unsorted", "segment", "min", [x["seg_rand"]]),
-        ("deliver_fused min, BFS shapes", "deliver", "min", [x["deliver"]]),
-        ("deliver_fused add, BFS shapes", "deliver", "add", [x["deliver"]]),
-        ("deliver_fused add, flush wave", "deliver", "add",
-         [x["deliver_add"]]),
+def readings(x, where: str = "dense"):
+    """Synthetic readings: (label, kernel, combine, [inputs]); the flush
+    wave's only where ``x`` has them (the dense step's)."""
+    out = [
+        (f"segment_combine min, P$ (sorted), {where}", "segment", "min",
+         [x["seg"]]),
+        (f"segment_combine add, P$ (sorted), {where}", "segment", "add",
+         [x["seg"]]),
+        (f"segment_combine min, unsorted, {where}", "segment", "min",
+         [x["seg_rand"]]),
+        (f"deliver_fused min, BFS shapes, {where}", "deliver", "min",
+         [x["deliver"]]),
+        (f"deliver_fused add, BFS shapes, {where}", "deliver", "add",
+         [x["deliver"]]),
     ]
+    if "seg_add" in x:
+        out += [
+            ("segment_combine add, flush wave (sorted)", "segment", "add",
+             [x["seg_add"]]),
+            ("deliver_fused add, flush wave", "deliver", "add",
+             [x["deliver_add"]])]
+    return out
+
+
+def flaky(names, calls, runs: int, dev) -> None:
+    """The one-index add case of ``tests/test_torch_gpu.py``, ``runs``
+    calls of each kernel of each variant: the failures against the f64
+    sum at the test's tolerance, and the largest relative error."""
+    n, nd = 70_001, 9_999
+    rng = np.random.default_rng(n)
+    rng.random(5 * nd)         # the test's relax inputs come first
+    val_np = rng.random(n).astype(np.float32) * 9
+    seg = torch.full((n,), nd // 2, dtype=torch.int32, device=dev)
+    val = torch.from_numpy(val_np).to(dev)
+    mail = torch.zeros((nd,), device=dev)
+    want = float(np.sum(val_np.astype(np.float64)))
+    tol = cs.ADD_ATOL + cs.ADD_RTOL * abs(want)
+    for name in names:
+        for kernel in ("segment", "deliver"):
+            fails, worst = 0, 0.0
+            for _ in range(runs):
+                got = calls[name][kernel](seg, val, mail if kernel ==
+                                          "deliver" else nd, "add")
+                got = got[0] if kernel == "deliver" else got
+                err = abs(float(got[nd // 2]) - want)
+                fails += err > tol
+                worst = max(worst, err / want)
+            print(json.dumps(dict(
+                flaky=name, kernel=kernel, runs=runs, failures=int(fails),
+                sum=want, tolerance=tol, max_rel_err=worst)), flush=True)
 
 
 def engine_readings(dev):
@@ -283,6 +341,11 @@ def main() -> int:
         return 2
     argv = sys.argv[1:]
     engine = "--no-engine" not in argv
+    runs = 0
+    if "--flaky" in argv:
+        i = argv.index("--flaky")
+        runs = int(argv[i + 1])
+        del argv[i:i + 2]
     names = [a for a in argv if a != "--no-engine"] or list(VARIANTS)
     unknown = set(names) - set(VARIANTS)
     if unknown:
@@ -298,7 +361,12 @@ def main() -> int:
     plain = dict(segment=sc.plain, deliver=df.plain)
     gen = torch.Generator(device=dev)
     gen.manual_seed(cs.SEED)
+    if runs:
+        flaky([n for n in names if VARIANTS[n][0] == COMMITTED], calls, runs,
+              dev)
     todo = readings(cs.kernel_inputs(gen, dev))
+    for w in capacity_ladder(cs.TILES, cs.COMPACTION)[1:]:
+        todo += readings(cs.kernel_inputs(gen, dev, tiles=w), f"window {w}")
     if engine:
         todo += engine_readings(dev)
     wrong = []

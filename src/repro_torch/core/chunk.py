@@ -22,7 +22,11 @@ and runs each superstep as one *predicated step* over them:
   * the stats row, with ``active`` last, written into row ``row`` of the
     ``(K, len(keys) + 1)`` f64 buffer (exact for every f32 charge and
     every int32 count, so the reference's int32 side channel
-    ``_EXACT_INT_STATS`` has no counterpart);
+    ``_EXACT_INT_STATS`` has no counterpart), and, with telemetry, the
+    superstep's per-tile vectors (``tv_*``) into row ``row`` of a
+    ``(K, len(vec_keys), width)`` f32 buffer: the reference's separate
+    ``(K, T)`` channel, so the stats row is the same with telemetry on
+    or off;
   * the carry updated by the reference's rules: a drained write-back
     engine with P$ residue schedules a flush, a drained engine without
     residue is done.
@@ -68,19 +72,22 @@ class Fetched(NamedTuple):
     overflow: bool          # a superstep outgrew the chunk's window
     active_tiles: int       # active tiles of the state after the chunk
     rows: np.ndarray        # (length, len(keys) + 1) f64, ``active`` last
+    vecs: Dict[str, np.ndarray]   # vec_keys -> (length, width) f32
 
 
 class ChunkRunner:
     """Runs chunks of ``length`` predicated supersteps of ``step`` (the
     engine's ``_superstep(state, flush, window, commit) -> (new_state,
     stats)``)
-    over a copy of ``state``.  ``keys`` orders the scalar stats in a row.
+    over a copy of ``state``.  ``keys`` orders the scalar stats in a row;
+    ``vec_keys`` names the ``(width,)`` vector stats kept beside the rows.
     ``count_active(state)``, given with compaction, counts the active
     tiles on the device for the fetch."""
 
     def __init__(self, step: Callable, state: Dict[str, torch.Tensor],
                  length: int, write_back: bool, keys: Sequence[str],
-                 count_active: Optional[Callable] = None):
+                 count_active: Optional[Callable] = None,
+                 vec_keys: Sequence[str] = (), width: int = 0):
         if length < 1:
             raise ValueError(f"a chunk holds at least one superstep, got "
                              f"{length}")
@@ -100,6 +107,9 @@ class ChunkRunner:
         self.row = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.rows = torch.zeros((length, len(self.keys) + 1),
                                 dtype=torch.float64, device=dev)
+        self.vec_keys = tuple(vec_keys)
+        self.vecs = torch.zeros((length, len(self.vec_keys), width),
+                                dtype=torch.float32, device=dev)
         self._pool = (torch.cuda.graph_pool_handle() if dev.type == "cuda"
                       else None)
         # (flush value, window) -> its graph, and the kernel launches
@@ -133,6 +143,9 @@ class ChunkRunner:
         row = torch.stack([stats[k].to(torch.float64) for k in self.keys]
                           + [active.to(torch.float64)])
         self.rows.index_copy_(0, self.row, row[None])
+        if self.vec_keys:
+            self.vecs.index_copy_(0, self.row, torch.stack(
+                [stats[k].to(torch.float32) for k in self.vec_keys])[None])
         drained = active & (stats["pending"] == 0)
         if self._write_back:
             flush_next = drained & (stats["p_resident"] > 0)
@@ -190,13 +203,25 @@ class ChunkRunner:
             self._superstep(flush and r == 0, window)
 
     def fetch(self) -> Fetched:
-        """The chunk just launched, in ONE device-to-host transfer."""
+        """The chunk just launched, in ONE device-to-host transfer: the
+        f64 rows and flags, then the f32 vectors as raw bytes (one
+        ``torch.cat`` of byte views, so neither is widened)."""
         count = (self._count_active(self.state) if self._count_active
                  else torch.zeros((), dtype=torch.int32,
                                   device=self.rows.device))
         packed = torch.cat([self.rows.reshape(-1), torch.stack(
             [t.to(torch.float64) for t in (self.done, self.flush,
                                            self.overflow, count)])])
-        packed = packed.cpu().numpy()
-        return Fetched(bool(packed[-4]), bool(packed[-3]), bool(packed[-2]),
-                       int(packed[-1]), packed[:-4].reshape(self.rows.shape))
+        m = packed.numel()
+        if self.vec_keys:
+            packed = torch.cat([packed.view(torch.uint8),
+                                self.vecs.reshape(-1).view(torch.uint8)])
+        host = packed.cpu().numpy()
+        vecs = {}
+        if self.vec_keys:
+            got = host[8 * m:].view(np.float32).reshape(self.vecs.shape)
+            vecs = {k: got[:, i] for i, k in enumerate(self.vec_keys)}
+            host = host[:8 * m].view(np.float64)
+        return Fetched(bool(host[-4]), bool(host[-3]), bool(host[-2]),
+                       int(host[-1]), host[:-4].reshape(self.rows.shape),
+                       vecs)

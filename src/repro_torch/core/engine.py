@@ -59,15 +59,31 @@ The first superstep or chunk runs dense.  Every window gives the dense
 result bit for bit, and the stats carry the reference's
 ``active_tiles`` and ``bucket_cap`` (the rung the reference would pick).
 
+**Observability and the sanitizer** (the reference's, on both loops,
+dense and compacted).  ``EngineConfig.telemetry`` makes each superstep
+also emit the per-tile load vectors ``tv_edges``, ``tv_records`` and
+``tv_delivered`` (under compaction the W lane counts scattered back
+into (T,)), which ride the chunk's one fetch in a channel of their own;
+``EngineConfig.sanitize`` counts four kinds of invariant violation on
+the device (a min app's value that rose, an unflagged mailbox slot off
+the identity, a cursor with ``cur_hi < cur_lo``, a NaN value) into the
+``sanity_violations`` stat, which the run loops raise
+``analysis.invariants.SanitizerError`` on, and checks the finished run
+with ``analysis.invariants.check_run``; ``run(observer=)`` hands an
+``obs.timeline.Observer`` the run's meta, one span per chunk (per
+superstep on the per-step loop) and the result.  All three only
+observe: values, counters, trace, supersteps, ``time_s`` and
+``engine.host_syncs`` equal the run without them.
+
 Not in this slice, and refused with ``NotImplementedError`` naming the
-ROADMAP item rather than ignored: telemetry, the sanitizer and
-observers (A.8); multi-chip partitions and double buffering, with the
-flush's off-chip buffer sizing ``_flush_off_len`` (A.9); checkpoints
-(A.10).
+ROADMAP item rather than ignored: multi-chip partitions and double
+buffering, with the flush's off-chip buffer sizing ``_flush_off_len``
+(A.9); checkpoints (A.10).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -75,8 +91,10 @@ import torch
 
 from . import netstats
 from .. import device as _device
+from ..analysis import invariants
 from ..kernels import ops as kops
 from ..obs.metrics import default_registry
+from ..obs.timeline import ChunkSpan, RunMeta
 from .chunk import ChunkRunner
 from .costmodel import (CLOCK_GHZ, PU_OPS_PER_EDGE, PU_OPS_PER_RECORD,
                         DCRA_SRAM, PackageConfig, link_provisioning,
@@ -159,10 +177,6 @@ class EngineConfig:
 def _refuse_unported(cfg: EngineConfig, part: ChipPartition) -> None:
     """Raise on every setting this slice does not run."""
     unported = []
-    if cfg.telemetry:
-        unported.append("telemetry (ROADMAP A.8)")
-    if cfg.sanitize:
-        unported.append("sanitize (ROADMAP A.8)")
     if cfg.double_buffer:
         unported.append("double_buffer (ROADMAP A.9)")
     if part.num_chips > 1:
@@ -186,6 +200,13 @@ STAT_KEYS = ("edges_processed", "records_consumed", "compute_per_tile_max",
 # With compaction, each superstep also reports its input state's active
 # tiles and the ladder rung that holds them; the accounting ignores both.
 COMPACTION_KEYS = ("active_tiles", "bucket_cap")
+# With the sanitizer, each superstep reports its on-device violation
+# count (saturated at SANITY_CAP), which the run loops raise on.
+SANITIZE_KEYS = ("sanity_violations",)
+SANITY_CAP = 2 ** 20
+# With telemetry, each superstep also emits these (T,) per-tile load
+# vectors, fetched beside the stats rows, never in them.
+TELEMETRY_KEYS = ("tv_delivered", "tv_edges", "tv_records")
 
 
 class DataLocalEngine:
@@ -250,8 +271,11 @@ class DataLocalEngine:
         self._compacting = len(self._ladder) > 1
         self._ladder_t = torch.tensor(self._ladder, dtype=torch.float32,
                                       device=dev)
-        self.stat_keys = STAT_KEYS + (COMPACTION_KEYS if self._compacting
-                                      else ())
+        self.stat_keys = (STAT_KEYS
+                          + (COMPACTION_KEYS if self._compacting else ())
+                          + (SANITIZE_KEYS if cfg.sanitize else ()))
+        self.vec_keys = TELEMETRY_KEYS if cfg.telemetry else ()
+        self._n_seeds = 0              # set by init_state, read by check_run
 
     # ---------------------------------------------------------------- state
     def init_state(self, seed_idx=None, seed_val=None):
@@ -274,6 +298,7 @@ class DataLocalEngine:
         if self.cfg.proxy is not None:
             st["p_tag"], st["p_val"] = make_pcache(
                 self.cfg.grid, self.cfg.proxy, ident, dev)
+        self._n_seeds = 0   # mailbox seeds, for the sanitizer's consumed-bound
         if seed_idx is not None:
             si = torch.as_tensor(np.atleast_1d(seed_idx), dtype=torch.int64,
                                  device=dev)
@@ -281,6 +306,7 @@ class DataLocalEngine:
                                  dtype=torch.float32, device=dev)
             st["mail_val"][si] = sv
             st["mail_flag"][si] = True
+            self._n_seeds = int(si.shape[0])
         return st
 
     def activate_all(self, state, cur_val):
@@ -344,7 +370,14 @@ class DataLocalEngine:
         cursors) into ``state``'s own tensors, where it holds and the
         active tiles fit in W, and returns those tensors: a W-row write
         in place of a full-length copy.  Without it every array comes
-        back as a new tensor."""
+        back as a new tensor.
+
+        Returns (front, lanes, raised): the front tuple, the (W,) tile
+        rows of the lanes, and, for a min app under the sanitizer, the
+        count of window values the drain raised, taken before the
+        write-back (after it, ``state["values"]`` holds the new rows, and
+        a comparison of new against old would compare new with new);
+        otherwise None."""
         T, Cs, Cd = self.T, self.Cs, self.Cd
         lanes = _window_lanes(active, W, T)
         widths = dict(values=Cd, mail_val=Cd, mail_flag=Cd, cur_lo=Cs,
@@ -363,6 +396,9 @@ class DataLocalEngine:
         kept = _FRONT_KEYS if react else _FRONT_KEYS[:4]
         if commit is not None:
             commit = commit & (torch.sum(active) <= W)
+        raised = None
+        if self.cfg.sanitize and self.app.combine == "min":
+            raised = torch.sum(out[0] > win["values"])
         new = []
         for k, part in zip(_FRONT_KEYS, out):
             full = state[k].reshape(T, widths[k])
@@ -378,8 +414,8 @@ class DataLocalEngine:
                 new.append(state[k])
         B = self.cfg.oq_cap
         src = self.part.global_tile(0, lanes.to(torch.int32))
-        return tuple(new) + out[6:] + (src[:, None].expand(W, B)
-                                       .reshape(-1),)
+        return (tuple(new) + out[6:] + (src[:, None].expand(W, B)
+                                        .reshape(-1),), lanes, raised)
 
     def _front_rows(self, n, values, mail_val, mail_flag, cur_lo, cur_hi,
                     cur_val, row_lo, row_hi):
@@ -498,12 +534,25 @@ class DataLocalEngine:
                              0, idx.reshape(1)).reshape(()))
         if window is None:
             front = self._front_dense(row_lo, row_hi, state)
+            lanes = raised = None
+            if cfg.sanitize and is_min:
+                raised = torch.sum(front[0] > state["values"])
         else:
-            front = self._front_compact(row_lo, row_hi, state, active,
-                                        window, commit)
+            front, lanes, raised = self._front_compact(
+                row_lo, row_hi, state, active, window, commit)
         (new_vals, mail_val, mail_flag, cur_lo, cur_hi, cur_val,
          consumed_vec, edges_vec, dst, cand, emit_mask, src_tile) = front
         owner = torch.clamp(dst // self.Cd, max=self.Tg - 1)
+        if cfg.telemetry:
+            # per-tile load vectors, pure extra outputs; a window's lane
+            # counts go back to their tiles (the lanes are distinct, and
+            # the fill lanes count zero)
+            counts = torch.stack([consumed_vec.to(torch.float32),
+                                  edges_vec.to(torch.float32)], dim=1)
+            if lanes is not None:
+                counts = counts.new_zeros((self.T, 2)).index_copy_(
+                    0, lanes, counts)
+            stats.update(tv_records=counts[:, 0], tv_edges=counts[:, 1])
 
         stats.update(edges_processed=torch.sum(edges_vec),
                      records_consumed=torch.sum(consumed_vec),
@@ -525,6 +574,8 @@ class DataLocalEngine:
             charges = dict(netstats.merge_charges(owner_leg, off_ch),
                            owner_msgs=owner_leg["messages"],
                            owner_hop_msgs=owner_leg["hop_msgs"])
+            if cfg.telemetry:
+                stats["tv_delivered"] = per_tile.to(torch.float32)
         else:
             (mail_val, mail_flag, p_tag, p_val, charges, pstats,
              dmax) = self._proxy_stage(
@@ -548,6 +599,16 @@ class DataLocalEngine:
                                               device=self.device)
         stats["delivered_max_per_tile"] = dmax
         stats.update({k: v.to(torch.float32) for k, v in charges.items()})
+        if cfg.sanitize:
+            # the on-device sanitizer: violations counted, never branched
+            # on, so the step computes what it computes without it
+            bad = (torch.sum(~mail_flag & (mail_val != app.identity))
+                   + torch.sum(cur_hi < cur_lo)
+                   + torch.sum(torch.isnan(new_vals)))
+            if is_min:                    # relaxation never raises a value
+                bad = bad + raised
+            stats["sanity_violations"] = torch.clamp(
+                bad, max=SANITY_CAP).to(torch.float32)
         return new_state, stats
 
     # ------------------------------------------------------- owner delivery
@@ -697,6 +758,9 @@ class DataLocalEngine:
         pstats = dict(filtered_at_proxy=torch.sum(filtered).to(torch.float32),
                       coalesced_at_proxy=coalesced.to(torch.float32),
                       cascade_combined=ncomb)
+        if cfg.telemetry:
+            # owner deliveries per tile, every leg of the superstep summed
+            pstats["tv_delivered"] = per_tile.to(torch.float32)
         return mail_val, mail_flag, p_tag, p_val, charges, pstats, dmax
 
     # --------------------------------------------------------- flush drain
@@ -852,7 +916,8 @@ class DataLocalEngine:
         return ChunkRunner(self._superstep, state, length, self._write_back,
                            self.stat_keys, count_active=(
                                self._count_active if self._compacting
-                               else None))
+                               else None),
+                           vec_keys=self.vec_keys, width=self.T)
 
     def run(self, state, max_supersteps: Optional[int] = None,
             progress_every: int = 0, chunk: Optional[int] = None,
@@ -868,10 +933,18 @@ class DataLocalEngine:
         ``engine.host_syncs`` counter.  ``progress_every`` reports at
         chunk granularity on the chunked loop: the first chunk boundary
         at or past each multiple prints the true executed superstep
-        count."""
-        if observer is not None:
-            raise NotImplementedError(
-                "not ported to repro_torch yet: observer= (ROADMAP A.8)")
+        count.
+
+        ``observer`` (``obs.timeline.Observer``) receives
+        ``on_run_start`` with the run's ``RunMeta``, one ``on_chunk``
+        span per chunk (per superstep on the per-step loop) at the
+        accounting boundary the loop has anyway, and ``on_run_end`` with
+        the ``RunResult``.  It reads only what the loop fetched: it adds
+        no host sync and changes nothing the run computes.  With
+        ``EngineConfig.sanitize`` a nonzero on-device violation count
+        raises ``SanitizerError`` at the chunk (or superstep) that
+        fetched it, and the finished run is checked by
+        ``invariants.check_run``."""
         cfg = self.cfg
         maxs = max_supersteps or cfg.max_supersteps
         K = cfg.run_chunk if chunk is None else int(chunk)
@@ -881,11 +954,19 @@ class DataLocalEngine:
         pkg = cfg.pkg
         links = link_provisioning(cfg.grid, pkg)
         fill = links["diameter"] * 0.5
+        values_before = state["values"].clone() if cfg.sanitize else None
+        if observer is not None:
+            observer.on_run_start(RunMeta(
+                app=self.app.name, grid_ny=cfg.grid.ny, grid_nx=cfg.grid.nx,
+                chunk=K, backend=cfg.backend, sanitize=cfg.sanitize,
+                telemetry=cfg.telemetry, pkg=pkg, grid=cfg.grid))
 
         def account(stats):
             """The per-step loop's accounting.  The chunked loop uses its
             vectorized twin, ``account_chunk``: edit both in lockstep."""
             nonlocal cycles
+            _sanitize_gate(cfg, self.app.name,
+                           stats.get("sanity_violations", 0.0))
             counters.add(superstep_counters(stats))
             trace.append_step(stats, element_bits=cfg.element_bits)
             # ---- BSP time model for this superstep ----------------------
@@ -895,6 +976,9 @@ class DataLocalEngine:
 
         def account_chunk(stacked, n_act):
             nonlocal cycles
+            bad = stacked.get("sanity_violations")
+            if bad is not None:
+                _sanitize_gate(cfg, self.app.name, float(np.sum(bad[:n_act])))
             counters.add(chunk_counters(stacked, n_act))
             trace.append_chunk(stacked, n_act, element_bits=cfg.element_bits)
             # the BSP terms vectorized, accumulated in execution order:
@@ -907,22 +991,37 @@ class DataLocalEngine:
 
         if K <= 0:
             state, steps = self._run_legacy(state, maxs, progress_every,
-                                            account)
+                                            account, observer)
         else:
             state, steps = self._run_chunked(state, maxs, K, progress_every,
-                                             account_chunk)
+                                             account_chunk, observer)
         counters.supersteps = steps
         time_s = cycles / (CLOCK_GHZ * 1e9)
-        return state, RunResult(counters=counters, cycles=cycles,
-                                time_s=time_s, supersteps=steps, trace=trace)
+        result = RunResult(counters=counters, cycles=cycles, time_s=time_s,
+                           supersteps=steps, trace=trace)
+        if cfg.sanitize:
+            findings = invariants.check_run(
+                result, pkg=pkg, grid=cfg.grid,
+                where=f"sanitize/{self.app.name}",
+                write_back=self._write_back, seeds=self._n_seeds,
+                combine=self.app.combine,
+                values_before=values_before.cpu().numpy(),
+                values_after=state["values"].cpu().numpy(),
+                drained=steps < maxs)
+            invariants.assert_clean(findings, context=f"run({self.app.name})")
+        if observer is not None:
+            observer.on_run_end(result)
+        return state, result
 
-    def _run_legacy(self, state, maxs, progress_every, account):
+    def _run_legacy(self, state, maxs, progress_every, account,
+                    observer=None):
         """The per-step loop: one superstep and one host sync each.  The
         flush decision for the next superstep is read from this one's
         fetched stats, and with compaction so is the next superstep's
         window (the active tiles of the state it will step, counted on
         the device), so neither costs a sync of its own.  The first
-        superstep runs dense."""
+        superstep runs dense.  With an ``observer``, each superstep is
+        one single-step span."""
         sync_ctr = default_registry().counter("engine.host_syncs")
         keys = self.stat_keys
         if self._compacting:
@@ -930,13 +1029,21 @@ class DataLocalEngine:
         steps = 0
         flush, window = False, None
         while steps < maxs:
+            t0 = time.perf_counter()
             state, stats = self._superstep(state, flush, window)
             if self._compacting:
                 stats["next_active_tiles"] = self._count_active(state)
-            stats = fetch_stats(stats, keys)
+            t1 = time.perf_counter()
+            stats = fetch_stats(stats, keys, self.vec_keys)
             sync_ctr.inc()
+            t2 = time.perf_counter()
             steps += 1
             account(stats)
+            if observer is not None:
+                observer.on_chunk(_legacy_span(
+                    steps, {k: stats[k] for k in self.stat_keys},
+                    {k: stats[k] for k in self.vec_keys}, (t0, t1),
+                    (t1, t2), (t2, time.perf_counter())))
             if self._compacting:
                 self._count_window(window, 1, False)
                 window = self._window(stats["next_active_tiles"])
@@ -955,7 +1062,8 @@ class DataLocalEngine:
                       f"pending={stats['pending']:.0f}")
         return state, steps
 
-    def _run_chunked(self, state, maxs, K, progress_every, account_chunk):
+    def _run_chunked(self, state, maxs, K, progress_every, account_chunk,
+                     observer=None):
         """The chunked loop (the reference's ``_drain_chunked``): per
         chunk, K predicated supersteps enqueued on the device
         (``ChunkRunner.launch``), ONE host fetch of ``done``, the flush
@@ -967,22 +1075,36 @@ class DataLocalEngine:
         ``CHUNK_HEADROOM`` times the active tiles the previous fetch
         counted (the first chunk dense); a superstep that outgrows it
         idles the rest of the chunk (``engine.window_overflows``), and
-        the next chunk starts in a window that fits."""
+        the next chunk starts in a window that fits.  An ``observer``
+        gets one span per chunk: ``launch`` is its dispatch, ``fetch``
+        its fetch."""
         sync_ctr = default_registry().counter("engine.host_syncs")
         progress = _ProgressReporter(self.app.name, progress_every,
+                                     sanitize=self.cfg.sanitize,
                                      tiles=self.T)
         runner = self.chunk_runner(state, K)
         keys = self.stat_keys + ("active",)
-        steps, flush, window = 0, False, None
+        steps, flush, window, index = 0, False, None, 0
         while steps < maxs:
+            t0 = time.perf_counter()
             runner.launch(maxs - steps, flush, window)
+            t1 = time.perf_counter()
             got = runner.fetch()                     # the chunk's one sync
             sync_ctr.inc()
+            t2 = time.perf_counter()
             flush = got.flush
             stacked = {k: got.rows[:, i] for i, k in enumerate(keys)}
             n_act = int(np.sum(stacked["active"]))
             if n_act:
                 account_chunk(stacked, n_act)
+            if observer is not None:
+                observer.on_chunk(ChunkSpan(
+                    index=index, step_lo=steps, step_hi=steps + n_act,
+                    t_dispatch=(t0, t1), t_fetch=(t1, t2),
+                    t_account=(t2, time.perf_counter()),
+                    stats={k: v[:n_act] for k, v in stacked.items()},
+                    vecs={k: v[:n_act] for k, v in got.vecs.items()}))
+            index += 1
             steps += n_act
             progress.report(steps, stacked, n_act)
             if self._compacting:
@@ -1002,13 +1124,46 @@ class DataLocalEngine:
             reg.counter("engine.window_overflows").inc()
 
 
-def fetch_stats(stats, keys=STAT_KEYS) -> dict:
-    """The superstep's scalar stats ``keys`` as Python floats, in ONE
-    transfer: every stat is packed into one f64 tensor (exact for the f32
-    charges and the integer counts alike) and copied to the host at
-    once."""
-    packed = torch.stack([stats[k].to(torch.float64) for k in keys])
-    return dict(zip(keys, packed.cpu().tolist()))
+def fetch_stats(stats, keys=STAT_KEYS, vec_keys=()) -> dict:
+    """The superstep's scalar stats ``keys`` as Python floats, and its
+    vector stats ``vec_keys`` as f64 numpy arrays, in ONE transfer: every
+    stat is packed into one f64 tensor (exact for the f32 charges, the
+    f32 load vectors and the integer counts alike) and copied to the host
+    at once."""
+    packed = torch.cat([torch.stack([stats[k].to(torch.float64)
+                                     for k in keys])]
+                       + [stats[k].to(torch.float64) for k in vec_keys])
+    host = packed.cpu().numpy()
+    out = dict(zip(keys, host[:len(keys)].tolist()))
+    width = (host.shape[0] - len(keys)) // max(len(vec_keys), 1)
+    for i, k in enumerate(vec_keys):
+        lo = len(keys) + i * width
+        out[k] = host[lo:lo + width]
+    return out
+
+
+def _legacy_span(steps, stats, vecs, t_dispatch, t_fetch, t_account):
+    """One per-step-loop superstep as a single-step ChunkSpan: scalar
+    stats become ``(1,)`` arrays and telemetry vectors ``(1, T)`` rows,
+    the shapes the chunked loop emits, so observers need not care which
+    loop ran."""
+    scal = {k: np.asarray([v], np.float64) for k, v in stats.items()}
+    scal["active"] = np.ones((1,), np.float64)
+    return ChunkSpan(index=steps - 1, step_lo=steps - 1, step_hi=steps,
+                     t_dispatch=t_dispatch, t_fetch=t_fetch,
+                     t_account=t_account, stats=scal,
+                     vecs={k: np.asarray(v)[None] for k, v in vecs.items()})
+
+
+def _sanitize_gate(cfg, app_name: str, violations: float) -> None:
+    """Raise on a nonzero on-device ``sanity_violations`` count (the
+    ``EngineConfig.sanitize`` checks of ``_step``), in both loops'
+    accounting."""
+    if cfg.sanitize and violations > 0:
+        raise invariants.SanitizerError(
+            f"sanitizer: {violations:.0f} on-device invariant violation(s) "
+            f"during {app_name} (monotone relaxation / mailbox consistency "
+            f"/ NaN checks in the superstep body)")
 
 
 @dataclasses.dataclass
@@ -1117,14 +1272,17 @@ class _ProgressReporter:
     fraction of ``tiles``) and the ``engine.bucket_occupancy.<cap>``
     counters (supersteps whose active tiles fit rung ``cap`` of the
     ladder) from the ``active_tiles`` / ``bucket_cap`` stats, which ride
-    the same fetch.  The reference's sanitizer count comes with ROADMAP
-    A.8."""
+    the same fetch.  With the sanitizer on, the line also carries the
+    run's cumulative ``sanity_violations`` count."""
 
-    def __init__(self, name: str, every: int, tiles: int = 0):
+    def __init__(self, name: str, every: int, sanitize: bool = False,
+                 tiles: int = 0):
         self.name = name
         self.every = every
+        self.sanitize = sanitize
         self.tiles = tiles
         self._next = every
+        self._violations = 0.0
         reg = default_registry()
         self._g_steps = reg.gauge(f"progress.{name}.steps")
         self._g_pending = reg.gauge(f"progress.{name}.pending")
@@ -1145,11 +1303,17 @@ class _ProgressReporter:
             for cap, cnt in zip(caps.tolist(), cnts.tolist()):
                 default_registry().counter(
                     f"engine.bucket_occupancy.{int(cap)}").inc(float(cnt))
+        if self.sanitize and "sanity_violations" in stacked:
+            self._violations += float(
+                np.sum(stacked["sanity_violations"][:n_act]))
         if not self.every or steps < self._next:
             return
         self._c_reports.inc()
-        print(f"  [{self.name}] step {steps} (chunk of {n_act}) "
-              f"pending={pending:.0f}")
+        line = (f"  [{self.name}] step {steps} (chunk of {n_act}) "
+                f"pending={pending:.0f}")
+        if self.sanitize:
+            line += f" sanity_violations={self._violations:.0f}"
+        print(line)
         while self._next <= steps:
             self._next += self.every
 

@@ -16,7 +16,9 @@ RunResult (traffic counters + BSP time), from which the paper's metrics
 ``"torch"`` picks the engine's hot-spot implementation (the reference's
 ``"pallas"`` / ``"jnp"``; its distributed backends are ROADMAP A.9, as
 is ``chips > 1``, which raises); every other keyword is an
-``EngineConfig`` field.  ``observer=`` raises (ROADMAP A.8).
+``EngineConfig`` field.  ``observer=`` (an ``obs.timeline.Observer``)
+goes to the engine's ``run``; PageRank's observer sees one
+``on_run_start`` / ``on_run_end`` pair per epoch.
 """
 from __future__ import annotations
 
@@ -153,12 +155,6 @@ def engine_and_state(name: str, g: CSR, grid: TileGrid,
     raise ValueError(name)
 
 
-def _refuse_observer(observer) -> None:
-    if observer is not None:
-        raise NotImplementedError(
-            "not ported to repro_torch yet: observer= (ROADMAP A.8)")
-
-
 def _values(state, n: int) -> np.ndarray:
     return state["values"][:n].cpu().numpy()
 
@@ -167,10 +163,9 @@ def _values(state, n: int) -> np.ndarray:
 def bfs(g: CSR, root: int, grid: TileGrid,
         proxy: Optional[ProxyConfig] = None, observer=None, device=None,
         **kw) -> AppResult:
-    _refuse_observer(observer)
     eng = _engine(BFS_SPEC, g, grid, proxy, device=device, **kw)
     state = eng.init_state(seed_idx=root, seed_val=0.0)
-    state, run = eng.run(state)
+    state, run = eng.run(state, observer=observer)
     vals = _values(state, g.n_rows)
     reached = np.isfinite(vals)
     teps = float(g.out_degree()[reached].sum())
@@ -180,10 +175,9 @@ def bfs(g: CSR, root: int, grid: TileGrid,
 def sssp(g: CSR, root: int, grid: TileGrid,
          proxy: Optional[ProxyConfig] = None, observer=None, device=None,
          **kw) -> AppResult:
-    _refuse_observer(observer)
     eng = _engine(SSSP_SPEC, g, grid, proxy, device=device, **kw)
     state = eng.init_state(seed_idx=root, seed_val=0.0)
-    state, run = eng.run(state)
+    state, run = eng.run(state, observer=observer)
     vals = _values(state, g.n_rows)
     reached = np.isfinite(vals)
     teps = float(g.out_degree()[reached].sum())
@@ -196,7 +190,6 @@ def wcc(g: CSR, grid: TileGrid, proxy: Optional[ProxyConfig] = None,
     """Min-label propagation.  The input graph must contain both edge
     directions for weak components; RMAT graphs from ``rmat_edges``
     already do -- pass symmetrize=True otherwise."""
-    _refuse_observer(observer)
     if symmetrize:
         gt = transpose_csr(g)
         src = np.concatenate([
@@ -210,7 +203,7 @@ def wcc(g: CSR, grid: TileGrid, proxy: Optional[ProxyConfig] = None,
     n = g.n_rows
     state = eng.init_state(seed_idx=np.arange(n),
                            seed_val=np.arange(n, dtype=np.float32))
-    state, run = eng.run(state)
+    state, run = eng.run(state, observer=observer)
     return AppResult(values=_values(state, n), run=run,
                      teps_edges=float(g.nnz))
 
@@ -220,8 +213,9 @@ def pagerank(g: CSR, grid: TileGrid, proxy: Optional[ProxyConfig] = None,
              epochs: int = 10, damping: float = 0.85, observer=None,
              device=None, **kw) -> AppResult:
     """BSP PageRank: one engine drain per epoch (barrier = paper's epoch
-    end, where the write-back proxy flushes)."""
-    _refuse_observer(observer)
+    end, where the write-back proxy flushes).  An ``observer`` sees one
+    on_run_start/on_run_end pair per epoch; spans accumulate across
+    epochs (each epoch's step_lo restarts at 0)."""
     n = g.n_rows
     deg = np.maximum(g.out_degree(), 1).astype(np.float32)
     ranks = np.full(n, 1.0 / n, np.float32)
@@ -231,7 +225,7 @@ def pagerank(g: CSR, grid: TileGrid, proxy: Optional[ProxyConfig] = None,
     for _ in range(epochs):
         contrib = damping * ranks / deg
         state = eng.activate_all(eng.init_state(), contrib)
-        state, run = eng.run(state)
+        state, run = eng.run(state, observer=observer)
         ranks = (1.0 - damping) / n + _values(state, n)
         _accumulate(total, run)
     return AppResult(values=ranks, run=total,
@@ -243,11 +237,10 @@ def spmv(a: CSR, x: np.ndarray, grid: TileGrid,
          **kw) -> AppResult:
     """y = A @ x.  The reduction onto y rows is the proxied task (the
     paper's formulation)."""
-    _refuse_observer(observer)
     eng, state, _ = engine_and_state("spmv", a, grid, proxy,
                                      x=np.asarray(x, np.float32),
                                      device=device, **kw)
-    state, run = eng.run(state)
+    state, run = eng.run(state, observer=observer)
     return AppResult(values=_values(state, a.n_rows), run=run,
                      teps_edges=float(a.nnz))
 
@@ -257,11 +250,10 @@ def histogram(values: np.ndarray, bins: int, grid: TileGrid,
               device=None, **kw) -> AppResult:
     """Count values into bins (paper: E elements filtered into V/8
     bins)."""
-    _refuse_observer(observer)
     eng, state, _ = engine_and_state("histo", None, grid, proxy,
                                      histo_values=values, bins=bins,
                                      device=device, **kw)
-    state, run = eng.run(state)
+    state, run = eng.run(state, observer=observer)
     return AppResult(values=_values(state, bins), run=run,
                      teps_edges=float(np.asarray(values).shape[0]))
 

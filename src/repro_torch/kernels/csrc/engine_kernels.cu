@@ -61,6 +61,12 @@
 //    P$ call does not.  On an H100 SXM (scripts/engine_kernel_variants.py,
 //    on the engine's own calls) folding was 11% faster at the flush wave
 //    and 2-12% slower at P$ calls, runs or none.
+//  * Where neither kernel folds, a slice whose live records all hold one
+//    id is still reduced in the warp and sent as one atomic: one shuffle
+//    and one vote test for it.  Without this, 70,001 records on one index
+//    were 70,001 f32 atomicAdds into one address, a random-order sum
+//    whose rounding drifted past rtol 1e-5 of the exact sum in some runs;
+//    with it, 2,188 partial sums of 32 reach that address.
 //  * deliver_fused does not fold: on the engine's RMAT-22 calls (P$
 //    group leaders and flushed P$ entries) no live id repeats within a
 //    warp slice, neighbour or not, so a fold, __match_any_sync's
@@ -131,7 +137,8 @@ __device__ __forceinline__ float key_float(int k) {
 // every repeat beside its kin, and unsorted repeats that are not
 // neighbours simply stay separate) and call leader(index, folded value,
 // records) once per run with an id >= 0, on its first lane; without
-// `fold` (warp-uniform), once per lane with an id >= 0.  Every lane of the
+// `fold` (warp-uniform), once per lane with an id >= 0, or once for the
+// slice where every live lane holds one id.  Every lane of the
 // warp calls it; s < 0 marks a lane without a record.  A slice whose ids
 // all differ from their neighbours goes straight to the atomics;
 // otherwise a segmented reduction down the lanes (log2 of the longest
@@ -142,7 +149,31 @@ template <typename Leader>
 __device__ __forceinline__ void fold_runs(int s, float v, bool is_min,
                                           bool fold, Leader leader) {
   const int lane = threadIdx.x & 31;
-  if (!__any_sync(kFullWarp, s >= 0)) return;      // a slice of padding
+  const unsigned live = __ballot_sync(kFullWarp, s >= 0);
+  if (!live) return;                                // a slice of padding
+  if (!fold) {
+    // One id on every live lane (every record of a slice on one index):
+    // a butterfly over the lanes and one atomic, not 32 into one address.
+    // One shuffle and one vote find it; the fold below is not taken.
+    const int first = __ffs(live) - 1;
+    const int s0 = __shfl_sync(kFullWarp, s, first);
+    if (__all_sync(kFullWarp, s < 0 || s == s0)) {
+      if (is_min) {
+        int k = s >= 0 ? order_key(v) : kInfBits;
+        for (int d = 16; d > 0; d >>= 1) {
+          k = min(k, __shfl_xor_sync(kFullWarp, k, d));
+        }
+        v = key_float(k);
+      } else {
+        v = s >= 0 ? v : 0.0f;
+        for (int d = 16; d > 0; d >>= 1) {
+          v += __shfl_xor_sync(kFullWarp, v, d);
+        }
+      }
+      if (lane == first) leader(s0, v, __popc(live));
+      return;
+    }
+  }
   unsigned heads = kFullWarp;                       // no fold: every lane
   if (fold) {
     const int prev = __shfl_up_sync(kFullWarp, s, 1);

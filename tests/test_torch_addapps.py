@@ -240,8 +240,6 @@ def test_add_apps_refuse_what_is_not_ported(inputs):
     grid = square_grid(TILES)
     with pytest.raises(NotImplementedError, match="A.9"):
         apps.spmv(inputs["g"], inputs["x"], grid, chips=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        apps.pagerank(inputs["g"], grid, observer=object(), device="cpu")
     with pytest.raises(ValueError, match="backend"):
         apps.histogram(inputs["hv"], inputs["bins"], grid, backend="jnp",
                        device="cpu")

@@ -1,6 +1,8 @@
 """``chip_smoke.warp_runs``: how the ids of one scatter call fall in the
 engine kernels' 32-record warp slices (the numbers behind the kernels'
-choice of warp fold), against a count made slice by slice in Python."""
+choice of warp fold), against a count made slice by slice in Python;
+and ``chip_smoke.track_counts``, the events of a Perfetto trace by
+track."""
 import sys
 from pathlib import Path
 
@@ -54,3 +56,23 @@ def test_warp_runs_counts_each_slice(layout):
     seg = seg.astype(np.int32)
     got = chip_smoke.warp_runs(torch.from_numpy(seg), limit).tolist()
     assert got == _by_slice(seg, limit)
+
+
+def test_track_counts_of_a_recorded_trace():
+    """``chip_smoke.track_counts``: every span and counter event of a
+    recorded BFS run's trace, by its process and thread names."""
+    from repro_torch import obs
+    from repro_torch.core.tilegrid import square_grid
+    from repro_torch.graph import apps, rmat_edges
+    g = rmat_edges(7, edge_factor=8, seed=1)
+    rec = obs.TimelineRecorder()
+    apps.bfs(g, 0, square_grid(16), oq_cap=8, run_chunk=4, telemetry=True,
+             observer=rec, device="cpu")
+    trace = obs.trace_dict(rec)
+    counts = chip_smoke.track_counts(trace)
+    events = [e for e in trace["traceEvents"] if e["ph"] in ("X", "C")]
+    assert sum(counts.values()) == len(events)
+    for phase in ("dispatch", "fetch", "account"):
+        assert counts[f"host wall-clock / {phase} [X]"] == len(rec.spans)
+    assert counts["chip 0 (sim load) [C]"] == sum(
+        1 for e in events if e["pid"] == obs.export.PID_CHIP0)

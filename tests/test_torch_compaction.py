@@ -345,12 +345,3 @@ def test_host_syncs(inputs, name):
     _run(name, inputs, run_chunk=4, compaction=2)
     chunks, overflows = syncs.value - s0, over.value - o0
     assert dense_chunks <= chunks <= dense_chunks + overflows
-
-
-def test_compaction_with_telemetry_raises(inputs):
-    g = inputs["g"]
-    cfg = engine.EngineConfig(grid=square_grid(TILES), n_src=g.n_rows,
-                              n_dst=g.n_cols, compaction=2, telemetry=True)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        engine.DataLocalEngine(apps.BFS_SPEC, cfg, g.row_lo, g.row_hi,
-                               g.col_idx, device="cpu")

@@ -200,8 +200,6 @@ def test_default_device_is_the_card(graphs):
 
 
 UNPORTED = {
-    "telemetry": dict(telemetry=True),
-    "sanitize": dict(sanitize=True),
     "double_buffer": dict(double_buffer=True),
     "ckpt_every_supersteps": dict(ckpt_every_supersteps=4),
 }
@@ -228,11 +226,5 @@ def test_unported_runtime_options_raise(graphs):
                                device="cpu")
     with pytest.raises(NotImplementedError, match="A.9"):
         apps.bfs(g, 0, grid, chips=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        apps.bfs(g, 0, grid, observer=object(), device="cpu")
-    eng = engine.DataLocalEngine(apps.BFS_SPEC, cfg, g.row_lo, g.row_hi,
-                                 g.col_idx, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        eng.run(eng.init_state(seed_idx=0, seed_val=0.0), observer=object())
     with pytest.raises(ValueError, match="backend"):
         apps.bfs(g, 0, grid, backend="pallas", device="cpu")

@@ -5,7 +5,9 @@ CPU (the min apps and the write-back add apps), a superstep that makes
 no host sync of its own, the chunked run loop's CUDA-graph replays
 against the per-step loop (with compaction, one graph per flush value
 and window: no sync in any, launch counts per graph, results equal to
-dense), and ``ops.decode_attention`` through its kernel.
+dense; with telemetry, the sanitizer and an observer, results and host
+syncs equal to the run without them), and ``ops.decode_attention``
+through its kernel.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 decision is taken inside each test.  On a machine with a card:
@@ -16,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import obs
 from repro_torch.core import engine
 from repro_torch.core.tilegrid import square_grid
 from repro_torch.graph import apps, rmat_edges
@@ -550,12 +553,18 @@ def _runner(app, length, scale=9, tiles=64, **kw):
     return eng.chunk_runner(state, length)
 
 
-def test_chunk_replays_make_no_host_sync():
+HOOKS = dict(telemetry=True, sanitize=True)
+
+
+@pytest.mark.parametrize("hooks", [{}, HOOKS], ids=["bare", "hooks"])
+def test_chunk_replays_make_no_host_sync(hooks):
     """Once captured, a chunk of replays -- the no-flush graph, and the
     flush graph of write-back SpMV with the cascade -- makes no sync that
-    PyTorch's sync debug mode detects; its one fetch comes after."""
+    PyTorch's sync debug mode detects; its one fetch comes after.  Also
+    with telemetry and the sanitizer on, whose vectors and counts the
+    fetch brings too."""
     for app in ("bfs", "spmv"):
-        runner = _runner(app, 4)
+        runner = _runner(app, 4, **hooks)
         for flush in (False, True):
             runner.launch(10_000, flush)          # warm-up and capture
             runner.fetch()
@@ -567,6 +576,9 @@ def test_chunk_replays_make_no_host_sync():
             torch.cuda.set_sync_debug_mode("default")
         got = runner.fetch()
         assert not got.done and got.rows[:, -1].sum() >= 1
+        assert set(got.vecs) == (set(engine.TELEMETRY_KEYS) if hooks
+                                 else set())
+        assert all(v.shape == (4, 64) for v in got.vecs.values())
 
 
 def test_chunk_launch_counts_are_replays_times_captures():
@@ -677,3 +689,37 @@ def test_compacted_chunked_run_matches_dense_on_card(app):
     comp = fn(*args, device=dev, compaction=3, **kw)
     _same_run(comp, dense, app)
     assert captures.value - c0 >= 2        # dense and at least one window
+
+
+@pytest.mark.parametrize("compaction", [0, 3])
+@pytest.mark.parametrize("app", ["bfs", "spmv"])
+def test_chunked_run_with_hooks_equals_bare_on_card(app, compaction):
+    """Graph-replayed chunks with telemetry, the sanitizer and an
+    observer equal the same run without them (BFS bitwise, SpMV exact in
+    counters, trace, supersteps and ``time_s``, values to f32
+    re-association), with the same host syncs, and every kernel still
+    launched inside the replayed graphs; the recorder holds every
+    superstep, clean, with its (T,) load vectors."""
+    dev = _card()
+    fn, args, kw = _chunk_case(app)
+    reg = default_registry()
+    syncs, replays = (reg.counter("engine.host_syncs"),
+                      reg.counter("engine.graph_replays"))
+    s0 = syncs.value
+    bare = fn(*args, device=dev, compaction=compaction, **kw)
+    s1, r1 = syncs.value, replays.value
+    rec = obs.TimelineRecorder()
+    ops.reset_launches()
+    hooked = fn(*args, device=dev, compaction=compaction, observer=rec,
+                **HOOKS, **kw)
+    _same_run(hooked, bare, app)
+    assert syncs.value - s1 == s1 - s0
+    assert replays.value - r1 > 0
+    launches = ops.launch_counts()
+    assert all(launches[k] >= hooked.run.supersteps
+               for k in ("relax", "segment_combine", "deliver_fused"))
+    assert rec.supersteps == hooked.run.supersteps
+    assert not rec.stat_matrix("sanity_violations").any()
+    load = rec.vec_matrix("tv_delivered")
+    assert load.shape == (hooked.run.supersteps, 256)
+    assert load.sum() == hooked.run.counters.owner_msgs
