@@ -88,7 +88,27 @@ on past a failure:
    directory and parsed back (events by track printed), and BFS with a
    NaN planted in ``values`` on both loops, which must raise
    ``SanitizerError``;
-10. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
+10. the partitioned engine in one process (``chips=4``: 2x2 chips of
+   32x32 tiles, every chip's tiles in one batched superstep, the board
+   exchange folded in at its end): BFS on RMAT-22 with the Table-II
+   proxy, chunked, against scipy, ``off_chip_msgs > 0``, beside phase
+   5's monolithic run (supersteps, host syncs, ms a superstep, wall,
+   peak memory, off-chip messages, modelled ``time_s`` and GTEPS; the
+   six level-traffic trace fields a partition leaves alone printed as
+   equal or not); at RMAT-18, proxy-free, BFS, SpMV, Histogram and
+   PageRank against their monolithic runs (those six fields equal,
+   values bitwise or within rtol 1e-4 / atol 1e-5, off-chip traffic),
+   ``kernels`` against ``torch`` (counters, trace, supersteps, ``time_s``
+   exact) and BFS's per-step loop against its chunked one; SpMV with the
+   Table-II proxy and a 2-level cascade (cut at the chip boundary, its
+   levels printed) against scipy's ``A @ x`` and Histogram with the
+   write-back P$ against ``np.bincount``; 20 profiled graph replays of
+   BFS RMAT-18 at 1, 4 and 16 chips (device entries and busy ms a
+   superstep; 16 chips at most 1.1x the 4-chip entries); and
+   ``harness.weak_scaling`` at 1, 4, 16, 64 and 256 chips of 16 tiles
+   (GTEPS monotone, ``reprice_ratio`` within 1e-9 of 1, each row's wall
+   seconds);
+11. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
     the last line, ``{"ok": true, "device": {...}}``.
 
 Every app run prints its supersteps, wall seconds, ms per superstep,
@@ -99,12 +119,12 @@ fall in the kernels' 32-record warp slices (``EngineIds``): the share
 of live records in runs of neighbours and repeated in their slice, and
 the atomics a fold would leave.
 
-Each main-path run (phases 5-8, 6b and 9b included) sets every
+Each main-path run (phases 5-8, 6b, 9b and 10's RMAT-22 run) sets every
 kernel's launch count to 0 just before it and reads the counts just
 after; a kernel on the path that did not launch (at least once per
 superstep, on the engine's paths) fails the run.  The JSON line counts
-the compacted runs under their own path, ``compaction``, and phase 9b's
-RMAT-22 runs under ``hooks``.  A graph replay counts the launches
+the compacted runs under their own path, ``compaction``, phase 9b's
+RMAT-22 runs under ``hooks`` and phase 10's under ``partition``.  A graph replay counts the launches
 captured in it, so on the chunked loop the counts include the idle rows
 of a chunk (after the run drained, or after a flush the device
 scheduled), which are printed as the surplus.
@@ -687,14 +707,15 @@ def main_path_apps(wl) -> dict:
 # ------------------------------------------------------------ app runs
 class LoopClock:
     """While entered, sums the host-clock seconds spent inside
-    ``DataLocalEngine.run``: the run loop alone, without the app's
-    set-up.  Each run ends in its last fetch, which waits for all the
-    work it enqueued, so the sum is the loop's wall time."""
+    ``DataLocalEngine._run``, the run loop of ``DataLocalEngine.run`` and
+    ``DistributedEngine.run``: the loop alone, without the app's set-up.
+    Each run ends in its last fetch, which waits for all the work it
+    enqueued, so the sum is the loop's wall time."""
 
     def __enter__(self):
         from repro_torch.core.engine import DataLocalEngine
         self.seconds = 0.0
-        self._run = run = DataLocalEngine.run
+        self._run = run = DataLocalEngine._run
 
         def timed(eng, *args, **kw):
             t0 = time.perf_counter()
@@ -702,12 +723,12 @@ class LoopClock:
                 return run(eng, *args, **kw)
             finally:
                 self.seconds += time.perf_counter() - t0
-        DataLocalEngine.run = timed
+        DataLocalEngine._run = timed
         return self
 
     def __exit__(self, *exc):
         from repro_torch.core.engine import DataLocalEngine
-        DataLocalEngine.run = self._run
+        DataLocalEngine._run = self._run
 
 
 def app_run(dev, label: str, fn, *args, **kw):
@@ -794,9 +815,11 @@ def compare_loops(label, chunked, per_step) -> None:
           f"{chunked['peak_gib']:.3f} vs {per_step['peak_gib']:.3f}")
 
 
-def _profile_report(prof, wall: float, n: int, label: str) -> None:
+def _profile_report(prof, wall: float, n: int, label: str):
     """The device-busy share of a profiled window of ``n`` supersteps
-    and the entries with the most device and host time."""
+    and the entries with the most device and host time.  Returns the
+    device-busy ms and the device entries a superstep (None when the
+    profiler recorded no device time)."""
     from torch.autograd import DeviceType
     kernels, host_ops = [], []
     for e in prof.key_averages():
@@ -812,7 +835,7 @@ def _profile_report(prof, wall: float, n: int, label: str) -> None:
     if busy_us <= 0:
         print(f"  profile {label}: the profiler recorded no device time "
               "(device busy share not measured)")
-        return
+        return None
     print(f"  profile {label} ({n} supersteps, kernels backend, under the "
           f"profiler), per superstep: {wall * 1e3 / n:.3f} ms wall; device "
           f"busy {busy_us / n / 1e3:.3f} ms ({busy_us / 1e6 / wall:.1%} of "
@@ -825,6 +848,8 @@ def _profile_report(prof, wall: float, n: int, label: str) -> None:
     for cpu_us, dev_us, count, key in sorted(host_ops, reverse=True)[:10]:
         print(f"    {cpu_us / n:9.1f} {dev_us / n:9.1f} {count / n:6.1f}  "
               f"{key[:70]}")
+    return dict(wall_ms=wall * 1e3 / n, busy_ms=busy_us / n / 1e3,
+                entries=sum(k[1] for k in kernels) / n)
 
 
 def profile_supersteps(dev, eng, state, label: str, n: int = 20) -> None:
@@ -836,7 +861,6 @@ def profile_supersteps(dev, eng, state, label: str, n: int = 20) -> None:
     with its one fetch.  The profiler adds host overhead of its own."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.engine import fetch_stats
-    from repro_torch.obs.metrics import default_registry
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     st = state
     for _ in range(5):
@@ -852,12 +876,24 @@ def profile_supersteps(dev, eng, state, label: str, n: int = 20) -> None:
         wall = time.perf_counter() - t0
     _profile_report(prof, wall, n, f"{label}, per-step loop")
     del st, stats
+    profile_replays(eng, state, label, n)
+
+
+def profile_replays(eng, state, label: str, n: int = 20) -> dict:
+    """``n`` graph replays of the chunked loop from ``state`` (one chunk
+    of ``n`` after a first chunk of ``n``, which runs the eager
+    superstep and the capture) under ``torch.profiler``, with their one
+    fetch; ``eng`` a ``DataLocalEngine`` or a ``DistributedEngine``.
+    Returns ``_profile_report``'s readings, which must exist."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs.metrics import default_registry
     replays = default_registry().counter("engine.graph_replays")
     runner = eng.chunk_runner(state, n)
     runner.launch(10 * n, False)
     runner.fetch()
     before = replays.value
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         runner.launch(10 * n, False)
         rows = runner.fetch().rows
@@ -866,7 +902,9 @@ def profile_supersteps(dev, eng, state, label: str, n: int = 20) -> None:
     require(replays.value - before == n and rows[:, -1].sum() == n,
             f"profile {label}: {replays.value - before:.0f} replays, "
             f"{rows[:, -1].sum():.0f} active rows, expected {n}")
-    _profile_report(prof, wall, n, f"{label}, {n} graph replays")
+    got = _profile_report(prof, wall, n, f"{label}, {n} graph replays")
+    require(got is not None, f"profile {label}: no device time recorded")
+    return got
 
 
 def scipy_csr(g):
@@ -1677,6 +1715,174 @@ def hooks_phase(dev, wl, smi: str) -> dict:
     return launches
 
 
+# --------------------------------------------- 10. the partitioned engine
+PART_CHIPS = 4                  # 2x2 chips of 32x32 tiles on the package
+NODE_CHIPS = (1, 4, 16)         # 16: 4x4 chips of 16x16 tiles
+NODE_GROWTH = 1.1               # 16-chip entries over 4-chip, at most
+EQUIV_FIELDS = ("compute_ops", "intra_bits", "die_bits", "pkg_bits",
+                "touched_bits", "pending")
+
+
+def trace_fields_equal(a, b) -> dict:
+    """Which of a proxy-free run's shared level-traffic vectors (those
+    that partitioning leaves alone) two runs have equal."""
+    ta, tb = a.run.trace.to_dict(), b.run.trace.to_dict()
+    return {f: ta[f] == tb[f] for f in EQUIV_FIELDS}
+
+
+def side_by_side(label, mono, mono_read, dist, dist_read) -> None:
+    """A partitioned run's readings beside its monolithic run's."""
+    def row(res, r):
+        c = res.run.counters
+        return (f"{res.run.supersteps} supersteps, {r['host_syncs']:.0f} "
+                f"host syncs, {r['ms_per_superstep']:.3f} ms a superstep, "
+                f"wall {r['wall_s']:.2f} s, peak {r['peak_gib']:.3f} GiB, "
+                f"off-chip msgs {c.off_chip_msgs:.0f} (hop-msgs "
+                f"{c.off_chip_hop_msgs:.0f}), time_s {res.run.time_s:.6e}, "
+                f"{res.gteps:.3f} GTEPS")
+    print(f"    {label} monolithic:  {row(mono, mono_read)}")
+    print(f"    {label} {PART_CHIPS} chips: {row(dist, dist_read)}")
+    print(f"    {label} trace fields equal to the monolithic run's "
+          f"(printed, not gated): "
+          f"{json.dumps(trace_fields_equal(mono, dist))}")
+
+
+def partition_phase(dev, wl) -> dict:
+    """The distributed engine in one process (every chip's tiles in one
+    batched superstep, the board exchange): BFS at RMAT-22 on 4 chips
+    beside phase 5; the RMAT-18 apps proxy-free against their monolithic
+    runs and across backends and loops; SpMV with a cascade cut at the
+    chip boundary and Histogram with the write-back P$; graph nodes
+    against the chip count; the weak-scaling sweep.  Returns the
+    RMAT-22 run's launches."""
+    from repro_torch.distrib import harness
+    from repro_torch.graph import apps
+    from repro_torch.graph.rmat import histogram_input
+    t_phase = time.perf_counter()
+    print(f"== 10. the partitioned engine, one process: {PART_CHIPS} chips "
+          f"of the {TILES}-tile package, every chip's tiles in one batched "
+          f"superstep, backend=kernels")
+    fn, args, kw = main_path_apps(wl)["bfs"]
+    g, root = args[0], args[1]
+    t0 = time.perf_counter()
+    res, launches, read = app_run(dev, f"bfs {PART_CHIPS} chips", fn, *args,
+                                  chips=PART_CHIPS, **kw)
+    check_bfs(g, root, res)
+    require(res.run.counters.off_chip_msgs > 0,
+            "bfs 4 chips: no record left its chip")
+    require_launches(f"bfs {PART_CHIPS} chips", launches, read,
+                     ENGINE_KERNELS)
+    side_by_side(f"bfs RMAT-{SCALE}", *wl["dense"]["bfs"], res, read)
+    print(f"  RMAT-{SCALE} BFS on {PART_CHIPS} chips "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    g18 = wl[AGREE_SCALE]
+    grid = wl["grid"]
+    bins = g18.n_rows // 8
+    hv = histogram_input(g18, bins)
+    x = np.random.default_rng(SEED).random(g18.n_cols).astype(np.float32)
+    root18 = int(np.argmax(g18.out_degree()))
+    print(f"  RMAT-{AGREE_SCALE}, proxy-free, {PART_CHIPS} chips against "
+          f"the monolithic run, kernels against torch")
+    cases = (("bfs", apps.bfs, (g18, root18, grid), {}, None),
+             ("spmv", apps.spmv, (g18, x, grid), {},
+              (AGREE_RTOL, AGREE_ATOL)),
+             ("histo", apps.histogram, (hv, bins, grid), {}, None),
+             ("pagerank", apps.pagerank, (g18, grid),
+              dict(epochs=PAGERANK_EPOCHS), (AGREE_RTOL, AGREE_ATOL)))
+    for name, fn, args, kw, tol in cases:
+        tol = tol or (None, None)
+        mono = app_run(dev, f"{name} monolithic", fn, *args, oq_cap=OQ_CAP,
+                       **kw)[0]
+        dist = app_run(dev, f"{name} {PART_CHIPS} chips", fn, *args,
+                       oq_cap=OQ_CAP, chips=PART_CHIPS, **kw)[0]
+        equal = trace_fields_equal(mono, dist)
+        require(all(equal.values()),
+                f"{name}: trace fields differ from the monolithic run's: "
+                f"{equal}")
+        require(dist.run.counters.off_chip_msgs > 0,
+                f"{name} {PART_CHIPS} chips: no record left its chip")
+        if tol[0] is None:
+            require(np.array_equal(mono.values, dist.values),
+                    f"{name}: values differ from the monolithic run's")
+        else:
+            check_close(f"{name} {PART_CHIPS} chips vs monolithic",
+                        dist.values, mono.values.astype(np.float64), *tol)
+        print(f"    {name}: the six shared trace fields equal the "
+              f"monolithic run's; off-chip msgs "
+              f"{dist.run.counters.off_chip_msgs:.0f}")
+        ref = app_run(dev, f"{name} {PART_CHIPS} chips", fn, *args,
+                      oq_cap=OQ_CAP, chips=PART_CHIPS, backend="torch",
+                      **kw)[0]
+        same_run(dist, ref, f"{name} {PART_CHIPS} chips kernels vs torch",
+                 *tol)
+        if name == "bfs":
+            per_step = app_run(dev, f"{name} {PART_CHIPS} chips", fn, *args,
+                               oq_cap=OQ_CAP, chips=PART_CHIPS, run_chunk=0,
+                               **kw)[0]
+            same_run(dist, per_step, f"{name} {PART_CHIPS} chips chunked vs "
+                     f"per-step loop")
+    spmv_px = apps.table2_proxy(grid, "spmv", cascade_levels=2)
+    dist = app_run(dev, f"spmv {PART_CHIPS} chips, cascade", apps.spmv, g18,
+                   x, grid, proxy=spmv_px, oq_cap=OQ_CAP,
+                   chips=PART_CHIPS)[0]
+    check_spmv(g18, x, dist.values, f"SpMV {PART_CHIPS} chips y")
+    from repro_torch.core.proxy import chip_local_proxy
+    from repro_torch.core.tilegrid import partition_grid
+    part = partition_grid(grid, PART_CHIPS)
+    cut = chip_local_proxy(spmv_px, part.sub_ny, part.sub_nx)
+    print(f"    SpMV cascade levels {spmv_px.cascade.levels} on the package, "
+          f"{cut.cascade.levels if cut.cascade else 0} on a "
+          f"{part.sub_ny}x{part.sub_nx} chip; merged "
+          f"{dist.run.counters.cascade_combined:.0f} records")
+    dist = app_run(dev, f"histo {PART_CHIPS} chips, write-back",
+                   apps.histogram, hv, bins, grid,
+                   proxy=apps.table2_proxy(grid, "histo"), oq_cap=OQ_CAP,
+                   chips=PART_CHIPS)[0]
+    check_histo(hv, bins, dist.values, f"Histogram {PART_CHIPS} chips")
+    print(f"  RMAT-{AGREE_SCALE} runs {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    nodes = {}
+    for chips in NODE_CHIPS:
+        eng, state, _ = apps.engine_and_state(
+            "bfs", g18, grid, apps.table2_proxy(grid, "bfs"), root=root18,
+            oq_cap=OQ_CAP, chips=chips, device=dev)
+        nodes[chips] = profile_replays(eng, state, f"bfs RMAT-{AGREE_SCALE} "
+                                       f"{chips} chip(s)")
+        del eng, state
+    print(f"  graph replays by chip count "
+          f"{json.dumps({c: r for c, r in nodes.items()})}")
+    require(nodes[16]["entries"] <= NODE_GROWTH * nodes[4]["entries"],
+            f"16 chips: {nodes[16]['entries']:.0f} device entries a "
+            f"superstep against {nodes[4]['entries']:.0f} at 4 chips")
+    print(f"  node readings {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    rows = []
+    for chips in harness.WEAK_CHIP_COUNTS:
+        t1 = time.perf_counter()
+        row = harness.weak_scaling((chips,), backend="kernels",
+                                   device=dev)[0]
+        row["wall_s"] = time.perf_counter() - t1
+        rows.append(row)
+        print(f"    weak scaling {chips} chip(s): {row['tiles']} tiles, "
+              f"RMAT over {row['n_vertices']} vertices, "
+              f"{row['supersteps']} supersteps, {row['gteps']:.4f} GTEPS, "
+              f"off-chip msgs {row['off_chip_msgs']:.0f}, energy "
+              f"{row['energy_j']:.4e} J, reprice ratio "
+              f"{row['reprice_ratio']!r}, wall {row['wall_s']:.2f} s")
+    curve = [r["gteps"] for r in rows]
+    require(all(b > a for a, b in zip(curve, curve[1:])),
+            f"weak scaling: GTEPS not monotone {curve}")
+    require(all(abs(r["reprice_ratio"] - 1.0) < 1e-9 for r in rows),
+            "weak scaling: a re-priced trace differs from its run")
+    print(f"  weak scaling {time.perf_counter() - t0:.1f} s")
+    print(f"  partition phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1702,6 +1908,7 @@ def main() -> int:
     rows.append(decode_row)
     agreement_phase(dev, wl)
     by_path["hooks"] = hooks_phase(dev, wl, c["smi"])
+    by_path["partition"] = partition_phase(dev, wl)
     for row in rows:
         row["launches_by_path"] = {p: n[row["name"]]
                                    for p, n in by_path.items()}
@@ -1709,7 +1916,7 @@ def main() -> int:
         require(row["launches"] > 0,
                 f"{row['name']} never launched on a main path")
 
-    print(f"== 10. done in {time.perf_counter() - t_start:.1f} s")
+    print(f"== 11. done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(c["smi"])
     print(json.dumps({"ok": True, "device": {

@@ -75,10 +75,25 @@ superstep on the per-step loop) and the result.  All three only
 observe: values, counters, trace, supersteps, ``time_s`` and
 ``engine.host_syncs`` equal the run without them.
 
+**A partition into chips** (``part=ChipPartition`` of more than one
+chip, run through ``distrib.DistributedEngine``): the reference vmaps a
+per-chip superstep over the chips; here one superstep runs every chip's
+tiles at once, as one chip-major window.  Window position ``p = chip *
+Tl + ltile`` holds global tile ``perm[p]`` (``_tile_gids``; the
+reference's stacked ``(chips, tiles_local)`` layout, flat), so the ops a
+superstep dispatches do not depend on the chip count.  A record whose
+owner lies on its source tile's chip is delivered on the chip; one that
+leaves is charged the board leg (``netstats.charge_board``) and held
+back, and at the end of the superstep every leg's off-chip records fold
+into the window's mailbox at once (``_Exchange``, the reference's
+``exchange``), their arrivals per tile kept apart from the on-chip
+ones.  With one chip the window is the grid, ``perm`` the identity and
+the step today's.  Such an engine refuses ``init_state``,
+``activate_all`` and ``run`` (the driver holds the state).
+
 Not in this slice, and refused with ``NotImplementedError`` naming the
-ROADMAP item rather than ignored: multi-chip partitions and double
-buffering, with the flush's off-chip buffer sizing ``_flush_off_len``
-(A.9); checkpoints (A.10).
+ROADMAP item rather than ignored: double buffering and compaction on
+more than one chip (A.5b); checkpoints (A.6).
 """
 from __future__ import annotations
 
@@ -96,9 +111,10 @@ from ..kernels import ops as kops
 from ..obs.metrics import default_registry
 from ..obs.timeline import ChunkSpan, RunMeta
 from .chunk import ChunkRunner
-from .costmodel import (CLOCK_GHZ, PU_OPS_PER_EDGE, PU_OPS_PER_RECORD,
-                        DCRA_SRAM, PackageConfig, link_provisioning,
-                        step_cycles)
+from .costmodel import (CLOCK_GHZ, IO_DIE_RXTX_LAT_NS, PU_OPS_PER_EDGE,
+                        PU_OPS_PER_RECORD, DCRA_SRAM, PackageConfig,
+                        _off_pkg_bits_per_cycle, board_link_provisioning,
+                        link_provisioning, step_cycles)
 from .netstats import MSG_BITS, SuperstepTrace, TrafficCounters
 from .proxy import (ProxyConfig, cascade_proxy_tile, make_pcache,
                     pcache_slot, proxy_tile)
@@ -178,11 +194,12 @@ def _refuse_unported(cfg: EngineConfig, part: ChipPartition) -> None:
     """Raise on every setting this slice does not run."""
     unported = []
     if cfg.double_buffer:
-        unported.append("double_buffer (ROADMAP A.9)")
-    if part.num_chips > 1:
-        unported.append(f"a {part.num_chips}-chip partition (ROADMAP A.9)")
+        unported.append("double_buffer (ROADMAP A.5b)")
+    if cfg.compaction and part.num_chips > 1:
+        unported.append(f"compaction on a {part.num_chips}-chip partition "
+                        f"(ROADMAP A.5b)")
     if cfg.ckpt_every_supersteps:
-        unported.append("ckpt_every_supersteps (ROADMAP A.10)")
+        unported.append("ckpt_every_supersteps (ROADMAP A.6)")
     if unported:
         raise NotImplementedError(
             "not ported to repro_torch yet: " + ", ".join(unported))
@@ -204,24 +221,35 @@ COMPACTION_KEYS = ("active_tiles", "bucket_cap")
 # count (saturated at SANITY_CAP), which the run loops raise on.
 SANITIZE_KEYS = ("sanity_violations",)
 SANITY_CAP = 2 ** 20
+# With more than one chip, each superstep also charges the board leg.
+OFF_CHIP_KEYS = ("off_chip_msgs", "off_chip_hop_msgs")
 # With telemetry, each superstep also emits these (T,) per-tile load
 # vectors, fetched beside the stats rows, never in them.
 TELEMETRY_KEYS = ("tv_delivered", "tv_edges", "tv_records")
+# The distributed runtime's telemetry: the (C,) per-chip reductions of
+# the reference's ``_aggregate`` in place of the per-tile vectors
+# (``pc_offchip`` with more than one chip only).
+PER_CHIP_KEYS = ("pc_compute", "pc_delivered", "pc_delivmax", "pc_edges",
+                 "pc_offchip", "pc_owner", "pc_records", "pc_recv")
 
 
 class DataLocalEngine:
     """Single-device engine: simulates the whole tile grid as one window,
-    with exact traffic accounting.
+    with exact traffic accounting; with a multi-chip ``part``, the window
+    of every chip's tiles in chip-major order (the module docstring).
 
     ``device=None`` runs on the CUDA card and raises without one; the
     CPU runs only when asked for (``device="cpu"``).  ``row_lo``,
     ``row_hi``, ``col_idx`` and ``weights`` may be numpy arrays or tensors
     (``convert.csr_to_device``); they are moved to the device once.
+    ``per_chip`` (set by ``distrib.DistributedEngine``) makes telemetry
+    emit the per-chip ``pc_*`` vectors in place of the per-tile ones.
     """
 
     def __init__(self, app: AppSpec, cfg: EngineConfig,
                  row_lo, row_hi, col_idx, weights=None,
-                 part: Optional[ChipPartition] = None, device=None):
+                 part: Optional[ChipPartition] = None, device=None,
+                 per_chip: bool = False):
         if cfg.backend not in ("kernels", "torch"):
             raise ValueError(f"unknown engine backend {cfg.backend!r}")
         part = part if part is not None else ChipPartition(cfg.grid, 1, 1)
@@ -230,9 +258,13 @@ class DataLocalEngine:
         self.cfg = cfg
         self.part = part
         self.device = _device.resolve(device)
-        T = part.tiles_per_chip
+        self.n_chips = part.num_chips
+        self.Tl = part.tiles_per_chip
+        self._multi = self.n_chips > 1
+        self._per_chip = per_chip
+        T = cfg.grid.num_tiles          # the window: every chip's tiles
         self.T = T
-        self.Tg = cfg.grid.num_tiles
+        self.Tg = T
         self.Cs = cfg.chunk_src
         self.Cd = cfg.chunk_dst
         self.Ns = T * self.Cs
@@ -252,14 +284,27 @@ class DataLocalEngine:
         # an improving mailbox record restarts its item's edge cursor
         self._reactivates = app.reactivate and self.Nd == self.Ns
         dev = self.device
-        self.row_lo = _to(_pad(row_lo, self.Ngs, 0), torch.int32, dev)
-        self.row_hi = _to(_pad(row_hi, self.Ngs, 0), torch.int32, dev)
+        # window position p holds global tile perm[p]: chip-major, each
+        # chip's tiles in local row-major order (the identity on one chip)
+        perm = np.concatenate([part.tile_ids(c)
+                               for c in range(self.n_chips)])
+        self._tile_gids = torch.as_tensor(perm, dtype=torch.int32,
+                                          device=dev)
+        if self._multi:
+            inv = np.empty_like(perm)
+            inv[perm] = np.arange(T)
+            self._win_pos = torch.as_tensor(inv, dtype=torch.int32,
+                                            device=dev)
+        # the source items' edge ranges in window order; the edge arrays
+        # are indexed by global edge position and stay as they are
+        self.row_lo = self.to_window(
+            _to(_pad(row_lo, self.Ngs, 0), torch.int32, dev), self.Cs)
+        self.row_hi = self.to_window(
+            _to(_pad(row_hi, self.Ngs, 0), torch.int32, dev), self.Cs)
         self.col_idx = _to(col_idx, torch.int32, dev)
         if weights is None:
             weights = torch.ones(self.col_idx.shape, dtype=torch.float32)
         self.weights = _to(weights, torch.float32, dev)
-        self._tile_gids = self.part.global_tile(
-            0, torch.arange(T, dtype=torch.int32, device=dev))
         # the source tile of each emitted record and of each P$ entry,
         # fixed per engine: made once, so no superstep sizes an output
         # on the host
@@ -272,15 +317,54 @@ class DataLocalEngine:
         self._ladder_t = torch.tensor(self._ladder, dtype=torch.float32,
                                       device=dev)
         self.stat_keys = (STAT_KEYS
+                          + (OFF_CHIP_KEYS if self._multi else ())
                           + (COMPACTION_KEYS if self._compacting else ())
                           + (SANITIZE_KEYS if cfg.sanitize else ()))
-        self.vec_keys = TELEMETRY_KEYS if cfg.telemetry else ()
+        if not cfg.telemetry:
+            self.vec_keys = ()
+        elif per_chip:
+            self.vec_keys = tuple(k for k in PER_CHIP_KEYS
+                                  if self._multi or k != "pc_offchip")
+        else:
+            self.vec_keys = TELEMETRY_KEYS
+        self._vec_width = self.n_chips if per_chip else T
+        self._exch = None              # the superstep's _Exchange
         self._n_seeds = 0              # set by init_state, read by check_run
+
+    def to_window(self, a, width: int):
+        """A global per-item tensor of ``width`` items a tile, in window
+        order."""
+        if not self._multi:
+            return a
+        return a.reshape(self.T, width).index_select(
+            0, self._tile_gids).reshape(-1)
+
+    def from_window(self, a, width: int):
+        """A window-order per-item tensor back in global order."""
+        if not self._multi:
+            return a.reshape(-1)
+        return a.reshape(self.T, width).index_select(
+            0, self._win_pos).reshape(-1)
+
+    def _pos(self, tid):
+        """The window positions of the (R,) global tiles ``tid``: the
+        reference's ``chip_of_tile * Tl + local_tile``
+        (``_owner_slots``)."""
+        return self._win_pos.index_select(0, tid) if self._multi else tid
+
+    def _require_mono(self, what: str) -> None:
+        """The state of a multi-chip window is the driver's."""
+        if self._multi:
+            raise ValueError(
+                f"{what} is monolithic-only; with a {self.n_chips}-chip "
+                f"partition use distrib.DistributedEngine, which runs this "
+                f"engine's window of every chip's tiles")
 
     # ---------------------------------------------------------------- state
     def init_state(self, seed_idx=None, seed_val=None):
         """Fresh engine state; ``seed_idx``/``seed_val`` pre-load mailbox
         records (the traversal roots)."""
+        self._require_mono("init_state")
         ident = self.app.identity
         dev = self.device
 
@@ -312,6 +396,7 @@ class DataLocalEngine:
     def activate_all(self, state, cur_val):
         """Epoch-style activation (PageRank/SpMV/Histogram): every source
         item starts with its full edge range and a carried value."""
+        self._require_mono("activate_all")
         state = dict(state)
         state["cur_lo"] = self.row_lo
         state["cur_hi"] = self.row_hi
@@ -413,7 +498,7 @@ class DataLocalEngine:
                     commit, part, win[k]).reshape(W, -1))
                 new.append(state[k])
         B = self.cfg.oq_cap
-        src = self.part.global_tile(0, lanes.to(torch.int32))
+        src = self._tile_gids.index_select(0, lanes)
         return (tuple(new) + out[6:] + (src[:, None].expand(W, B)
                                         .reshape(-1),), lanes, raised)
 
@@ -543,6 +628,7 @@ class DataLocalEngine:
         (new_vals, mail_val, mail_flag, cur_lo, cur_hi, cur_val,
          consumed_vec, edges_vec, dst, cand, emit_mask, src_tile) = front
         owner = torch.clamp(dst // self.Cd, max=self.Tg - 1)
+        self._exch = exch = _Exchange()
         if cfg.telemetry:
             # per-tile load vectors, pure extra outputs; a window's lane
             # counts go back to their tiles (the lanes are distinct, and
@@ -582,6 +668,20 @@ class DataLocalEngine:
                 mail_val, mail_flag, p_tag, p_val, dst, cand, emit_mask,
                 src_tile, owner, flush, is_min)
             stats.update(pstats)
+        self._exch = None
+        recv = None
+        if self._multi:
+            # the board exchange: every leg's off-chip records fold into
+            # the window's mailbox at once (min, add or flag-or: order-
+            # free up to f32 re-association), their arrivals per
+            # receiving tile kept apart from the on-chip deliveries
+            mail_val, mail_flag, recv = _deliver(
+                mail_val, mail_flag, torch.cat(exch.idx),
+                torch.cat(exch.val), torch.cat(exch.mask), self.T,
+                self.Nd, is_min, backend=cfg.backend)
+            dmax = torch.maximum(dmax, torch.max(recv))
+        if cfg.telemetry and self._per_chip:
+            stats.update(self._chip_vectors(stats, exch, recv))
 
         new_state = dict(values=new_vals, mail_val=mail_val,
                          mail_flag=mail_flag, cur_lo=cur_lo, cur_hi=cur_hi,
@@ -611,20 +711,59 @@ class DataLocalEngine:
                 bad, max=SANITY_CAP).to(torch.float32)
         return new_state, stats
 
+    def _chip_vectors(self, stats, exch, recv):
+        """The per-chip ``pc_*`` load vectors of the reference's
+        ``_aggregate``, reduced from the superstep's per-tile vectors
+        (which they replace), the exchange's arrivals and the legs'
+        per-chip counts."""
+        C, Tl = self.n_chips, self.Tl
+        rec, edg, dlv = (stats.pop(k).reshape(C, Tl) for k in
+                         ("tv_records", "tv_edges", "tv_delivered"))
+        out = dict(pc_edges=torch.sum(edg, dim=1),
+                   pc_records=torch.sum(rec, dim=1),
+                   pc_delivered=torch.sum(dlv, dim=1),
+                   pc_delivmax=torch.amax(dlv, dim=1),
+                   pc_compute=torch.amax(rec * PU_OPS_PER_RECORD
+                                         + edg * PU_OPS_PER_EDGE, dim=1),
+                   pc_owner=exch.owner,
+                   pc_recv=(torch.zeros((C,), dtype=torch.float32,
+                                        device=self.device) if recv is None
+                            else torch.sum(recv.reshape(C, Tl), dim=1)))
+        if self._multi:
+            out["pc_offchip"] = exch.off
+        return out
+
     # ------------------------------------------------------- owner delivery
     def _drain_to_owners(self, mail_val, mail_flag, dst, val, mask, src,
                          region_dims, is_min):
         """Charge the owner-bound leg and deliver the records into the
-        mailboxes.  Returns (mail_val, mail_flag, owner_leg_charge,
-        off_chip_charge, delivered_per_tile); the off-chip charge is empty
-        on one chip."""
+        mailboxes.  On a multi-chip window a record is delivered on the
+        chip when its owner lies on its source tile's chip; the others
+        are charged the board leg and handed to the superstep's
+        ``_Exchange``.  Returns (mail_val, mail_flag, owner_leg_charge,
+        off_chip_charge, on-chip delivered_per_tile); the off-chip charge
+        is empty on one chip."""
+        part, exch = self.part, self._exch
         owner = torch.clamp(dst // self.Cd, max=self.Tg - 1)
         owner_leg = netstats.charge(self.cfg.grid, src, owner, mask,
                                     region_dims=region_dims)
+        on, idx, off, off_ch = mask, dst, None, {}
+        if self._multi:
+            # window position p = chip * Tl + local tile
+            opos = self._pos(owner)
+            ochip, schip = opos // self.Tl, self._pos(src) // self.Tl
+            on_chip = ochip == schip
+            on, off = mask & on_chip, mask & ~on_chip
+            idx = opos * self.Cd + dst % self.Cd
+            off_ch = netstats.charge_board(part, schip, ochip, off)
+            exch.send(idx, val, off)
+        if self._per_chip and self.cfg.telemetry:
+            exch.count(schip if self._multi else part.chip_of_tile(src),
+                       mask, off, self.n_chips)
         mail_val, mail_flag, per_tile = _deliver(
-            mail_val, mail_flag, dst, val, mask, self.T, self.Nd, is_min,
+            mail_val, mail_flag, idx, val, on, self.T, self.Nd, is_min,
             backend=self.cfg.backend)
-        return mail_val, mail_flag, owner_leg, {}, per_tile
+        return mail_val, mail_flag, owner_leg, off_ch, per_tile
 
     # --------------------------------------------------------- proxy stage
     def _proxy_stage(self, mail_val, mail_flag, p_tag, p_val, dst, cand,
@@ -642,8 +781,8 @@ class DataLocalEngine:
 
         ptile = proxy_tile(grid, pcfg, owner, src_tile)
         leg1 = netstats.charge(grid, src_tile, ptile, emit_mask)
-        # the sender's region lies on this window, so the proxy tile does
-        ptile_l = self.part.local_tile(ptile)
+        # the sender's region lies on its chip, so the proxy tile does
+        ptile_l = self._pos(ptile)
 
         slot = pcache_slot(pcfg, dst)
         key = torch.where(emit_mask, ptile_l * S + slot, T * S)  # sentinel
@@ -699,8 +838,8 @@ class DataLocalEngine:
         fval = torch.where(fwd_now, combined, ident)
         edst = torch.where(evict, cur_tag, self.Ngd)
         eval_ = torch.where(evict, cur_pv, ident)
-        proxy_src = self.part.global_tile(0, torch.clamp(skey // S,
-                                                          max=T - 1))
+        proxy_src = self._tile_gids.index_select(
+            0, torch.clamp(skey // S, max=T - 1))
         rdims = (pcfg.region_ny, pcfg.region_nx)
         # Under write-back the whole-P$ flush wave runs in its own leg
         # (_flush_drain), on flush supersteps only, except with a
@@ -844,7 +983,7 @@ class DataLocalEngine:
                 out_mask.append(near)
                 alive = alive & ~near
             ptile = cascade_proxy_tile(grid, rny, rnx, owner, cur)
-            ptile_l = self.part.local_tile(ptile)
+            ptile_l = self._pos(ptile)
             legs.append(netstats.charge(grid, cur, ptile, alive,
                                         region_dims=rdims))
             # receive count per proxy tile (an index_add_, not bincount,
@@ -887,7 +1026,7 @@ class DataLocalEngine:
         agg = self._segment_reduce(sval, salive, gid, is_min)
         nval = agg[gid.to(torch.int64)]
         merged = (torch.sum(salive) - torch.sum(leader)).to(torch.float32)
-        cur = self.part.global_tile(0, torch.clamp(stile, max=T - 1))
+        cur = self._tile_gids.index_select(0, torch.clamp(stile, max=T - 1))
         owner = torch.clamp(sdst // self.Cd, max=self.Tg - 1)
         return cur, sdst, nval, owner, leader, merged
 
@@ -917,7 +1056,7 @@ class DataLocalEngine:
                            self.stat_keys, count_active=(
                                self._count_active if self._compacting
                                else None),
-                           vec_keys=self.vec_keys, width=self.T)
+                           vec_keys=self.vec_keys, width=self._vec_width)
 
     def run(self, state, max_supersteps: Optional[int] = None,
             progress_every: int = 0, chunk: Optional[int] = None,
@@ -945,49 +1084,88 @@ class DataLocalEngine:
         raises ``SanitizerError`` at the chunk (or superstep) that
         fetched it, and the finished run is checked by
         ``invariants.check_run``."""
-        cfg = self.cfg
+        self._require_mono("run")
+        return self._run(state, max_supersteps, progress_every, chunk,
+                         observer)
+
+    @property
+    def _label(self) -> str:
+        """The run's name in progress lines and sanitizer findings."""
+        name = self.app.name
+        return f"{name}/{self.n_chips}chips" if self._per_chip else name
+
+    def _run(self, state, max_supersteps, progress_every, chunk, observer):
+        """``run``'s loop, on a state in window order: also the
+        distributed runtime's (``distrib.DistributedEngine.run``).
+
+        The BSP time of a superstep is the reference driver's: the
+        monolithic levels maxed with the board leg (its hop-messages
+        over the partition's board links), plus the IO dies' Tx + Rx
+        latency when a record left its chip.  On one chip the board leg
+        is 0 and no record leaves, so this is the monolithic rule to the
+        bit."""
+        cfg, part = self.cfg, self.part
         maxs = max_supersteps or cfg.max_supersteps
         K = cfg.run_chunk if chunk is None else int(chunk)
         counters = TrafficCounters()
-        trace = SuperstepTrace(double_buffer=cfg.double_buffer)
-        cycles = 0.0
         pkg = cfg.pkg
+        cy, cx = part.chips_y, part.chips_x
+        n_board_links = board_link_provisioning(pkg, cy, cx)
+        trace = SuperstepTrace(board_links=n_board_links, chips_y=cy,
+                               chips_x=cx, double_buffer=cfg.double_buffer)
+        cycles = 0.0
         links = link_provisioning(cfg.grid, pkg)
         fill = links["diameter"] * 0.5
+        board_div = n_board_links * _off_pkg_bits_per_cycle(pkg)
+        io_lat = 2.0 * IO_DIE_RXTX_LAT_NS * CLOCK_GHZ     # Tx + Rx IO die
         values_before = state["values"].clone() if cfg.sanitize else None
         if observer is not None:
             observer.on_run_start(RunMeta(
                 app=self.app.name, grid_ny=cfg.grid.ny, grid_nx=cfg.grid.nx,
-                chunk=K, backend=cfg.backend, sanitize=cfg.sanitize,
+                n_chips=self.n_chips, chips_y=cy, chips_x=cx, chunk=K,
+                backend=cfg.backend, sanitize=cfg.sanitize,
                 telemetry=cfg.telemetry, pkg=pkg, grid=cfg.grid))
 
         def account(stats):
             """The per-step loop's accounting.  The chunked loop uses its
             vectorized twin, ``account_chunk``: edit both in lockstep."""
             nonlocal cycles
-            _sanitize_gate(cfg, self.app.name,
+            _sanitize_gate(cfg, self._label,
                            stats.get("sanity_violations", 0.0))
             counters.add(superstep_counters(stats))
             trace.append_step(stats, element_bits=cfg.element_bits)
-            # ---- BSP time model for this superstep ----------------------
-            sc = superstep_cycles(stats, pkg, links)
+            # ---- BSP time model: monolithic levels + the board leg -----
+            t_board = stats.get("off_chip_hop_msgs", 0.0) * MSG_BITS / board_div
+            sc = max(superstep_cycles(stats, pkg, links), t_board)
             if sc > 0 or stats["pending"] > 0:
                 cycles += sc + fill                     # pipeline fill
+                if stats.get("off_chip_msgs", 0.0) > 0:
+                    cycles += io_lat
 
         def account_chunk(stacked, n_act):
             nonlocal cycles
             bad = stacked.get("sanity_violations")
             if bad is not None:
-                _sanitize_gate(cfg, self.app.name, float(np.sum(bad[:n_act])))
+                _sanitize_gate(cfg, self._label, float(np.sum(bad[:n_act])))
             counters.add(chunk_counters(stacked, n_act))
             trace.append_chunk(stacked, n_act, element_bits=cfg.element_bits)
             # the BSP terms vectorized, accumulated in execution order:
             # bit-identical to account() per step
-            sc = chunk_cycles(stacked, n_act, pkg, links)
-            for s, pend in zip(sc.tolist(),
-                               stacked["pending"][:n_act].tolist()):
+            zeros = np.zeros(n_act)
+            hop = stacked.get("off_chip_hop_msgs")
+            t_board = (zeros if hop is None else
+                       np.asarray(hop[:n_act], np.float64) * MSG_BITS
+                       / board_div)
+            off = stacked.get("off_chip_msgs")
+            off = zeros if off is None else off[:n_act]
+            sc = np.maximum(chunk_cycles(stacked, n_act, pkg, links), t_board)
+            for s, pend, o in zip(sc.tolist(),
+                                  stacked["pending"][:n_act].tolist(),
+                                  off.tolist()):
                 if s > 0 or pend > 0:
                     cycles += s + fill
+                    if o > 0:
+                        cycles += io_lat
 
         if K <= 0:
             state, steps = self._run_legacy(state, maxs, progress_every,
@@ -1002,13 +1180,13 @@ class DataLocalEngine:
         if cfg.sanitize:
             findings = invariants.check_run(
                 result, pkg=pkg, grid=cfg.grid,
-                where=f"sanitize/{self.app.name}",
+                where=f"sanitize/{self._label}",
                 write_back=self._write_back, seeds=self._n_seeds,
                 combine=self.app.combine,
                 values_before=values_before.cpu().numpy(),
                 values_after=state["values"].cpu().numpy(),
                 drained=steps < maxs)
-            invariants.assert_clean(findings, context=f"run({self.app.name})")
+            invariants.assert_clean(findings, context=f"run({self._label})")
         if observer is not None:
             observer.on_run_end(result)
         return state, result
@@ -1058,7 +1236,7 @@ class DataLocalEngine:
                     continue
                 break
             if progress_every and steps % progress_every == 0:
-                print(f"  [{self.app.name}] step {steps} "
+                print(f"  [{self._label}] step {steps} "
                       f"pending={stats['pending']:.0f}")
         return state, steps
 
@@ -1079,7 +1257,7 @@ class DataLocalEngine:
         gets one span per chunk: ``launch`` is its dispatch, ``fetch``
         its fetch."""
         sync_ctr = default_registry().counter("engine.host_syncs")
-        progress = _ProgressReporter(self.app.name, progress_every,
+        progress = _ProgressReporter(self._label, progress_every,
                                      sanitize=self.cfg.sanitize,
                                      tiles=self.T)
         runner = self.chunk_runner(state, K)
@@ -1122,6 +1300,32 @@ class DataLocalEngine:
         reg.counter(f"engine.window_occupancy.{window or self.T}").inc(steps)
         if overflow:
             reg.counter("engine.window_overflows").inc()
+
+
+class _Exchange:
+    """One superstep's board traffic on a multi-chip window: the off-chip
+    records of every owner-bound leg (window mailbox index, value, mask),
+    which ``_step`` folds into the mailbox at the end of the superstep,
+    and, for the per-chip telemetry, every leg's owner-bound and
+    off-chip records counted by source chip."""
+
+    def __init__(self):
+        self.idx, self.val, self.mask = [], [], []
+        self.owner = self.off = 0.0
+
+    def send(self, idx, val, off) -> None:
+        self.idx.append(idx)
+        self.val.append(val)
+        self.mask.append(off)
+
+    def count(self, chip, mask, off, n_chips: int) -> None:
+        def by_chip(m):
+            return torch.zeros((n_chips,), dtype=torch.float32,
+                               device=m.device).index_add_(
+                0, chip.to(torch.int64), m.to(torch.float32))
+        self.owner = self.owner + by_chip(mask)
+        if off is not None:
+            self.off = self.off + by_chip(off)
 
 
 def fetch_stats(stats, keys=STAT_KEYS, vec_keys=()) -> dict:

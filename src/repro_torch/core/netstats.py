@@ -291,22 +291,16 @@ def charge(grid: TileGrid, src_tid, dst_tid, mask, region_dims=None):
 
 def charge_off_chip(part, src_tid, dst_tid, mask):
     """Charge the board-level leg of records leaving their chip: one
-    board link per chip-grid hop (Manhattan on the chip grid, wrapping
-    as the tile network does).  Returns dict(off_chip_msgs,
-    off_chip_hop_msgs) of scalar f32 tensors.  The monolithic engine
-    never calls it; it is here so the distributed runtime (ROADMAP A.9)
-    charges what the reference charges."""
+    board link per chip-grid hop (``ChipPartition.chip_hops``).  Returns
+    dict(off_chip_msgs, off_chip_hop_msgs) of scalar f32 tensors."""
+    return charge_board(part, part.chip_of_tile(src_tid),
+                        part.chip_of_tile(dst_tid), mask)
+
+
+def charge_board(part, src_chip, dst_chip, mask):
+    """``charge_off_chip`` on the records' source and owner chips."""
     m = mask.to(torch.float32)
-    sc = part.chip_of_tile(src_tid)
-    dc = part.chip_of_tile(dst_tid)
-    hx = torch.abs(sc % part.chips_x - dc % part.chips_x)
-    hy = torch.abs(sc // part.chips_x - dc // part.chips_x)
-    if part.grid.torus:
-        if part.chips_x > 1:
-            hx = torch.minimum(hx, part.chips_x - hx)
-        if part.chips_y > 1:
-            hy = torch.minimum(hy, part.chips_y - hy)
-    hops = (hx + hy).to(torch.float32)
+    hops = part.chip_grid_hops(src_chip, dst_chip).to(torch.float32)
     return dict(off_chip_msgs=torch.sum(m),
                 off_chip_hop_msgs=torch.sum(hops * m))
 

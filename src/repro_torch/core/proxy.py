@@ -3,9 +3,9 @@
 The PyTorch rendering of ``repro.core.proxy``.  ``CascadeConfig`` and
 ``ProxyConfig`` are verbatim copies with their validation; ``proxy_tile``,
 ``cascade_proxy_tile``, ``pcache_slot`` and ``make_pcache`` are redone in
-torch.  The engine runs the write-through and the write-back P$ and the
-cascade; ``chip_local_proxy`` and ``max_cascade_levels`` (multi-chip
-helpers) stay with ROADMAP A.9.
+torch; ``max_cascade_levels``, ``chip_local_proxy`` and ``region_id`` are
+copies.  The engine runs the write-through and the write-back P$ and the
+cascade, on one chip or, adapted by ``chip_local_proxy``, on a partition.
 
 The tile grid is divided into proxy regions.  A task message destined for
 a far-away owner is first routed to the proxy tile inside the *sender's*
@@ -16,6 +16,7 @@ forwarding one combined record to the true owner.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -106,6 +107,56 @@ class ProxyConfig:
                     f"divide the {ny}x{nx} window: grouping "
                     f"{self.cascade.group_ny}x{self.cascade.group_nx} is "
                     f"non-divisible at this level")
+
+
+def max_cascade_levels(ny: int, nx: int, region_ny: int, region_nx: int,
+                       group_ny: int = 2, group_nx: int = 2) -> int:
+    """Deepest well-formed reduction tree on an ``ny x nx`` window: the
+    levels of ``group_ny x group_nx`` grouping that divide the window,
+    stopping before a level's regions cover it whole (the degenerate
+    root, whose proxy is the owner)."""
+    if ny % region_ny or nx % region_nx:
+        return 0
+    fit = 0
+    for level in range(1, 64):
+        rny = region_ny * group_ny ** level
+        rnx = region_nx * group_nx ** level
+        if ny % rny or nx % rnx or (rny >= ny and rnx >= nx):
+            break
+        fit = level
+    return fit
+
+
+def chip_local_proxy(cfg: ProxyConfig, sub_ny: int,
+                     sub_nx: int) -> ProxyConfig:
+    """Adapt a proxy config to one chip's ``sub_ny x sub_nx`` tile window.
+
+    A sender's region, and every cascade level, must lie on the sender's
+    chip, so roots sit at the chip boundary and anything bound further
+    out rides the off-chip leg straight to its owner: region dimensions
+    shrink to their gcd with the chip's, and cascade levels that would
+    outgrow the chip are cut (the cascade is dropped when none fits).
+    Both change the schedule only, never the fixed point (min) or the
+    delivered sum (add)."""
+    rny = math.gcd(cfg.region_ny, sub_ny)
+    rnx = math.gcd(cfg.region_nx, sub_nx)
+    cascade = cfg.cascade
+    if cascade is not None:
+        fit = 0
+        for level in range(1, cascade.levels + 1):
+            lny, lnx = cascade.level_dims(rny, rnx, level)
+            if sub_ny % lny or sub_nx % lnx:
+                break
+            fit = level
+        cascade = (dataclasses.replace(cascade, levels=fit) if fit
+                   else None)
+    return dataclasses.replace(cfg, region_ny=rny, region_nx=rnx,
+                               cascade=cascade)
+
+
+def region_id(grid: TileGrid, cfg: ProxyConfig, tid):
+    """Proxy-region id of a tile."""
+    return grid.region_id(tid, cfg.region_ny, cfg.region_nx)
 
 
 def proxy_tile(grid: TileGrid, cfg: ProxyConfig, owner_tid, src_tid):

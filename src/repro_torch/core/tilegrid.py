@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -161,13 +162,18 @@ def square_grid(num_tiles: int, **kw) -> TileGrid:
 
 
 # --------------------------------------------------------------------------
-# Chip partitioning.  The port runs one chip (the monolithic engine); the
-# partition is kept so the engine's window arithmetic reads as the
-# reference's.  Multi-chip execution is ROADMAP A.9.
+# Chip partitioning (the distributed runtime's unit of execution)
 # --------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class ChipPartition:
-    """A (chips_y x chips_x) block partition of a tile grid into chips."""
+    """A (chips_y x chips_x) block partition of a tile grid into chips.
+
+    Each chip is a rectangular subgrid of ``sub_ny x sub_nx`` tiles.
+    Tiles keep the monolithic engine's global row-major ids, so hop
+    charging and numerics are unchanged; the partition only decides
+    which messages ride the board between supersteps.  The index maps
+    are closed-form arithmetic on integer tensors (``global_tile`` also
+    on the numpy arrays of the host-side ``tile_ids``)."""
 
     grid: TileGrid
     chips_y: int
@@ -214,6 +220,28 @@ class ChipPartition:
         ly = ltid // self.sub_nx
         lx = ltid % self.sub_nx
         return self.grid.tid(cy * self.sub_ny + ly, cx * self.sub_nx + lx)
+
+    def chip_hops(self, src_tid, dst_tid):
+        """Manhattan hops on the chip grid for a message src -> dst: the
+        board-level (IO-die to IO-die) legs it traverses."""
+        return self.chip_grid_hops(self.chip_of_tile(src_tid),
+                                   self.chip_of_tile(dst_tid))
+
+    def chip_grid_hops(self, src_chip, dst_chip):
+        """Hops between chips on the chip grid, wrapping as the tile
+        network does (on a one-chip axis the wrap changes nothing)."""
+        hx = torch.abs(src_chip % self.chips_x - dst_chip % self.chips_x)
+        hy = torch.abs(src_chip // self.chips_x - dst_chip // self.chips_x)
+        if self.grid.torus:
+            hx = torch.minimum(hx, self.chips_x - hx)
+            hy = torch.minimum(hy, self.chips_y - hy)
+        return hx + hy
+
+    def tile_ids(self, chip: int) -> np.ndarray:
+        """Global tile ids of chip ``chip`` in local row-major order
+        (numpy, host-side: the chip-major window's permutation)."""
+        return np.asarray(self.global_tile(chip,
+                                           np.arange(self.tiles_per_chip)))
 
     def describe(self) -> str:
         return (f"ChipPartition {self.chips_y}x{self.chips_x} chips of "

@@ -14,9 +14,10 @@ RunResult (traffic counters + BSP time), from which the paper's metrics
 
 ``device=None`` runs on the CUDA card; ``backend="kernels"`` (default) or
 ``"torch"`` picks the engine's hot-spot implementation (the reference's
-``"pallas"`` / ``"jnp"``; its distributed backends are ROADMAP A.9, as
-is ``chips > 1``, which raises); every other keyword is an
-``EngineConfig`` field.  ``observer=`` (an ``obs.timeline.Observer``)
+``"pallas"`` / ``"jnp"``; its multi-device backends are ROADMAP A.5c);
+``chips > 1`` runs the distributed engine (``distrib.DistributedEngine``,
+every chip in one process); every other keyword is an ``EngineConfig``
+field.  ``observer=`` (an ``obs.timeline.Observer``)
 goes to the engine's ``run``; PageRank's observer sees one
 ``on_run_start`` / ``on_run_end`` pair per epoch.
 """
@@ -31,6 +32,7 @@ from ..core.engine import AppSpec, DataLocalEngine, EngineConfig, RunResult
 from ..core.netstats import SuperstepTrace, TrafficCounters
 from ..core.proxy import CascadeConfig, ProxyConfig
 from ..core.tilegrid import TileGrid
+from ..distrib.driver import DistributedEngine
 from .csr import CSR, transpose_csr
 
 # Table II per-app cascade profitability (the selective criterion): the
@@ -93,20 +95,20 @@ class AppResult:
 
 def _engine(spec: AppSpec, g: CSR, grid: TileGrid,
             proxy: Optional[ProxyConfig], chips: int = 0, device=None,
-            **kw) -> DataLocalEngine:
+            **kw):
     return _build(spec, grid, proxy, g.n_rows, g.n_cols, g.row_lo,
                   g.row_hi, g.col_idx, g.weights, chips, device, kw)
 
 
 def _build(spec: AppSpec, grid: TileGrid, proxy: Optional[ProxyConfig],
            n_src: int, n_dst: int, row_lo, row_hi, col_idx, weights,
-           chips: int, device, kw: dict) -> DataLocalEngine:
-    if chips and chips > 1:
-        raise NotImplementedError(
-            "not ported to repro_torch yet: chips > 1, the distributed "
-            "runtime (ROADMAP A.9)")
+           chips: int, device, kw: dict):
+    """The monolithic engine, or the distributed one for ``chips > 1``."""
     cfg = EngineConfig(grid=grid, n_src=n_src, n_dst=n_dst, proxy=proxy,
                        **kw)
+    if chips and chips > 1:
+        return DistributedEngine(spec, cfg, row_lo, row_hi, col_idx,
+                                 weights, num_chips=chips, device=device)
     return DataLocalEngine(spec, cfg, row_lo, row_hi, col_idx, weights,
                            device=device)
 

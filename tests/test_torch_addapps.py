@@ -238,8 +238,9 @@ def test_one_host_sync_per_superstep_write_back(inputs):
 
 def test_add_apps_refuse_what_is_not_ported(inputs):
     grid = square_grid(TILES)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        apps.spmv(inputs["g"], inputs["x"], grid, chips=4, device="cpu")
+    with pytest.raises(NotImplementedError, match="A.5b"):
+        apps.spmv(inputs["g"], inputs["x"], grid, chips=4, compaction=3,
+                  device="cpu")
     with pytest.raises(ValueError, match="backend"):
         apps.histogram(inputs["hv"], inputs["bins"], grid, backend="jnp",
                        device="cpu")

@@ -199,9 +199,10 @@ def test_default_device_is_the_card(graphs):
         _run(apps, square_grid, "bfs", g, False)
 
 
+# setting -> (its EngineConfig fields, the ROADMAP item that ports it)
 UNPORTED = {
-    "double_buffer": dict(double_buffer=True),
-    "ckpt_every_supersteps": dict(ckpt_every_supersteps=4),
+    "double_buffer": (dict(double_buffer=True), "A.5b"),
+    "ckpt_every_supersteps": (dict(ckpt_every_supersteps=4), "A.6"),
 }
 
 
@@ -209,9 +210,10 @@ UNPORTED = {
 def test_unported_settings_raise(graphs, what):
     g, _ = graphs
     grid = square_grid(TILES)
+    fields, item = UNPORTED[what]
     cfg = engine.EngineConfig(grid=grid, n_src=g.n_rows, n_dst=g.n_cols,
-                              **UNPORTED[what])
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+                              **fields)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         engine.DataLocalEngine(apps.BFS_SPEC, cfg, g.row_lo, g.row_hi,
                                g.col_idx, device="cpu")
 
@@ -220,11 +222,13 @@ def test_unported_runtime_options_raise(graphs):
     g, _ = graphs
     grid = square_grid(TILES)
     cfg = engine.EngineConfig(grid=grid, n_src=g.n_rows, n_dst=g.n_cols)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        engine.DataLocalEngine(apps.BFS_SPEC, cfg, g.row_lo, g.row_hi,
-                               g.col_idx, part=ChipPartition(grid, 2, 2),
-                               device="cpu")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        apps.bfs(g, 0, grid, chips=4, device="cpu")
+    # a multi-chip window's state is the distributed driver's
+    eng = engine.DataLocalEngine(apps.BFS_SPEC, cfg, g.row_lo, g.row_hi,
+                                 g.col_idx, part=ChipPartition(grid, 2, 2),
+                                 device="cpu")
+    with pytest.raises(ValueError, match="DistributedEngine"):
+        eng.init_state(seed_idx=0, seed_val=0.0)
+    with pytest.raises(NotImplementedError, match="A.5b"):
+        apps.bfs(g, 0, grid, chips=4, compaction=3, device="cpu")
     with pytest.raises(ValueError, match="backend"):
         apps.bfs(g, 0, grid, backend="pallas", device="cpu")

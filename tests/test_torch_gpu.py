@@ -723,3 +723,61 @@ def test_chunked_run_with_hooks_equals_bare_on_card(app, compaction):
     load = rec.vec_matrix("tv_delivered")
     assert load.shape == (hooked.run.supersteps, 256)
     assert load.sum() == hooked.run.counters.owner_msgs
+
+
+# ------------------------------------------------ the partitioned engine
+def _chips_case(app, chips=4):
+    """RMAT-9 on 8x8 tiles in ``chips`` chips under the Table-II proxy
+    (SpMV with a 2-level cascade, cut at the chip boundary)."""
+    g = rmat_edges(9, edge_factor=8, seed=1)
+    grid = square_grid(64)
+    if app == "bfs":
+        return apps.bfs, (g, int(np.argmax(g.out_degree())), grid), dict(
+            proxy=apps.table2_proxy(grid, "bfs"), oq_cap=16, chips=chips)
+    x = np.random.default_rng(0).random(g.n_cols).astype(np.float32)
+    return apps.spmv, (g, x, grid), dict(
+        proxy=apps.table2_proxy(grid, "spmv", cascade_levels=2), oq_cap=16,
+        chips=chips)
+
+
+@pytest.mark.parametrize("app", ["bfs", "spmv"])
+def test_partitioned_kernels_match_torch_on_card(app):
+    """4 chips in one batched superstep on the card: the kernels backend
+    equals the torch backend and the CPU run (counters, trace,
+    supersteps, ``time_s`` exact; BFS values bitwise, SpMV's to f32
+    re-association), records crossed chips, and every engine kernel ran
+    in each superstep."""
+    dev = _card()
+    fn, args, kw = _chips_case(app)
+    ops.reset_launches()
+    on_card = fn(*args, device=dev, **kw)
+    assert on_card.run.counters.off_chip_msgs > 0
+    steps = on_card.run.supersteps
+    assert rx.relax.launches >= steps
+    assert sc.segment_combine.launches >= steps
+    # on-chip delivery and the board exchange, each superstep
+    assert df.deliver_fused.launches >= 2 * steps
+    for other in (fn(*args, device=dev, backend="torch", **kw),
+                  fn(*args, device="cpu", **kw)):
+        _same_run(on_card, other, app)
+
+
+def test_partitioned_chunk_replays_make_no_host_sync():
+    """A 4-chip chunk of replays (BFS; SpMV's no-flush and flush graphs)
+    makes no sync that PyTorch's sync debug mode detects, with the
+    per-chip telemetry and the sanitizer's count in its one fetch."""
+    for app in ("bfs", "spmv"):
+        runner = _runner(app, 4, chips=4, **HOOKS)
+        for flush in (False, True):
+            runner.launch(10_000, flush)          # warm-up and capture
+            runner.fetch()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for flush in (False, True):
+                runner.launch(10_000, flush)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        got = runner.fetch()
+        assert not got.done and got.rows[:, -1].sum() >= 1
+        assert "pc_offchip" in got.vecs
+        assert all(v.shape == (4, 4) for v in got.vecs.values())
