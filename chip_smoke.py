@@ -108,6 +108,28 @@ on past a failure:
    ``harness.weak_scaling`` at 1, 4, 16, 64 and 256 chips of 16 tiles
    (GTEPS monotone, ``reprice_ratio`` within 1e-9 of 1, each row's wall
    seconds);
+10b. the partition's overlap and windows (ROADMAP A.5b; the card runs
+   the deferred exchange in order, the BSP model prices the overlap):
+   BFS on RMAT-22 on 4 chips with ``compaction=3`` (per-chip windows of
+   1024, 256, 64 and 16 tiles), ``double_buffer=True`` and both, each
+   against scipy and against phase 10's synchronous dense run (counters,
+   the trace less its ``double_buffer`` field, supersteps; host syncs
+   equal, or at most one more per window overflow; ``time_s`` equal
+   without the double buffer, strictly below with it, its trace
+   re-priced within 1e-12), with ms a superstep, wall, peak memory,
+   supersteps by window and overflows, then the synchronous dense run
+   again (equal to phase 10's; ms a superstep of all five in the order
+   run); at RMAT-18, Table-II, BFS and
+   SpMV (cascade cut at the chip boundary) with both on,
+   ``compaction=2``, below their synchronous dense runs in ``time_s``
+   and equal to them otherwise, on both backends and both loops
+   (counters, trace, supersteps, ``time_s`` exact; BFS values bitwise,
+   SpMV within rtol 1e-4 / atol 1e-5, and against scipy); 20 profiled
+   graph replays of BFS RMAT-18 on 4 chips synchronous, double-buffered
+   and, with both, in the per-chip window the compacted run spent most
+   supersteps in (device entries and busy ms a replay); and
+   ``harness.weak_scaling(double_buffer=True)`` at 1-256 chips, each
+   row's GTEPS at or above phase 10's synchronous row's;
 11. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
     the last line, ``{"ok": true, "device": {...}}``.
 
@@ -119,12 +141,14 @@ fall in the kernels' 32-record warp slices (``EngineIds``): the share
 of live records in runs of neighbours and repeated in their slice, and
 the atomics a fold would leave.
 
-Each main-path run (phases 5-8, 6b, 9b and 10's RMAT-22 run) sets every
+Each main-path run (phases 5-8, 6b, 9b and the RMAT-22 runs of 10 and
+10b) sets every
 kernel's launch count to 0 just before it and reads the counts just
 after; a kernel on the path that did not launch (at least once per
 superstep, on the engine's paths) fails the run.  The JSON line counts
 the compacted runs under their own path, ``compaction``, phase 9b's
-RMAT-22 runs under ``hooks`` and phase 10's under ``partition``.  A graph replay counts the launches
+RMAT-22 runs under ``hooks``, phase 10's under ``partition`` and phase
+10b's three under ``partition_overlap``.  A graph replay counts the launches
 captured in it, so on the chunked loop the counts include the idle rows
 of a chunk (after the run drained, or after a flush the device
 scheduled), which are printed as the surplus.
@@ -879,32 +903,39 @@ def profile_supersteps(dev, eng, state, label: str, n: int = 20) -> None:
     profile_replays(eng, state, label, n)
 
 
-def profile_replays(eng, state, label: str, n: int = 20) -> dict:
+def profile_replays(eng, state, label: str, n: int = 20,
+                    window=None) -> dict:
     """``n`` graph replays of the chunked loop from ``state`` (one chunk
     of ``n`` after a first chunk of ``n``, which runs the eager
     superstep and the capture) under ``torch.profiler``, with their one
     fetch; ``eng`` a ``DataLocalEngine`` or a ``DistributedEngine``.
-    Returns ``_profile_report``'s readings, which must exist."""
+    In a compaction ``window`` a row the state outgrows idles (it runs
+    the same graph): its active rows are printed, not gated.  Returns
+    ``_profile_report``'s readings, which must exist."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.obs.metrics import default_registry
     replays = default_registry().counter("engine.graph_replays")
     runner = eng.chunk_runner(state, n)
-    runner.launch(10 * n, False)
+    runner.launch(10 * n, False, window)
     runner.fetch()
     before = replays.value
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        runner.launch(10 * n, False)
+        runner.launch(10 * n, False, window)
         rows = runner.fetch().rows
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    require(replays.value - before == n and rows[:, -1].sum() == n,
+    active = int(rows[:, -1].sum())
+    require(replays.value - before == n and (window is not None
+                                             or active == n),
             f"profile {label}: {replays.value - before:.0f} replays, "
-            f"{rows[:, -1].sum():.0f} active rows, expected {n}")
-    got = _profile_report(prof, wall, n, f"{label}, {n} graph replays")
+            f"{active} active rows, expected {n}")
+    got = _profile_report(prof, wall, n, f"{label}, {n} graph replays"
+                          + ("" if window is None else
+                             f" at window {window} ({active} rows active)"))
     require(got is not None, f"profile {label}: no device time recorded")
-    return got
+    return dict(got, active_rows=active)
 
 
 def scipy_csr(g):
@@ -913,10 +944,17 @@ def scipy_csr(g):
     return csr_matrix((w, g.col_idx, g.row_ptr), shape=(g.n_rows, g.n_cols))
 
 
+_HOPS = {}      # (graph, root) -> scipy's hop distances, made once
+
+
 def check_bfs(g, root, res) -> None:
     from scipy.sparse.csgraph import shortest_path
     t0 = time.perf_counter()
-    want = shortest_path(scipy_csr(g), unweighted=True, indices=root)
+    key = (id(g), root)
+    if key not in _HOPS:
+        _HOPS[key] = shortest_path(scipy_csr(g), unweighted=True,
+                                   indices=root)
+    want = _HOPS[key]
     require(np.array_equal(res.values.astype(np.float64), want),
             f"BFS values differ from scipy's hop distances at "
             f"{int(np.sum(res.values.astype(np.float64) != want))} vertices")
@@ -949,7 +987,9 @@ def check_histo(hv, bins, counts, what) -> None:
     print(f"    {what} == np.bincount bitwise ({int(want.sum())} counted)")
 
 
-def same_run(a, b, what: str, rtol=None, atol=None) -> None:
+def same_physics(a, b, what: str, rtol=None, atol=None) -> None:
+    """Two runs equal but for how the overlap was priced: values,
+    counters, the trace less its ``double_buffer`` field, supersteps."""
     if rtol is None:
         require(np.array_equal(a.values, b.values), f"{what}: values differ")
     else:
@@ -957,10 +997,17 @@ def same_run(a, b, what: str, rtol=None, atol=None) -> None:
                 f"{what}: values outside rtol {rtol} / atol {atol}")
     require(a.run.counters.as_dict() == b.run.counters.as_dict(),
             f"{what}: counters differ")
-    require(a.run.trace.to_dict() == b.run.trace.to_dict(),
-            f"{what}: trace differs")
+    ta, tb = a.run.trace.to_dict(), b.run.trace.to_dict()
+    ta.pop("double_buffer"), tb.pop("double_buffer")
+    require(ta == tb, f"{what}: trace differs")
     require(a.run.supersteps == b.run.supersteps,
             f"{what}: supersteps differ")
+
+
+def same_run(a, b, what: str, rtol=None, atol=None) -> None:
+    same_physics(a, b, what, rtol, atol)
+    require(a.run.trace.double_buffer == b.run.trace.double_buffer,
+            f"{what}: trace differs")
     require(a.run.time_s == b.run.time_s, f"{what}: time_s differs")
     print(f"    {what}: counters, trace, supersteps, time_s equal; values "
           + ("bitwise" if rtol is None else f"within rtol {rtol} / atol "
@@ -1256,11 +1303,10 @@ def profile_window(eng, state, window, label: str, n: int = 20) -> dict:
                 full_length_ms=full / n / 1e3)
 
 
-def profile_rung(dev, wl, label: str, rungs) -> dict:
-    """``profile_window`` at the rung ``label`` spends most supersteps in
-    (per-superstep reference rungs ``rungs``), from the state at the
-    start of the longest stretch of supersteps at that rung."""
-    from repro_torch.graph import apps
+def commonest_rung(label: str, rungs):
+    """The rung of the per-superstep reference rungs ``rungs`` that holds
+    most supersteps, and the first superstep and length of the longest
+    stretch of supersteps at it (printed)."""
     caps, counts = np.unique(rungs, return_counts=True)
     cap = int(caps[np.argmax(counts)])
     at = np.flatnonzero(rungs == cap)
@@ -1272,6 +1318,15 @@ def profile_rung(dev, wl, label: str, rungs) -> dict:
     print(f"  {label} spends most supersteps ({int(counts.max())}) at rung "
           f"{cap}; longest stretch there: {length} supersteps from "
           f"superstep {start}")
+    return cap, start, length
+
+
+def profile_rung(dev, wl, label: str, rungs) -> dict:
+    """``profile_window`` at the rung ``label`` spends most supersteps in
+    (per-superstep reference rungs ``rungs``), from the state at the
+    start of the longest stretch of supersteps at that rung."""
+    from repro_torch.graph import apps
+    cap, start, length = commonest_rung(label, rungs)
     g, grid = wl[SCALE], wl["grid"]
     kw = main_path_apps(wl)[label][2]
     eng, state, _ = apps.engine_and_state(
@@ -1773,6 +1828,7 @@ def partition_phase(dev, wl) -> dict:
     require_launches(f"bfs {PART_CHIPS} chips", launches, read,
                      ENGINE_KERNELS)
     side_by_side(f"bfs RMAT-{SCALE}", *wl["dense"]["bfs"], res, read)
+    wl["partition"] = dict(bfs=(res, read))
     print(f"  RMAT-{SCALE} BFS on {PART_CHIPS} chips "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -1828,6 +1884,7 @@ def partition_phase(dev, wl) -> dict:
                    x, grid, proxy=spmv_px, oq_cap=OQ_CAP,
                    chips=PART_CHIPS)[0]
     check_spmv(g18, x, dist.values, f"SpMV {PART_CHIPS} chips y")
+    wl["partition"]["spmv"] = dist
     from repro_torch.core.proxy import chip_local_proxy
     from repro_torch.core.tilegrid import partition_grid
     part = partition_grid(grid, PART_CHIPS)
@@ -1878,8 +1935,218 @@ def partition_phase(dev, wl) -> dict:
             f"weak scaling: GTEPS not monotone {curve}")
     require(all(abs(r["reprice_ratio"] - 1.0) < 1e-9 for r in rows),
             "weak scaling: a re-priced trace differs from its run")
+    wl["partition"]["weak"] = rows
     print(f"  weak scaling {time.perf_counter() - t0:.1f} s")
     print(f"  partition phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# --------------------------- 10b. the partition's overlap and windows
+OVERLAP_RUNS = (("compaction=3", dict(compaction=COMPACTION)),
+                ("double_buffer", dict(double_buffer=True)),
+                ("both", dict(compaction=COMPACTION, double_buffer=True)))
+OVERLAP_AGREE_COMPACTION = 2    # capacity_ladder(1024, 2): 1024, 256, 64
+REPRICE_TOL = 1e-12
+
+
+def reprice_ratio(g, grid, res) -> float:
+    """The run's trace re-priced under its own package over its
+    ``time_s`` (``distrib.harness``'s check)."""
+    from repro_torch.core.costmodel import DCRA_SRAM, price
+    rep = price(DCRA_SRAM, grid, res.run.counters,
+                mem_bits_sram=float(g.footprint_bytes() * 8),
+                per_superstep_peak=res.run.trace)
+    return rep.time_s / res.run.time_s
+
+
+def overlap_gates(label, g, grid, sync, res, extra) -> float:
+    """A run of phase 10b against the synchronous dense run ``sync``:
+    the same physics; ``time_s`` equal without ``double_buffer``,
+    strictly below with it where records left their chips (and its
+    trace re-prices to its ``time_s``).  Returns the re-price ratio."""
+    same_physics(sync, res, f"{label} vs synchronous dense")
+    ratio = reprice_ratio(g, grid, res)
+    require(abs(ratio - 1.0) < REPRICE_TOL,
+            f"{label}: reprice ratio {ratio!r}")
+    if not extra.get("double_buffer"):
+        require(res.run.time_s == sync.run.time_s,
+                f"{label}: time_s {res.run.time_s!r} against the "
+                f"synchronous {sync.run.time_s!r}")
+    elif sync.run.counters.off_chip_msgs > 0:
+        require(res.run.time_s < sync.run.time_s,
+                f"{label}: time_s {res.run.time_s!r} not below the "
+                f"synchronous {sync.run.time_s!r}")
+    print(f"    {label}: values, counters, trace (less double_buffer), "
+          f"supersteps equal to the synchronous dense run; time_s "
+          f"{res.run.time_s:.6e} against {sync.run.time_s:.6e} "
+          f"({res.run.time_s / sync.run.time_s:.4f}x), reprice ratio "
+          f"{ratio!r}")
+    return ratio
+
+
+def advance(eng, state, steps: int):
+    """The flat state ``steps`` dense supersteps after ``state``, from
+    one chunk of ``eng``'s runner (``DistributedEngine.chunk_runner``
+    takes it back)."""
+    if not steps:
+        return state
+    runner = eng.chunk_runner(state, steps)
+    runner.launch(steps, False)
+    got = runner.fetch()
+    require(int(got.rows[:, -1].sum()) == steps,
+            f"advance: {got.rows[:, -1].sum():.0f} of {steps} supersteps")
+    return runner.state
+
+
+def overlap_phase(dev, wl) -> dict:
+    """ROADMAP A.5b on the card: BFS at RMAT-22 on 4 chips compacted,
+    double-buffered and both, beside phase 10's synchronous dense run;
+    BFS and SpMV at RMAT-18 with both on, across backends and loops;
+    graph replays synchronous, double-buffered and in a compacted
+    window; the weak-scaling sweep double-buffered beside phase 10's.
+    Returns the RMAT-22 runs' launches, summed."""
+    from repro_torch.core.engine import capacity_ladder
+    from repro_torch.distrib import harness
+    from repro_torch.graph import apps
+    t_phase = time.perf_counter()
+    tl = TILES // PART_CHIPS
+    print(f"== 10b. the partition's overlap and windows: {PART_CHIPS} chips, "
+          f"per-chip ladder {capacity_ladder(tl, COMPACTION)}, the "
+          f"double-buffered exchange (priced: the card runs both halves in "
+          f"order), backend=kernels")
+    fn, args, kw = main_path_apps(wl)["bfs"]
+    g, root, grid = args
+    sync, sync_read = wl["partition"]["bfs"]
+    launches, readings = {}, {}
+    t0 = time.perf_counter()
+    for label, extra in OVERLAP_RUNS:
+        name = f"bfs {PART_CHIPS} chips {label}"
+        before = counter_values("engine.")
+        res, got, read = app_run(dev, name, fn, *args, chips=PART_CHIPS,
+                                 **extra, **kw)
+        moved = counter_deltas(before, counter_values("engine."))
+        require_launches(name, got, read, ENGINE_KERNELS)
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        check_bfs(g, root, res)
+        overlap_gates(name, g, grid, sync, res, extra)
+        overflows = int(moved.get("engine.window_overflows", 0))
+        syncs, dense = read["host_syncs"], sync_read["host_syncs"]
+        require(dense <= syncs <= dense + overflows,
+                f"{name}: {syncs:.0f} host syncs against {dense:.0f} dense "
+                f"and {overflows} overflows")
+        by_window = {int(k.rsplit(".", 1)[1]): int(v)
+                     for k, v in moved.items()
+                     if k.startswith("engine.window_occupancy.")}
+        readings[label] = dict(
+            ms_per_superstep=read["ms_per_superstep"], wall_s=read["wall_s"],
+            peak_gib=read["peak_gib"], host_syncs=syncs,
+            supersteps_by_window=by_window, overflows=overflows,
+            time_s=res.run.time_s)
+        print(f"    {name}: {read['ms_per_superstep']:.3f} ms a superstep "
+              f"(phase 10 synchronous dense "
+              f"{sync_read['ms_per_superstep']:.3f}), wall "
+              f"{read['wall_s']:.2f} s, peak {read['peak_gib']:.3f} GiB, host "
+              f"syncs {syncs:.0f} (dense {dense:.0f}); supersteps by window "
+              f"a chip {json.dumps(by_window) if by_window else 'all dense'}"
+              f", overflows {overflows}")
+    # the synchronous dense run again, so that the three runs above lie
+    # between two readings of it in this call
+    again, got, read = app_run(dev, f"bfs {PART_CHIPS} chips synchronous "
+                               f"dense again", fn, *args, chips=PART_CHIPS,
+                               **kw)
+    same_run(sync, again, f"bfs {PART_CHIPS} chips synchronous dense again "
+             f"vs phase 10")
+    readings["synchronous"] = [sync_read["ms_per_superstep"],
+                               read["ms_per_superstep"]]
+    print(f"    bfs {PART_CHIPS} chips ms a superstep, in this order: "
+          f"synchronous {sync_read['ms_per_superstep']:.3f}, "
+          + ", ".join(f"{k} {v['ms_per_superstep']:.3f}"
+                      for k, v in readings.items() if k != "synchronous")
+          + f", synchronous again {read['ms_per_superstep']:.3f}")
+    print(f"  RMAT-{SCALE} runs {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    g18 = wl[AGREE_SCALE]
+    root18 = int(np.argmax(g18.out_degree()))
+    x = np.random.default_rng(SEED).random(g18.n_cols).astype(np.float32)
+    both = dict(double_buffer=True, compaction=OVERLAP_AGREE_COMPACTION,
+                chips=PART_CHIPS, oq_cap=OQ_CAP)
+    print(f"  RMAT-{AGREE_SCALE}, Table-II, {PART_CHIPS} chips, "
+          f"double_buffer and compaction={OVERLAP_AGREE_COMPACTION}: both "
+          f"backends, both loops")
+    bfs_px = apps.table2_proxy(grid, "bfs")
+    bfs_sync = app_run(dev, f"bfs {PART_CHIPS} chips synchronous dense",
+                       apps.bfs, g18, root18, grid, proxy=bfs_px,
+                       oq_cap=OQ_CAP, chips=PART_CHIPS)[0]
+    cases = (("bfs", apps.bfs, (g18, root18, grid), bfs_px, bfs_sync,
+              (None, None)),
+             ("spmv", apps.spmv, (g18, x, grid),
+              apps.table2_proxy(grid, "spmv", cascade_levels=2),
+              wl["partition"]["spmv"], (AGREE_RTOL, AGREE_ATOL)))
+    rungs = None
+    for name, afn, aargs, px, want, tol in cases:
+        label = f"{name} {PART_CHIPS} chips both"
+        with CompactionRows() as rows:
+            base = app_run(dev, label, afn, *aargs, proxy=px, **both)[0]
+        if name == "bfs":
+            rungs = rows.per_step()[1]
+        same_physics(want, base, f"{label} vs synchronous dense", *tol)
+        require(base.run.time_s < want.run.time_s,
+                f"{label}: time_s not below the synchronous run's")
+        ratio = reprice_ratio(aargs[0], grid, base)
+        require(abs(ratio - 1.0) < REPRICE_TOL,
+                f"{label}: reprice ratio {ratio!r}")
+        for backend, chunk in (("torch", 16), ("kernels", 0), ("torch", 0)):
+            other = app_run(dev, label, afn, *aargs, proxy=px,
+                            backend=backend, run_chunk=chunk, **both)[0]
+            same_run(base, other, f"{label} kernels chunked vs {backend} "
+                     f"run_chunk={chunk}", *tol)
+        if name == "spmv":
+            check_spmv(g18, x, base.values, f"SpMV {PART_CHIPS} chips both y")
+    print(f"  RMAT-{AGREE_SCALE} runs {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    cap, start, _ = commonest_rung(f"bfs RMAT-{AGREE_SCALE} {PART_CHIPS} "
+                                   f"chips compacted (rungs a chip)", rungs)
+    nodes = {}
+    for label, extra, window in (
+            ("synchronous", {}, None),
+            ("double_buffer", dict(double_buffer=True), None),
+            (f"both, window {cap}",
+             dict(double_buffer=True, compaction=OVERLAP_AGREE_COMPACTION),
+             None if cap == tl else cap)):
+        eng, state, _ = apps.engine_and_state(
+            "bfs", g18, grid, bfs_px, root=root18, oq_cap=OQ_CAP,
+            chips=PART_CHIPS, device=dev, **extra)
+        if window is not None:
+            state = advance(eng, state, start)
+        nodes[label] = profile_replays(
+            eng, state, f"bfs RMAT-{AGREE_SCALE} {PART_CHIPS} chips {label}",
+            window=window)
+        del eng, state
+    print(f"  graph replays {json.dumps(nodes)}")
+    print(f"  replays {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    for row in wl["partition"]["weak"]:
+        chips = row["chips"]
+        got = harness.weak_scaling((chips,), backend="kernels", device=dev,
+                                   double_buffer=True)[0]
+        require(got["gteps"] >= row["gteps"],
+                f"weak scaling {chips} chip(s): double-buffered GTEPS "
+                f"{got['gteps']!r} below the synchronous {row['gteps']!r}")
+        require(abs(got["reprice_ratio"] - 1.0) < 1e-9,
+                f"weak scaling {chips} chip(s): reprice ratio "
+                f"{got['reprice_ratio']!r}")
+        print(f"    weak scaling {chips} chip(s) double-buffered: "
+              f"{got['gteps']:.4f} GTEPS against {row['gteps']:.4f} "
+              f"synchronous ({got['gteps'] / row['gteps']:.4f}x), "
+              f"{got['supersteps']} supersteps, reprice ratio "
+              f"{got['reprice_ratio']!r}")
+    print(f"  weak scaling {time.perf_counter() - t0:.1f} s")
+    print(f"  overlap readings {json.dumps(readings)}")
+    print(f"  overlap phase {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -1909,6 +2176,7 @@ def main() -> int:
     agreement_phase(dev, wl)
     by_path["hooks"] = hooks_phase(dev, wl, c["smi"])
     by_path["partition"] = partition_phase(dev, wl)
+    by_path["partition_overlap"] = overlap_phase(dev, wl)
     for row in rows:
         row["launches_by_path"] = {p: n[row["name"]]
                                    for p, n in by_path.items()}

@@ -10,15 +10,18 @@ and runs each superstep as one *predicated step* over them:
     chunk: the host sees it in the chunk's fetch and starts the next
     chunk with a flush step);
   * the engine superstep, its new state kept only where ``active``; in a
-    compaction window of W tiles (the chunk's, picked by the host) also
-    only where the state's active tiles fit in W, and a row that does
-    not fit sets ``overflow``, which idles the rest of the chunk the way
-    a scheduled flush does: the host starts the next chunk in the window
-    that fits, from the active-tile count the fetch carries.  In a
-    window the superstep writes the W rows of ``values`` and the cursors
+    compaction window of W lanes a chip (the chunk's, picked by the
+    host) also only where every chip's active tiles fit in W (the
+    step's ``ACTIVE_MAX`` stat), and a row that does not fit sets
+    ``overflow``, which idles the rest of the chunk the way a scheduled
+    flush does: the host starts the next chunk in the window that fits,
+    from the busiest chip's active-tile count the fetch carries.  In a
+    window the superstep writes its rows of ``values`` and the cursors
     into the static tensors itself, under the same predicate (the
     engine's ``commit``), and only the arrays it returns anew are
-    selected here;
+    selected here.  The state may hold more than the engine's arrays:
+    the double-buffered exchange's deferred values ride in it, so an
+    idle row leaves them for the next active one, in whichever graph;
   * the stats row, with ``active`` last, written into row ``row`` of the
     ``(K, len(keys) + 1)`` f64 buffer (exact for every f32 charge and
     every int32 count, so the reference's int32 side channel
@@ -63,6 +66,11 @@ import torch
 from ..kernels import ops as kops
 from ..obs.metrics import default_registry
 
+# The stat of a compacted superstep that a window must hold: the most
+# active tiles on one chip of the state it steps (all of them on one
+# chip).  Never a stats row's.
+ACTIVE_MAX = "chip_active_max"
+
 
 class Fetched(NamedTuple):
     """What one chunk's fetch brings to the host."""
@@ -70,7 +78,7 @@ class Fetched(NamedTuple):
     done: bool
     flush: bool             # the next chunk starts with a flush step
     overflow: bool          # a superstep outgrew the chunk's window
-    active_tiles: int       # active tiles of the state after the chunk
+    active_tiles: int       # busiest chip's active tiles after the chunk
     rows: np.ndarray        # (length, len(keys) + 1) f64, ``active`` last
     vecs: Dict[str, np.ndarray]   # vec_keys -> (length, width) f32
 
@@ -81,8 +89,8 @@ class ChunkRunner:
     stats)``)
     over a copy of ``state``.  ``keys`` orders the scalar stats in a row;
     ``vec_keys`` names the ``(width,)`` vector stats kept beside the rows.
-    ``count_active(state)``, given with compaction, counts the active
-    tiles on the device for the fetch."""
+    ``count_active(state)``, given with compaction, counts the busiest
+    chip's active tiles on the device for the fetch."""
 
     def __init__(self, step: Callable, state: Dict[str, torch.Tensor],
                  length: int, write_back: bool, keys: Sequence[str],
@@ -134,7 +142,7 @@ class ChunkRunner:
             active = active & ~self.flush
         new_state, stats = self._step(st, flush, window, active)
         if window is not None:
-            fits = stats["active_tiles"] <= window
+            fits = stats[ACTIVE_MAX] <= window
             self.overflow.copy_(self.overflow | (active & ~fits))
             active = active & fits
         for k, v in new_state.items():

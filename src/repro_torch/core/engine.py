@@ -44,25 +44,27 @@ identical values for the min apps.
 
 **Active-set compaction** (``EngineConfig.compaction = L > 0``): a
 superstep runs its IQ drain and OQ emit over the smallest window of the
-ladder ``capacity_ladder(T, L)`` that holds the tiles with pending
-mailbox flags or open edge cursors (``_front_compact``), so the record
-stream the P$, the cascade and delivery work on shrinks from
-``T*oq_cap`` to ``W*oq_cap``.  The reference switches windows on the
-device (``lax.switch``); a CUDA graph cannot branch, so here the host
-picks the window from an active-tile count that rides a fetch the loop
-makes anyway: on the per-step loop the count of the state each
-superstep will step, on the chunked loop the count after each chunk,
-with one rung of headroom (``CHUNK_HEADROOM``; one graph per flush
-value and window; a superstep whose tiles outgrow its chunk's window
-idles the rest of the chunk, ``core/chunk.py``).
-The first superstep or chunk runs dense.  Every window gives the dense
-result bit for bit, and the stats carry the reference's
-``active_tiles`` and ``bucket_cap`` (the rung the reference would pick).
+per-chip ladder ``capacity_ladder(Tl, L)`` (``Tl`` the tiles of a chip,
+all of them on one chip) that holds the tiles with pending mailbox flags
+or open edge cursors on the busiest chip (``_front_compact``): a window
+of rung W is W lanes a chip, so the record stream the P$, the cascade
+and delivery work on shrinks from ``T*oq_cap`` to ``C*W*oq_cap``.  The
+reference switches windows on the device (``lax.switch``); a CUDA graph
+cannot branch, so here the host picks the window from the busiest
+chip's active-tile count, which rides a fetch the loop makes anyway: on
+the per-step loop the count of the state each superstep will step, on
+the chunked loop the count after each chunk, with one rung of headroom
+(``CHUNK_HEADROOM``; one graph per flush value and window; a superstep
+whose tiles outgrow its chunk's window idles the rest of the chunk,
+``core/chunk.py``).  The first superstep or chunk runs dense.  Every
+window gives the dense result bit for bit, and the stats carry the
+reference's ``active_tiles`` (summed over the chips) and ``bucket_cap``
+(the rung the reference would pick for the busiest chip).
 
 **Observability and the sanitizer** (the reference's, on both loops,
 dense and compacted).  ``EngineConfig.telemetry`` makes each superstep
 also emit the per-tile load vectors ``tv_edges``, ``tv_records`` and
-``tv_delivered`` (under compaction the W lane counts scattered back
+``tv_delivered`` (under compaction the lane counts scattered back
 into (T,)), which ride the chunk's one fetch in a channel of their own;
 ``EngineConfig.sanitize`` counts four kinds of invariant violation on
 the device (a min app's value that rose, an unflagged mailbox slot off
@@ -91,9 +93,20 @@ ones.  With one chip the window is the grid, ``perm`` the identity and
 the step today's.  Such an engine refuses ``init_state``,
 ``activate_all`` and ``run`` (the driver holds the state).
 
+**The double-buffered exchange** (``EngineConfig.double_buffer``): the
+BSP rule charges each superstep ``max(its chip-local work, the previous
+superstep's exchange)`` and the last exchange after the loop, on both
+loops.  As in the reference, only the chunked loop on more than one chip
+also defers the exchange: superstep k merges the exchanged mailbox flags
+and arrival counts, and leaves the values' min or sum per mailbox index
+in the runner's ``DEFERRED`` buffer, one (Nd,) tensor whichever graph
+replays; superstep k+1 folds it into the mailbox first thing.  Nothing
+writes the mailbox in between, so values, counters and trace are the
+synchronous exchange's.  The card runs both halves in order all the
+same: the overlap is priced, not performed.
+
 Not in this slice, and refused with ``NotImplementedError`` naming the
-ROADMAP item rather than ignored: double buffering and compaction on
-more than one chip (A.5b); checkpoints (A.6).
+ROADMAP item rather than ignored: checkpoints (A.6).
 """
 from __future__ import annotations
 
@@ -110,7 +123,7 @@ from ..analysis import invariants
 from ..kernels import ops as kops
 from ..obs.metrics import default_registry
 from ..obs.timeline import ChunkSpan, RunMeta
-from .chunk import ChunkRunner
+from .chunk import ACTIVE_MAX, ChunkRunner
 from .costmodel import (CLOCK_GHZ, IO_DIE_RXTX_LAT_NS, PU_OPS_PER_EDGE,
                         PU_OPS_PER_RECORD, DCRA_SRAM, PackageConfig,
                         _off_pkg_bits_per_cycle, board_link_provisioning,
@@ -190,19 +203,12 @@ class EngineConfig:
         return self.grid.chunk_size(self.n_dst)
 
 
-def _refuse_unported(cfg: EngineConfig, part: ChipPartition) -> None:
+def _refuse_unported(cfg: EngineConfig) -> None:
     """Raise on every setting this slice does not run."""
-    unported = []
-    if cfg.double_buffer:
-        unported.append("double_buffer (ROADMAP A.5b)")
-    if cfg.compaction and part.num_chips > 1:
-        unported.append(f"compaction on a {part.num_chips}-chip partition "
-                        f"(ROADMAP A.5b)")
     if cfg.ckpt_every_supersteps:
-        unported.append("ckpt_every_supersteps (ROADMAP A.6)")
-    if unported:
         raise NotImplementedError(
-            "not ported to repro_torch yet: " + ", ".join(unported))
+            "not ported to repro_torch yet: ckpt_every_supersteps "
+            "(ROADMAP A.6)")
 
 
 # Scalar stats of one superstep, in the order the per-step loop packs
@@ -215,8 +221,15 @@ STAT_KEYS = ("edges_processed", "records_consumed", "compute_per_tile_max",
              "inter_pkg_crossings", "cross_region_msgs", "owner_msgs",
              "owner_hop_msgs")
 # With compaction, each superstep also reports its input state's active
-# tiles and the ladder rung that holds them; the accounting ignores both.
+# tiles (summed over the chips) and the ladder rung that holds the
+# busiest chip's; the accounting ignores both.  Beside them, never in a
+# stats row, ``chunk.ACTIVE_MAX``: the busiest chip's count, which says
+# whether a window holds the superstep.
 COMPACTION_KEYS = ("active_tiles", "bucket_cap")
+# The chunk runner's state key of the double-buffered exchange: the
+# exchanged values' min or sum per window mailbox index, the identity
+# where none arrived, folded into the mailbox by the next superstep.
+DEFERRED = "mail_deferred"
 # With the sanitizer, each superstep reports its on-device violation
 # count (saturated at SANITY_CAP), which the run loops raise on.
 SANITIZE_KEYS = ("sanity_violations",)
@@ -253,7 +266,7 @@ class DataLocalEngine:
         if cfg.backend not in ("kernels", "torch"):
             raise ValueError(f"unknown engine backend {cfg.backend!r}")
         part = part if part is not None else ChipPartition(cfg.grid, 1, 1)
-        _refuse_unported(cfg, part)
+        _refuse_unported(cfg)
         self.app = app
         self.cfg = cfg
         self.part = part
@@ -312,7 +325,9 @@ class DataLocalEngine:
         self._pcache_src = (None if cfg.proxy is None else
                             torch.repeat_interleave(self._tile_gids,
                                                     cfg.proxy.slots))
-        self._ladder = capacity_ladder(T, cfg.compaction)
+        # the reference's per-chip ladder: a window of rung W is W lanes
+        # on every chip
+        self._ladder = capacity_ladder(self.Tl, cfg.compaction)
         self._compacting = len(self._ladder) > 1
         self._ladder_t = torch.tensor(self._ladder, dtype=torch.float32,
                                       device=dev)
@@ -328,6 +343,9 @@ class DataLocalEngine:
         else:
             self.vec_keys = TELEMETRY_KEYS
         self._vec_width = self.n_chips if per_chip else T
+        # the chunked loop defers the exchanged values where there is an
+        # exchange; the BSP rule's overlap follows cfg.double_buffer
+        self._defers = cfg.double_buffer and self._multi
         self._exch = None              # the superstep's _Exchange
         self._n_seeds = 0              # set by init_state, read by check_run
 
@@ -434,37 +452,39 @@ class DataLocalEngine:
 
     def _front_compact(self, row_lo, row_hi, state, active, W,
                        commit=None):
-        """Compacted IQ drain + OQ emit over a W-tile active window.
+        """Compacted IQ drain + OQ emit over a window of W lanes a chip.
 
-        The active tiles are compacted, in tile order, into the leading
-        lanes of a W-lane window and inactive tiles fill the lanes left
-        (``_window_lanes``); the drain and emit run on those W rows and
-        the rows are written back.  An inactive tile has no mailbox flags
-        and no open cursors, so its rows come back as they went and it
-        emits nothing; the lanes are distinct rows, so the write-back is
-        one ``index_copy_``.  Live records keep the dense path's
-        tile-major order, so the sorts, segment reductions and delivery
+        Each chip's active tiles are compacted, in local tile order, into
+        the leading lanes of its W and the chip's inactive tiles fill the
+        lanes left (``_window_lanes``); the drain and emit run on those
+        C*W rows, chip-major, and the rows are written back.  An inactive
+        tile has no mailbox flags and no open cursors, so its rows come
+        back as they went and it emits nothing; the lanes are distinct
+        rows, so the write-back is one ``index_copy_``.  Live records keep
+        the dense path's chip-major, tile-major order, so the sorts, segment reductions and delivery
         downstream see the same live sequence and the f32 sums the same
         order: state, counters and trace equal ``_front_dense``'s.  Same
-        return contract, with (W,) per-lane counts (their sums and
+        return contract, with (C*W,) per-lane counts (their sums and
         maxima are the dense ones: the lanes cover every tile with work)
-        and a (W*oq_cap,) record stream.
+        and a (C*W*oq_cap,) record stream.
 
         ``commit`` (a 0-d bool, the chunk runner's predicate) writes the
         rows of the arrays only the front changes (``values`` and the
-        cursors) into ``state``'s own tensors, where it holds and the
-        active tiles fit in W, and returns those tensors: a W-row write
-        in place of a full-length copy.  Without it every array comes
-        back as a new tensor.
+        cursors) into ``state``'s own tensors, where it holds and every
+        chip's active tiles fit in W, and returns those tensors: a
+        C*W-row write in place of a full-length copy.  Without it every
+        array comes back as a new tensor.
 
-        Returns (front, lanes, raised): the front tuple, the (W,) tile
-        rows of the lanes, and, for a min app under the sanitizer, the
-        count of window values the drain raised, taken before the
+        Returns (front, lanes, raised): the front tuple, the (C*W,)
+        window rows of the lanes, and, for a min app under the sanitizer,
+        the count of window values the drain raised, taken before the
         write-back (after it, ``state["values"]`` holds the new rows, and
         a comparison of new against old would compare new with new);
         otherwise None."""
         T, Cs, Cd = self.T, self.Cs, self.Cd
-        lanes = _window_lanes(active, W, T)
+        per_chip = active.reshape(self.n_chips, self.Tl)
+        lanes = _window_lanes(per_chip, W, self.Tl)
+        n = lanes.shape[0]
         widths = dict(values=Cd, mail_val=Cd, mail_flag=Cd, cur_lo=Cs,
                       cur_hi=Cs, cur_val=Cs)
 
@@ -474,13 +494,14 @@ class DataLocalEngine:
         react = self._reactivates
         win = {k: rows(state[k], widths[k]) for k in _FRONT_KEYS}
         out = self._front_rows(
-            W, *(win[k] for k in _FRONT_KEYS),
+            n, *(win[k] for k in _FRONT_KEYS),
             rows(row_lo, Cs) if react else None,
             rows(row_hi, Cs) if react else None)
         # cursors without reactivation keep their bounds and values
         kept = _FRONT_KEYS if react else _FRONT_KEYS[:4]
         if commit is not None:
-            commit = commit & (torch.sum(active) <= W)
+            commit = commit & (torch.amax(torch.sum(
+                per_chip, dim=1, dtype=torch.int32)) <= W)
         raised = None
         if self.cfg.sanitize and self.app.combine == "min":
             raised = torch.sum(out[0] > win["values"])
@@ -492,14 +513,14 @@ class DataLocalEngine:
             elif commit is None or k.startswith("mail"):
                 # the mailbox goes on to delivery: a new tensor
                 new.append(full.clone().index_copy_(
-                    0, lanes, part.reshape(W, -1)).reshape(-1))
+                    0, lanes, part.reshape(n, -1)).reshape(-1))
             else:
                 full.index_copy_(0, lanes, torch.where(
-                    commit, part, win[k]).reshape(W, -1))
+                    commit, part, win[k]).reshape(n, -1))
                 new.append(state[k])
         B = self.cfg.oq_cap
         src = self._tile_gids.index_select(0, lanes)
-        return (tuple(new) + out[6:] + (src[:, None].expand(W, B)
+        return (tuple(new) + out[6:] + (src[:, None].expand(n, B)
                                         .reshape(-1),), lanes, raised)
 
     def _front_rows(self, n, values, mail_val, mail_flag, cur_lo, cur_hi,
@@ -581,16 +602,23 @@ class DataLocalEngine:
                         .reshape(T, self.Cs), dim=1)
         return mail | cur
 
+    def _chip_active_max(self, active):
+        """The most active tiles on one chip of the (T,) window mask
+        ``active`` (all of them on one chip), as a 0-d int32 tensor."""
+        return torch.amax(torch.sum(active.reshape(self.n_chips, self.Tl),
+                                    dim=1, dtype=torch.int32))
+
     def _count_active(self, state):
-        """The active tiles of ``state`` as a 0-d int32 device tensor."""
-        return torch.sum(self._active_tiles(state), dtype=torch.int32)
+        """The busiest chip's active tiles of ``state`` as a 0-d int32
+        device tensor: what a window must hold."""
+        return self._chip_active_max(self._active_tiles(state))
 
     def _window(self, n_active):
-        """The window a superstep over ``n_active`` active tiles runs in:
-        the smallest rung of the ladder that holds them, None for the
-        dense one."""
+        """The window a superstep whose busiest chip has ``n_active``
+        active tiles runs in: the smallest rung of the per-chip ladder
+        that holds them, None for the dense one."""
         w = self._ladder[int(bucket_index(n_active, self._ladder))]
-        return None if w == self.T else w
+        return None if w == self.Tl else w
 
     def _superstep(self, state, flush: bool = False,
                    window: Optional[int] = None, commit=None):
@@ -610,13 +638,21 @@ class DataLocalEngine:
         is_min = app.combine == "min"
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         stats = {}
+        deferred = state.get(DEFERRED)
+        if deferred is not None:
+            # the previous superstep's exchanged values land first: the
+            # synchronous exchange's fold, one superstep later (nothing
+            # wrote the mailbox in between)
+            state = dict(state, mail_val=_fold(state["mail_val"], deferred,
+                                               is_min))
         if self._compacting:
             active = self._active_tiles(state)
-            n_act = torch.sum(active, dtype=torch.int32)
-            idx = bucket_index(n_act, self._ladder)
-            stats.update(active_tiles=n_act.to(torch.float32),
+            n_max = self._chip_active_max(active)
+            idx = bucket_index(n_max, self._ladder)
+            stats.update(active_tiles=torch.sum(active, dtype=torch.float32),
                          bucket_cap=self._ladder_t.index_select(
                              0, idx.reshape(1)).reshape(()))
+            stats[ACTIVE_MAX] = n_max
         if window is None:
             front = self._front_dense(row_lo, row_hi, state)
             lanes = raised = None
@@ -674,11 +710,18 @@ class DataLocalEngine:
             # the board exchange: every leg's off-chip records fold into
             # the window's mailbox at once (min, add or flag-or: order-
             # free up to f32 re-association), their arrivals per
-            # receiving tile kept apart from the on-chip deliveries
-            mail_val, mail_flag, recv = _deliver(
-                mail_val, mail_flag, torch.cat(exch.idx),
-                torch.cat(exch.val), torch.cat(exch.mask), self.T,
-                self.Nd, is_min, backend=cfg.backend)
+            # receiving tile kept apart from the on-chip deliveries.
+            # Deferred, the flags and arrivals merge now and the values
+            # combine into an identity buffer the next superstep folds.
+            stream = [torch.cat(a) for a in (exch.idx, exch.val, exch.mask)]
+            if deferred is None:
+                mail_val, mail_flag, recv = _deliver(
+                    mail_val, mail_flag, *stream, self.T, self.Nd, is_min,
+                    backend=cfg.backend)
+            else:
+                deferred, mail_flag, recv = _deliver(
+                    torch.full_like(mail_val, app.identity), mail_flag,
+                    *stream, self.T, self.Nd, is_min, backend=cfg.backend)
             dmax = torch.maximum(dmax, torch.max(recv))
         if cfg.telemetry and self._per_chip:
             stats.update(self._chip_vectors(stats, exch, recv))
@@ -688,6 +731,8 @@ class DataLocalEngine:
                          cur_val=cur_val)
         if p_tag is not None:
             new_state["p_tag"], new_state["p_val"] = p_tag, p_val
+        if deferred is not None:
+            new_state[DEFERRED] = deferred
         stats["pending"] = (torch.sum(mail_flag)
                             + torch.sum(cur_hi > cur_lo))
         # write-back P$ residency is deferred work: it does not keep the
@@ -1051,7 +1096,13 @@ class DataLocalEngine:
     # ----------------------------------------------------------------- run
     def chunk_runner(self, state, length: int) -> ChunkRunner:
         """The device side of chunks of ``length`` supersteps over a copy
-        of ``state`` (``core/chunk.py``)."""
+        of ``state`` (``core/chunk.py``); double-buffered on more than one
+        chip, with the ``DEFERRED`` buffer beside it (the identity: nothing
+        in flight)."""
+        if self._defers and DEFERRED not in state:
+            state = dict(state, **{DEFERRED: torch.full(
+                (self.Nd,), self.app.identity, dtype=torch.float32,
+                device=self.device)})
         return ChunkRunner(self._superstep, state, length, self._write_back,
                            self.stat_keys, count_active=(
                                self._count_active if self._compacting
@@ -1101,9 +1152,12 @@ class DataLocalEngine:
         The BSP time of a superstep is the reference driver's: the
         monolithic levels maxed with the board leg (its hop-messages
         over the partition's board links), plus the IO dies' Tx + Rx
-        latency when a record left its chip.  On one chip the board leg
-        is 0 and no record leaves, so this is the monolithic rule to the
-        bit."""
+        latency when a record left its chip.  Double-buffered, a
+        superstep pays the larger of its monolithic levels and the
+        previous superstep's exchange (board leg + IO dies), and the
+        last exchange drains after the loop.  On one chip the board leg
+        is 0 and no record leaves, so either rule is the monolithic one
+        to the bit."""
         cfg, part = self.cfg, self.part
         maxs = max_supersteps or cfg.max_supersteps
         K = cfg.run_chunk if chunk is None else int(chunk)
@@ -1114,6 +1168,9 @@ class DataLocalEngine:
         trace = SuperstepTrace(board_links=n_board_links, chips_y=cy,
                                chips_x=cx, double_buffer=cfg.double_buffer)
         cycles = 0.0
+        db = cfg.double_buffer
+        # the exchange in flight under the next superstep (double buffer)
+        prev_exch = 0.0
         links = link_provisioning(cfg.grid, pkg)
         fill = links["diameter"] * 0.5
         board_div = n_board_links * _off_pkg_bits_per_cycle(pkg)
@@ -1129,21 +1186,29 @@ class DataLocalEngine:
         def account(stats):
             """The per-step loop's accounting.  The chunked loop uses its
             vectorized twin, ``account_chunk``: edit both in lockstep."""
-            nonlocal cycles
+            nonlocal cycles, prev_exch
             _sanitize_gate(cfg, self._label,
                            stats.get("sanity_violations", 0.0))
             counters.add(superstep_counters(stats))
             trace.append_step(stats, element_bits=cfg.element_bits)
             # ---- BSP time model: monolithic levels + the board leg -----
             t_board = stats.get("off_chip_hop_msgs", 0.0) * MSG_BITS / board_div
-            sc = max(superstep_cycles(stats, pkg, links), t_board)
+            core = superstep_cycles(stats, pkg, links)
+            off = stats.get("off_chip_msgs", 0.0)
+            if db:
+                # this superstep's exchange hides under the next one
+                if core > 0 or t_board > 0 or stats["pending"] > 0:
+                    cycles += max(core, prev_exch) + fill
+                    prev_exch = t_board + (io_lat if off > 0 else 0.0)
+                return
+            sc = max(core, t_board)
             if sc > 0 or stats["pending"] > 0:
                 cycles += sc + fill                     # pipeline fill
-                if stats.get("off_chip_msgs", 0.0) > 0:
+                if off > 0:
                     cycles += io_lat
 
         def account_chunk(stacked, n_act):
-            nonlocal cycles
+            nonlocal cycles, prev_exch
             bad = stacked.get("sanity_violations")
             if bad is not None:
                 _sanitize_gate(cfg, self._label, float(np.sum(bad[:n_act])))
@@ -1158,10 +1223,18 @@ class DataLocalEngine:
                        / board_div)
             off = stacked.get("off_chip_msgs")
             off = zeros if off is None else off[:n_act]
-            sc = np.maximum(chunk_cycles(stacked, n_act, pkg, links), t_board)
+            core = chunk_cycles(stacked, n_act, pkg, links)
+            pending = stacked["pending"][:n_act].tolist()
+            if db:
+                for c, b, pend, o in zip(core.tolist(), t_board.tolist(),
+                                         pending, off.tolist()):
+                    if c > 0 or b > 0 or pend > 0:
+                        cycles += max(c, prev_exch) + fill
+                        prev_exch = b + (io_lat if o > 0 else 0.0)
+                return
+            sc = np.maximum(core, t_board)
             for s, pend, o in zip(sc.tolist(),
-                                  stacked["pending"][:n_act].tolist(),
-                                  off.tolist()):
+                                  pending, off.tolist()):
                 if s > 0 or pend > 0:
                     cycles += s + fill
                     if o > 0:
@@ -1173,6 +1246,7 @@ class DataLocalEngine:
         else:
             state, steps = self._run_chunked(state, maxs, K, progress_every,
                                              account_chunk, observer)
+        cycles += prev_exch      # the last exchange drains in the open
         counters.supersteps = steps
         time_s = cycles / (CLOCK_GHZ * 1e9)
         result = RunResult(counters=counters, cycles=cycles, time_s=time_s,
@@ -1253,7 +1327,9 @@ class DataLocalEngine:
         ``CHUNK_HEADROOM`` times the active tiles the previous fetch
         counted (the first chunk dense); a superstep that outgrows it
         idles the rest of the chunk (``engine.window_overflows``), and
-        the next chunk starts in a window that fits.  An ``observer``
+        the next chunk starts in a window that fits.  Double-buffered,
+        the exchanged values in flight after the last superstep are
+        folded into the state returned.  An ``observer``
         gets one span per chunk: ``launch`` is its dispatch, ``fetch``
         its fetch."""
         sync_ctr = default_registry().counter("engine.host_syncs")
@@ -1288,16 +1364,23 @@ class DataLocalEngine:
             if self._compacting:
                 self._count_window(window, n_act, got.overflow)
                 window = self._window(
-                    min(got.active_tiles * CHUNK_HEADROOM, self.T))
+                    min(got.active_tiles * CHUNK_HEADROOM, self.Tl))
             if got.done or n_act == 0:
                 break
-        return runner.state, steps
+        state = dict(runner.state)
+        deferred = state.pop(DEFERRED, None)
+        if deferred is not None:
+            state["mail_val"] = _fold(state["mail_val"], deferred,
+                                      self.app.combine == "min")
+        return state, steps
 
     def _count_window(self, window, steps: int, overflow: bool) -> None:
-        """Supersteps run in each window (``engine.window_occupancy.<W>``)
-        and the chunks a window overflowed (``engine.window_overflows``)."""
+        """Supersteps run in each window (``engine.window_occupancy.<W>``,
+        W the lanes a chip: the per-chip rung, ``Tl`` for the dense
+        window) and the chunks a window overflowed
+        (``engine.window_overflows``)."""
         reg = default_registry()
-        reg.counter(f"engine.window_occupancy.{window or self.T}").inc(steps)
+        reg.counter(f"engine.window_occupancy.{window or self.Tl}").inc(steps)
         if overflow:
             reg.counter("engine.window_overflows").inc()
 
@@ -1305,8 +1388,9 @@ class DataLocalEngine:
 class _Exchange:
     """One superstep's board traffic on a multi-chip window: the off-chip
     records of every owner-bound leg (window mailbox index, value, mask),
-    which ``_step`` folds into the mailbox at the end of the superstep,
-    and, for the per-chip telemetry, every leg's owner-bound and
+    which ``_step`` folds into the mailbox at the end of the superstep
+    (double-buffered: into the ``DEFERRED`` buffer the next superstep
+    folds), and, for the per-chip telemetry, every leg's owner-bound and
     off-chip records counted by source chip."""
 
     def __init__(self):
@@ -1547,8 +1631,17 @@ def bucket_index(n_act, caps: tuple) -> torch.Tensor:
     return idx
 
 
+def _slots(active, W: int):
+    """(..., W) int32 slot numbers 1..W beside ``active``'s leading dims
+    (``searchsorted`` wants one row of values per sorted row)."""
+    return torch.arange(1, W + 1, dtype=torch.int32,
+                        device=active.device).expand(
+        *active.shape[:-1], W).contiguous()
+
+
 def _compact_window(active, W: int, T: int):
-    """Stable compaction of the (T,) active mask into a W-slot window.
+    """Stable compaction of the (T,) active mask (or each row of a
+    (C, T) one) into a W-slot window.
 
     Returns (w_valid, w_rows): per-slot validity and the tile row each
     slot gathers (invalid slots clamp to T-1).  The j-th active tile is
@@ -1557,9 +1650,8 @@ def _compact_window(active, W: int, T: int):
     on the host, and the slots keep the tiles' order, which keeps the
     compacted record stream in the dense one's order.  With more than W
     active tiles, the first W."""
-    csum = torch.cumsum(active, 0, dtype=torch.int32)
-    tile_map = torch.searchsorted(
-        csum, torch.arange(1, W + 1, dtype=torch.int32, device=active.device))
+    csum = torch.cumsum(active, -1, dtype=torch.int32)
+    tile_map = torch.searchsorted(csum, _slots(active, W))
     w_valid = tile_map < T
     return w_valid, torch.clamp(tile_map, max=T - 1)
 
@@ -1569,12 +1661,19 @@ def _window_lanes(active, W: int, T: int):
     valid slots (the active tiles, in order), then, in the slots left,
     the inactive tiles in order -- the k-th free slot takes the first
     row where the inactive mask's cumsum reaches k.  W <= T leaves
-    enough of them whenever the active tiles fit."""
+    enough of them whenever the active tiles fit.  For a (C, T) mask,
+    one chip a row, the (C*W,) window positions ``chip * T + row``:
+    W lanes a chip, chip-major."""
     w_valid, w_rows = _compact_window(active, W, T)
-    k = (torch.arange(1, W + 1, dtype=torch.int32, device=active.device)
-         - torch.sum(active, dtype=torch.int32))
-    idle = torch.searchsorted(torch.cumsum(~active, 0, dtype=torch.int32), k)
-    return torch.where(w_valid, w_rows, idle)
+    k = _slots(active, W) - torch.sum(active, -1, keepdim=True,
+                                      dtype=torch.int32)
+    idle = torch.searchsorted(torch.cumsum(~active, -1, dtype=torch.int32),
+                              k)
+    lanes = torch.where(w_valid, w_rows, idle)
+    if active.dim() == 1:
+        return lanes
+    chip = torch.arange(active.shape[0], device=active.device)[:, None]
+    return (lanes + chip * T).reshape(-1)
 
 
 def _lex_group(key, sub, mask, *vals):
@@ -1640,6 +1739,13 @@ def _deliver(mail_val, mail_flag, dst, val, mask, T, Nd, is_min,
     mf = mail_flag | (cnt > 0)
     per_tile = torch.sum(cnt.reshape(T, Nd // T), dim=1)
     return mv, mf, per_tile.to(torch.float32)
+
+
+def _fold(mail_val, deferred, is_min: bool):
+    """The mailbox with the double-buffered exchange's ``deferred``
+    values folded in: ``_deliver``'s last op, min or add."""
+    return (torch.minimum(mail_val, deferred) if is_min
+            else mail_val + deferred)
 
 
 def _pad(a, n: int, fill):

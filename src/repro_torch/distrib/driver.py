@@ -27,11 +27,22 @@ latency on a superstep where a record left its chip).  Min-combine
 values are bitwise the reference's, add-combine values equal to f32
 re-association.  Both run loops, both engine backends (``"kernels"``,
 the default, or the ``"torch"`` oracle), telemetry (per-chip ``pc_*``
-vectors), the sanitizer and observers run as on one chip.
+vectors), the sanitizer and observers run as on one chip, and so do:
+
+  * ``EngineConfig.compaction``, with the reference's per-chip ladder:
+    a window of rung W runs W lanes on every chip, the rung the one
+    that holds the busiest chip's active tiles (``active_tiles`` is
+    their sum over the chips, ``bucket_cap`` that rung);
+  * ``EngineConfig.double_buffer``: each superstep is charged
+    ``max(core, the previous exchange)`` and the last exchange after
+    the loop; the chunked loop also defers the exchanged mailbox values
+    to the start of the next superstep (flags and arrival counts merge
+    at once), the per-step loop keeps the synchronous exchange, as in
+    the reference.  The card performs no overlap: both halves run in
+    order on one device, and only the BSP time model prices it.
 
 Not in this slice, and refused with ``NotImplementedError`` naming the
-ROADMAP item: compaction on more than one chip and the double-buffered
-exchange (A.5b); checkpoints, fault injection and recovery (A.6), with
+ROADMAP item: checkpoints, fault injection and recovery (A.6), with
 ``rebalance_plan``, whose load feed lives there; more than one device
 (A.5c).
 """

@@ -43,13 +43,14 @@ def chip_grid(chips: int, tiles_per_chip: int) -> TileGrid:
 
 def _measure(g, grid, chips: int, oq_cap: int, pkg: PackageConfig,
              backend: str, use_proxy: bool, run_chunk: Optional[int],
-             device) -> Dict[str, float]:
+             double_buffer: bool, device) -> Dict[str, float]:
     from ..graph import apps
     root = int(np.argmax(g.out_degree()))
     proxy = apps.table2_proxy(grid, "bfs") if use_proxy else None
     kw = {} if run_chunk is None else dict(run_chunk=run_chunk)
     r = apps.bfs(g, root, grid, proxy=proxy, oq_cap=oq_cap, chips=chips,
-                 backend=backend, pkg=pkg, device=device, **kw)
+                 backend=backend, pkg=pkg, double_buffer=double_buffer,
+                 device=device, **kw)
     # re-price the measured trace under the run's own package config: the
     # analytic board-level pricing must reproduce the measured time
     rep = price(pkg, grid, r.run.counters,
@@ -76,19 +77,22 @@ def weak_scaling(chip_counts: Sequence[int] = WEAK_CHIP_COUNTS,
                  pkg: PackageConfig = DCRA_SRAM, seed: int = 1,
                  backend: str = "kernels", use_proxy: bool = True,
                  run_chunk: Optional[int] = None,
+                 double_buffer: bool = False,
                  device=None) -> List[Dict[str, float]]:
     """Constant work per chip: the RMAT scale and the tiles grow with the
     chip count.  One measurement dict per chip count; the GTEPS column is
     the measured multi-chip curve (monotone when the runtime scales).
     ``run_chunk`` overrides the supersteps per host fetch (0: the
-    per-step loop)."""
+    per-step loop); ``double_buffer`` prices each superstep's board
+    exchange under the next superstep's compute (the same counters and
+    trace, a lower or equal ``time_s``: ``distrib.driver``)."""
     rows = []
     for chips in chip_counts:
         grid = chip_grid(chips, tiles_per_chip)
         scale = base_scale + int(round(math.log2(chips)))
         g = rmat_edges(scale, edge_factor=edge_factor, seed=seed)
         rows.append(_measure(g, grid, chips, oq_cap, pkg, backend,
-                             use_proxy, run_chunk, device))
+                             use_proxy, run_chunk, double_buffer, device))
     return rows
 
 
@@ -98,9 +102,11 @@ def strong_scaling(chip_counts: Sequence[int] = (1, 4, 16, 64),
                    pkg: PackageConfig = DCRA_SRAM, seed: int = 1,
                    backend: str = "kernels", use_proxy: bool = True,
                    run_chunk: Optional[int] = None,
+                   double_buffer: bool = False,
                    device=None) -> List[Dict[str, float]]:
     """Fixed grid and dataset, re-partitioned across more chips: what the
-    off-chip boundary costs at constant total work."""
+    off-chip boundary costs at constant total work (``double_buffer`` as
+    in ``weak_scaling``)."""
     g = rmat_edges(scale, edge_factor=edge_factor, seed=seed)
     grid = square_grid(n_tiles)
     rows = []
@@ -112,7 +118,7 @@ def strong_scaling(chip_counts: Sequence[int] = (1, 4, 16, 64),
                   f"(does not partition the {grid.ny}x{grid.nx} grid)")
             continue
         rows.append(_measure(g, grid, chips, oq_cap, pkg, backend,
-                             use_proxy, run_chunk, device))
+                             use_proxy, run_chunk, double_buffer, device))
     return rows
 
 

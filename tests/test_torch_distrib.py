@@ -389,10 +389,6 @@ def test_superstep_ops_do_not_grow_with_chips(g, root, name, hooks):
 
 # ------------------------------------------------------------- refusals
 def test_unported_distributed_options_raise(g, root):
-    with pytest.raises(NotImplementedError, match="A.5b"):
-        apps.bfs(g, root, GRID, chips=4, compaction=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.5b"):
-        apps.bfs(g, root, GRID, chips=4, double_buffer=True, device="cpu")
     with pytest.raises(NotImplementedError, match="A.6"):
         apps.bfs(g, root, GRID, chips=4, ckpt_every_supersteps=8,
                  device="cpu")

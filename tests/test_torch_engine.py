@@ -201,7 +201,6 @@ def test_default_device_is_the_card(graphs):
 
 # setting -> (its EngineConfig fields, the ROADMAP item that ports it)
 UNPORTED = {
-    "double_buffer": (dict(double_buffer=True), "A.5b"),
     "ckpt_every_supersteps": (dict(ckpt_every_supersteps=4), "A.6"),
 }
 
@@ -228,7 +227,5 @@ def test_unported_runtime_options_raise(graphs):
                                  device="cpu")
     with pytest.raises(ValueError, match="DistributedEngine"):
         eng.init_state(seed_idx=0, seed_val=0.0)
-    with pytest.raises(NotImplementedError, match="A.5b"):
-        apps.bfs(g, 0, grid, chips=4, compaction=3, device="cpu")
     with pytest.raises(ValueError, match="backend"):
         apps.bfs(g, 0, grid, backend="pallas", device="cpu")

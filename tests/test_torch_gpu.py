@@ -781,3 +781,67 @@ def test_partitioned_chunk_replays_make_no_host_sync():
         assert not got.done and got.rows[:, -1].sum() >= 1
         assert "pc_offchip" in got.vecs
         assert all(v.shape == (4, 4) for v in got.vecs.values())
+
+
+# ------------------------- the double-buffered exchange, per-chip windows
+CHIP_WINDOWS = (None, 4, 1)    # capacity_ladder(16, 3): 16 tiles a chip
+
+
+def test_double_buffered_compacted_chunk_replays_make_no_host_sync():
+    """A double-buffered, compacted 4-chip chunk in every (flush, window)
+    key replays with no sync that PyTorch's sync debug mode detects; the
+    deferred values live in one tensor that every graph of the runner
+    writes in place, each graph carries the exchange in a deliver_fused
+    of its own (SpMV's flush graph delivers its flush wave in one more),
+    and the buffer held records between replays."""
+    for app in ("bfs", "spmv"):
+        runner = _runner(app, 4, chips=4, compaction=3, double_buffer=True,
+                         **HOOKS)
+        identity = float("inf") if app == "bfs" else 0.0
+        buf = runner.state[engine.DEFERRED]
+        ptr = buf.data_ptr()
+        keys = [(flush, w) for flush in (False, True) for w in CHIP_WINDOWS]
+        held = False
+        for flush, w in keys:                     # warm-up and capture
+            runner.launch(10_000, flush, w)
+            runner.fetch()
+            held = held or bool(torch.any(buf != identity))
+        assert held
+        for flush, w in keys:
+            want = 3 if flush and app == "spmv" else 2
+            assert runner.captured[flush, w]["deliver_fused"] == want
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for flush, w in keys:
+                runner.launch(10_000, flush, w)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        got = runner.fetch()
+        assert runner.state[engine.DEFERRED].data_ptr() == ptr
+        assert not got.done and 0 <= got.active_tiles <= 16
+
+
+@pytest.mark.parametrize("app", ["bfs", "spmv"])
+def test_partitioned_double_buffered_compacted_matches_on_card(app):
+    """4 chips, ``double_buffer=True, compaction=3`` on the card, chunked:
+    equal to the card's synchronous dense run but for the priced overlap
+    (counters, the trace less its ``double_buffer`` field, supersteps;
+    ``time_s`` at most the synchronous one), and to the torch backend,
+    the per-step loop and the CPU run (counters, trace, supersteps,
+    ``time_s`` exact; BFS values bitwise, SpMV's to f32
+    re-association)."""
+    dev = _card()
+    fn, args, kw = _chips_case(app)
+    sync = fn(*args, device=dev, **kw)
+    kw = dict(kw, double_buffer=True, compaction=3)
+    got = fn(*args, device=dev, **kw)
+    a, b = got.run.trace.to_dict(), sync.run.trace.to_dict()
+    assert a.pop("double_buffer") and not b.pop("double_buffer")
+    assert a == b
+    assert got.run.counters.as_dict() == sync.run.counters.as_dict()
+    assert got.run.supersteps == sync.run.supersteps
+    assert got.run.time_s <= sync.run.time_s
+    for other in (fn(*args, device=dev, backend="torch", **kw),
+                  fn(*args, device=dev, run_chunk=0, **kw),
+                  fn(*args, device="cpu", **kw)):
+        _same_run(got, other, app)
