@@ -130,7 +130,30 @@ on past a failure:
    supersteps in (device entries and busy ms a replay); and
    ``harness.weak_scaling(double_buffer=True)`` at 1-256 chips, each
    row's GTEPS at or above phase 10's synchronous row's;
-11. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
+11. fault tolerance (ROADMAP A.6: checkpoints, chip-loss recovery, the
+    straggler plan): phase 10's RMAT-22 BFS on 4 chips, and 10b's with
+    ``compaction=3`` and ``double_buffer=True``, each with
+    ``ckpt_every_supersteps=1024`` and chip 2 lost at superstep 3,000
+    (``runtime.FaultInjector``) on the chunked loop, through
+    ``DistributedEngine.run(fault_injector=, ckpt_dir=)``: values equal
+    to scipy's; counters, trace rows and supersteps equal to the unfailed
+    run's; the step-0 checkpoint, one rollback and one re-shard onto one
+    device; ``cycles`` exactly the unfailed run's plus the recovery
+    overhead re-priced from the events with the cost model's helpers,
+    the trace re-priced within 1e-12 of ``time_s``; graphs captured
+    equal to the unfailed run's (the restore goes into the runner's
+    tensors), host syncs the unfailed run's plus the replayed chunks'
+    (dense); the image's bytes, the seconds of each write and of the
+    restore, the memory allocated around the restore, the recovery's
+    wall seconds and peak memory printed.  At RMAT-18, Table-II, 4 chips,
+    SpMV with its cascade, ``double_buffer`` and ``compaction=2``, with
+    ``telemetry=True`` and a checkpoint just before the first flush:
+    the cadence alone equal to 10b's run but for its checkpoint events,
+    then the chip lost just after the flush (so the flush wave replays)
+    on the chunked and per-step loops, each equal to 10b's run, its
+    ``rebalance_plan()`` equal to the plan after the unfailed run.
+    Checkpoints go to temporary directories the phase removes;
+12. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
     the last line, ``{"ok": true, "device": {...}}``.
 
 Every app run prints its supersteps, wall seconds, ms per superstep,
@@ -141,14 +164,15 @@ fall in the kernels' 32-record warp slices (``EngineIds``): the share
 of live records in runs of neighbours and repeated in their slice, and
 the atomics a fold would leave.
 
-Each main-path run (phases 5-8, 6b, 9b and the RMAT-22 runs of 10 and
-10b) sets every
+Each main-path run (phases 5-8, 6b, 9b and the RMAT-22 runs of 10,
+10b and 11) sets every
 kernel's launch count to 0 just before it and reads the counts just
 after; a kernel on the path that did not launch (at least once per
 superstep, on the engine's paths) fails the run.  The JSON line counts
 the compacted runs under their own path, ``compaction``, phase 9b's
-RMAT-22 runs under ``hooks``, phase 10's under ``partition`` and phase
-10b's three under ``partition_overlap``.  A graph replay counts the launches
+RMAT-22 runs under ``hooks``, phase 10's under ``partition``, phase
+10b's three under ``partition_overlap`` and phase 11's two under
+``fault``.  A graph replay counts the launches
 captured in it, so on the chunked loop the counts include the idle rows
 of a chunk (after the run drained, or after a flush the device
 scheduled), which are printed as the surplus.
@@ -764,9 +788,10 @@ def app_run(dev, label: str, fn, *args, **kw):
     from repro_torch.kernels import ops
     from repro_torch.obs.metrics import default_registry
     reg = default_registry()
-    syncs, replays = (reg.counter("engine.host_syncs"),
-                      reg.counter("engine.graph_replays"))
-    syncs0, replays0 = syncs.value, replays.value
+    syncs, replays, captures = (reg.counter("engine.host_syncs"),
+                                reg.counter("engine.graph_replays"),
+                                reg.counter("engine.graph_captures"))
+    syncs0, replays0, captures0 = syncs.value, replays.value, captures.value
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -784,6 +809,7 @@ def app_run(dev, label: str, fn, *args, **kw):
                     ms_per_superstep=clock.seconds / run.supersteps * 1e3,
                     host_syncs=syncs.value - syncs0,
                     graph_replays=replays.value - replays0,
+                    graph_captures=captures.value - captures0,
                     peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     print(f"  {label} backend={kw.get('backend', 'kernels')}, {loop}: "
           f"{run.supersteps} supersteps in {wall:.2f} s wall on the card, "
@@ -2038,6 +2064,7 @@ def overlap_phase(dev, wl) -> dict:
         by_window = {int(k.rsplit(".", 1)[1]): int(v)
                      for k, v in moved.items()
                      if k.startswith("engine.window_occupancy.")}
+        wl["partition"][label] = (res, read)
         readings[label] = dict(
             ms_per_superstep=read["ms_per_superstep"], wall_s=read["wall_s"],
             peak_gib=read["peak_gib"], host_syncs=syncs,
@@ -2091,6 +2118,7 @@ def overlap_phase(dev, wl) -> dict:
             base = app_run(dev, label, afn, *aargs, proxy=px, **both)[0]
         if name == "bfs":
             rungs = rows.per_step()[1]
+        wl["partition"][f"{name} RMAT-{AGREE_SCALE} both"] = base
         same_physics(want, base, f"{label} vs synchronous dense", *tol)
         require(base.run.time_s < want.run.time_s,
                 f"{label}: time_s not below the synchronous run's")
@@ -2150,6 +2178,279 @@ def overlap_phase(dev, wl) -> dict:
     return launches
 
 
+# ----------------------------------------------- 11. fault tolerance (A.6)
+FAULT_EVERY = 1024              # RMAT-22: checkpoints every 1,024 supersteps
+FAULT_AT, FAULT_CHIP = 3000, 2
+FAULT_LEAD_18 = 32              # RMAT-18 SpMV: a checkpoint this far
+                                # before the first flush superstep
+
+
+class CheckpointClock:
+    """While entered, the host seconds of each checkpoint
+    ``DistributedEngine`` writes (``_FaultTolerance.checkpoint``: the
+    fold, the copy to the host and the atomic write) and of each restore
+    (the read and the copy to the device, ``reshard_checkpoint``), and
+    the device memory allocated (GiB) just before and just after each
+    restore."""
+
+    def __enter__(self):
+        from repro_torch.distrib import driver
+        self.writes, self.restores, self.allocated = [], [], []
+        self._saved = (driver._FaultTolerance.checkpoint,
+                       driver.reshard_checkpoint)
+        write, restore = self._saved
+
+        def timed_write(ft, *args, **kw):
+            t0 = time.perf_counter()
+            write(ft, *args, **kw)
+            self.writes.append(time.perf_counter() - t0)
+
+        def timed_restore(*args, **kw):
+            before = torch.cuda.memory_allocated() / 2**30
+            t0 = time.perf_counter()
+            out = restore(*args, **kw)
+            torch.cuda.synchronize()
+            self.restores.append(time.perf_counter() - t0)
+            self.allocated.append(
+                [before, torch.cuda.memory_allocated() / 2**30])
+            return out
+        driver._FaultTolerance.checkpoint = timed_write
+        driver.reshard_checkpoint = timed_restore
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.distrib import driver
+        (driver._FaultTolerance.checkpoint,
+         driver.reshard_checkpoint) = self._saved
+
+
+def faulted_app(name, g, grid, proxy, *, device, fault_injector, ckpt_dir,
+                teps, **kw):
+    """An app run as a user asks for fault tolerance: the engine and its
+    state from ``apps.engine_and_state``, then ``DistributedEngine.run``
+    with the fault injector and the checkpoint directory.  Returns an
+    ``AppResult`` with the engine's ``rebalance_plan()`` beside it (None
+    without telemetry); the engine itself, which holds the graph on the
+    device, is not kept."""
+    from repro_torch.graph import apps
+    eng, state, _ = apps.engine_and_state(name, g, grid, proxy,
+                                          device=device, **kw)
+    state, run = eng.run(state, fault_injector=fault_injector,
+                         ckpt_dir=ckpt_dir)
+    res = apps.AppResult(values=state["values"][:g.n_rows].cpu().numpy(),
+                         run=run, teps_edges=teps)
+    res.plan = eng.rebalance_plan() if eng.cfg.telemetry else None
+    return res
+
+
+def same_rows(a, b, what: str, rtol=None, atol=None) -> None:
+    """A faulted run against the unfailed one: values, counters, the
+    trace less its recovery events, supersteps."""
+    if rtol is None:
+        require(np.array_equal(a.values, b.values), f"{what}: values differ")
+    else:
+        require(np.allclose(a.values, b.values, rtol=rtol, atol=atol),
+                f"{what}: values outside rtol {rtol} / atol {atol}")
+    require(a.run.counters.as_dict() == b.run.counters.as_dict(),
+            f"{what}: counters differ")
+    ta, tb = a.run.trace.to_dict(), b.run.trace.to_dict()
+    ta.pop("recovery_events", None), tb.pop("recovery_events", None)
+    require(ta == tb, f"{what}: trace rows differ")
+    require(a.run.supersteps == b.run.supersteps,
+            f"{what}: supersteps differ")
+
+
+def recovery_gates(label, grid, res, base) -> dict:
+    """The faulted run's events (the step-0 checkpoint, one rollback,
+    one re-shard onto one device) and its price against ``base``, the
+    unfailed run with no checkpoints: ``cycles`` exactly ``base``'s plus
+    the recovery overhead re-priced from the events with the cost
+    model's own helpers, in their order (the run keeps that overhead
+    apart and adds it last); the whole trace re-priced within
+    ``REPRICE_TOL`` of ``time_s``, the bound the unfailed runs are held
+    to (at these sizes the cost model's vectorized sum over the
+    supersteps differs from the run's sequential one in the last bits).
+    Returns the rollback event."""
+    from repro_torch.core.costmodel import (DCRA_SRAM, checkpoint_leg_cycles,
+                                            recovery_waste_cycles,
+                                            trace_time_s)
+    trace = res.run.trace
+    events = trace.recovery_events
+    kinds = [ev["kind"] for ev in events]
+    require(kinds[:1] == ["checkpoint"] and events[0]["step"] == 0,
+            f"{label}: no step-0 checkpoint ({kinds})")
+    require(kinds.count("rollback") == 1 and kinds.count("reshard") == 1,
+            f"{label}: events {kinds}")
+    reshard = next(ev for ev in events if ev["kind"] == "reshard")
+    require(reshard["devices"] == 1, f"{label}: re-shard {reshard}")
+    overhead = 0.0
+    for ev in events:
+        if ev["kind"] == "rollback":
+            overhead += recovery_waste_cycles(DCRA_SRAM, grid, trace,
+                                              ev["from_step"], ev["at_step"])
+        else:
+            overhead += checkpoint_leg_cycles(DCRA_SRAM, ev["bits"],
+                                              trace.board_links)
+    require(res.run.cycles == base.run.cycles + overhead,
+            f"{label}: cycles {res.run.cycles!r} against the unfailed "
+            f"{base.run.cycles!r} plus the re-priced overhead {overhead!r}")
+    require(res.run.time_s > base.run.time_s,
+            f"{label}: time_s {res.run.time_s!r} not above the unfailed "
+            f"{base.run.time_s!r}")
+    ratio = trace_time_s(DCRA_SRAM, grid, trace) / res.run.time_s
+    base_ratio = trace_time_s(DCRA_SRAM, grid, base.run.trace) / \
+        base.run.time_s
+    require(abs(ratio - 1.0) < REPRICE_TOL,
+            f"{label}: trace re-priced at {ratio!r} of time_s")
+    print(f"    {label}: cycles exactly the unfailed run's plus the "
+          f"overhead re-priced from {len(events)} events "
+          f"({overhead / base.run.cycles:.4f}x the unfailed cycles); trace "
+          f"re-priced at {ratio!r} of time_s (unfailed {base_ratio!r})")
+    return next(ev for ev in events if ev["kind"] == "rollback")
+
+
+def fault_phase(dev, wl) -> dict:
+    """ROADMAP A.6 on the card: phase 10's RMAT-22 BFS on 4 chips, and
+    10b's with both options, each with a checkpoint cadence and chip 2
+    lost at superstep 3,000, against their unfailed runs; SpMV with its
+    cascade at RMAT-18 (a write-back app: the flush wave replays) on both
+    loops with telemetry, its straggler plan after the loss against the
+    plan after an unfailed run with the cadence alone.  Returns the
+    RMAT-22 runs' launches, summed."""
+    import tempfile
+    from repro_torch.graph import apps
+    from repro_torch.runtime import FaultInjector
+    t_phase = time.perf_counter()
+    print(f"== 11. fault tolerance: {PART_CHIPS} chips, checkpoints every "
+          f"{FAULT_EVERY} supersteps, chip {FAULT_CHIP} lost at superstep "
+          f"{FAULT_AT}, backend=kernels")
+    fn, args, kw = main_path_apps(wl)["bfs"]
+    g, root, grid = args
+    reached = np.isfinite(wl["partition"]["bfs"][0].values)
+    teps = float(g.out_degree()[reached].sum())
+    launches, readings = {}, {}
+    t0 = time.perf_counter()
+    for label, extra, (base, base_read) in (
+            ("dense", {}, wl["partition"]["bfs"]),
+            ("both", dict(compaction=COMPACTION, double_buffer=True),
+             wl["partition"]["both"])):
+        name = f"bfs {PART_CHIPS} chips {label}, chip lost"
+        inj = FaultInjector(at_superstep=FAULT_AT, chip=FAULT_CHIP)
+        with tempfile.TemporaryDirectory() as ckpt_dir, \
+                CheckpointClock() as clock:
+            res, got, read = app_run(
+                dev, name, faulted_app, "bfs", g, grid, kw["proxy"],
+                fault_injector=inj, ckpt_dir=ckpt_dir, teps=teps,
+                root=root, oq_cap=OQ_CAP, chips=PART_CHIPS,
+                ckpt_every_supersteps=FAULT_EVERY, **extra)
+        require(inj.fired, f"{name}: the injector never fired")
+        require_launches(name, got, read, ENGINE_KERNELS)
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        check_bfs(g, root, res)
+        same_rows(res, base, f"{name} vs the unfailed run")
+        rollback = recovery_gates(name, grid, res, base)
+        replayed = rollback["at_step"] - rollback["from_step"]
+        syncs, base_syncs = read["host_syncs"], base_read["host_syncs"]
+        if not extra:
+            require(syncs == base_syncs + replayed // 16,
+                    f"{name}: {syncs:.0f} host syncs against "
+                    f"{base_syncs:.0f} unfailed and {replayed} supersteps "
+                    f"replayed")
+        require(read["graph_captures"] == base_read["graph_captures"],
+                f"{name}: {read['graph_captures']:.0f} graphs captured "
+                f"against {base_read['graph_captures']:.0f} unfailed")
+        bits = next(ev["bits"] for ev in res.run.trace.recovery_events
+                    if ev["kind"] == "checkpoint")
+        readings[label] = dict(
+            image_mb=bits / 8 / 1e6, writes=len(clock.writes),
+            write_s=clock.writes, restore_s=clock.restores,
+            allocated_at_restore_gib=clock.allocated,
+            recovery_wall_s=read["wall_s"] - base_read["wall_s"],
+            recovery_loop_s=read["loop_s"] - base_read["loop_s"],
+            host_syncs=syncs, unfailed_host_syncs=base_syncs,
+            replayed=replayed, rollback=[rollback["from_step"],
+                                         rollback["at_step"]],
+            graph_captures=read["graph_captures"],
+            peak_gib=read["peak_gib"], unfailed_peak_gib=base_read["peak_gib"],
+            time_s=res.run.time_s, unfailed_time_s=base.run.time_s)
+        print(f"    {name}: values, counters, trace rows, supersteps equal "
+              f"to the unfailed run's; image {bits / 8 / 1e6:.1f} MB, "
+              f"{len(clock.writes)} writes of "
+              f"{', '.join(f'{t:.3f}' for t in clock.writes)} s, restore "
+              f"{', '.join(f'{t:.3f}' for t in clock.restores)} s "
+              f"(allocated GiB before -> after "
+              f"{', '.join(f'{a:.3f} -> {b:.3f}' for a, b in clock.allocated)}"
+              f"); "
+              f"rollback {rollback['from_step']} <- {rollback['at_step']} "
+              f"({replayed} supersteps replayed); recovery wall "
+              f"{read['wall_s'] - base_read['wall_s']:.2f} s (loop "
+              f"{read['loop_s'] - base_read['loop_s']:.2f} s); host syncs "
+              f"{syncs:.0f} against {base_syncs:.0f}; graphs captured "
+              f"{read['graph_captures']:.0f} as unfailed; peak "
+              f"{read['peak_gib']:.3f} GiB against "
+              f"{base_read['peak_gib']:.3f}; time_s {res.run.time_s:.6e} "
+              f"against {base.run.time_s:.6e} "
+              f"({res.run.time_s / base.run.time_s:.4f}x)")
+    print(f"  RMAT-{SCALE} runs {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    g18 = wl[AGREE_SCALE]
+    x = np.random.default_rng(SEED).random(g18.n_cols).astype(np.float32)
+    want = wl["partition"][f"spmv RMAT-{AGREE_SCALE} both"]
+    px = apps.table2_proxy(grid, "spmv", cascade_levels=2)
+    tol = (AGREE_RTOL, AGREE_ATOL)
+    # the first flush superstep (a trace row): the one after the first
+    # that left nothing pending.  A checkpoint lands just before it and
+    # the chip is lost just after it, so the flush wave replays
+    pending = want.run.trace.pending
+    first_flush = next(i for i, p in enumerate(pending) if p == 0) + 1
+    every = max(first_flush - FAULT_LEAD_18, 1)
+    both = dict(double_buffer=True, compaction=OVERLAP_AGREE_COMPACTION,
+                chips=PART_CHIPS, oq_cap=OQ_CAP, telemetry=True,
+                ckpt_every_supersteps=every, x=x)
+    print(f"  RMAT-{AGREE_SCALE} SpMV + cascade, {PART_CHIPS} chips, "
+          f"double_buffer, compaction={OVERLAP_AGREE_COMPACTION}, telemetry, "
+          f"checkpoints every {every}: the first flush is superstep "
+          f"{first_flush + 1} of {want.run.supersteps}")
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        plain = app_run(dev, "spmv, cadence alone", faulted_app, "spmv",
+                        g18, grid, px, fault_injector=None,
+                        ckpt_dir=ckpt_dir, teps=float(g18.nnz), **both)[0]
+    same_rows(plain, want, "spmv, cadence alone vs phase 10b", *tol)
+    kinds = {ev["kind"] for ev in plain.run.trace.recovery_events}
+    require(kinds == {"checkpoint"}, f"spmv, cadence alone: events {kinds}")
+    plan = plain.plan
+    for chunk in (16, 0):
+        name = f"spmv run_chunk={chunk}, chip lost after the flush"
+        inj = FaultInjector(at_superstep=first_flush + 1, chip=FAULT_CHIP)
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            res = app_run(dev, name, faulted_app, "spmv", g18, grid, px,
+                          fault_injector=inj, ckpt_dir=ckpt_dir,
+                          teps=float(g18.nnz), run_chunk=chunk, **both)[0]
+        require(inj.fired, f"{name}: the injector never fired")
+        same_rows(res, want, f"{name} vs phase 10b", *tol)
+        check_spmv(g18, x, res.values, f"{name} y")
+        rollback = recovery_gates(name, grid, res, want)
+        require(rollback["from_step"] <= first_flush < rollback["at_step"],
+                f"{name}: the flush at {first_flush} is not in the replayed "
+                f"window {rollback}")
+        got = res.plan
+        for k, v in plan.items():
+            require(np.array_equal(np.asarray(got[k]), np.asarray(v)),
+                    f"{name}: rebalance_plan()[{k!r}] differs from the "
+                    f"unfailed run's")
+        print(f"    {name}: equal to phase 10b's run; rollback "
+              f"{rollback['from_step']} <- {rollback['at_step']} with the "
+              f"flush wave; rebalance_plan equal to the unfailed run's "
+              f"(imbalance {plan['imbalance']:.4f}, predicted after "
+              f"{plan['predicted_imbalance']:.4f})")
+    print(f"  RMAT-{AGREE_SCALE} runs {time.perf_counter() - t0:.1f} s")
+    print(f"  fault readings {json.dumps(readings)}")
+    print(f"  fault phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2177,6 +2478,7 @@ def main() -> int:
     by_path["hooks"] = hooks_phase(dev, wl, c["smi"])
     by_path["partition"] = partition_phase(dev, wl)
     by_path["partition_overlap"] = overlap_phase(dev, wl)
+    by_path["fault"] = fault_phase(dev, wl)
     for row in rows:
         row["launches_by_path"] = {p: n[row["name"]]
                                    for p, n in by_path.items()}
@@ -2184,7 +2486,7 @@ def main() -> int:
         require(row["launches"] > 0,
                 f"{row['name']} never launched on a main path")
 
-    print(f"== 11. done in {time.perf_counter() - t_start:.1f} s")
+    print(f"== 12. done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(c["smi"])
     print(json.dumps({"ok": True, "device": {

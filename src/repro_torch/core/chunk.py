@@ -197,6 +197,21 @@ class ChunkRunner:
         kops.add_launches(self.captured[key])
         self._replays.inc()
 
+    def load(self, state: Dict[str, torch.Tensor], flush: bool) -> None:
+        """Resume from ``state`` (a restored checkpoint: the same keys,
+        shapes and dtypes as the runner's) with the next chunk's flush
+        flag ``flush``: copied into the static tensors in place, so every
+        captured graph stays valid and nothing is captured again; the
+        carry restarts (not done, no overflow)."""
+        if set(state) != set(self.state):
+            raise ValueError(f"state keys {sorted(state)} are not the "
+                             f"runner's {sorted(self.state)}")
+        for k, v in self.state.items():
+            v.copy_(state[k])
+        self.flush.fill_(bool(flush))
+        self.done.zero_()
+        self.overflow.zero_()
+
     # ----------------------------------------------------------- the chunk
     def launch(self, left: int, flush: bool,
                window: Optional[int] = None) -> None:

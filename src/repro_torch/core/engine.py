@@ -105,8 +105,13 @@ writes the mailbox in between, so values, counters and trace are the
 synchronous exchange's.  The card runs both halves in order all the
 same: the overlap is priced, not performed.
 
-Not in this slice, and refused with ``NotImplementedError`` naming the
-ROADMAP item rather than ignored: checkpoints (A.6).
+**Checkpoints and recovery** are the distributed runtime's
+(``distrib.DistributedEngine.run(fault_injector=, ckpt_dir=)`` with
+``EngineConfig.ckpt_every_supersteps``): ``_run`` takes
+``DistributedEngine``'s fault-tolerance controller, which checkpoints at
+the loops' accounting boundaries and turns a chip loss into a rollback
+and a replay.  On the monolithic engine the cadence is accepted and has
+no effect, as in the reference.
 """
 from __future__ import annotations
 
@@ -123,6 +128,7 @@ from ..analysis import invariants
 from ..kernels import ops as kops
 from ..obs.metrics import default_registry
 from ..obs.timeline import ChunkSpan, RunMeta
+from ..runtime.fault import ChipLostError
 from .chunk import ACTIVE_MAX, ChunkRunner
 from .costmodel import (CLOCK_GHZ, IO_DIE_RXTX_LAT_NS, PU_OPS_PER_EDGE,
                         PU_OPS_PER_RECORD, DCRA_SRAM, PackageConfig,
@@ -166,10 +172,9 @@ class AppSpec:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """The reference's configuration, field for field.  Fields this
-    slice does not run must keep their defaults (``DataLocalEngine``
-    refuses the others).  ``run_chunk`` is the supersteps per host fetch
-    of ``DataLocalEngine.run``'s chunked loop (0: the per-step loop)."""
+    """The reference's configuration, field for field.  ``run_chunk`` is
+    the supersteps per host fetch of ``DataLocalEngine.run``'s chunked
+    loop (0: the per-step loop)."""
 
     grid: TileGrid
     n_src: int                       # items with edge cursors
@@ -188,6 +193,9 @@ class EngineConfig:
     telemetry: bool = False
     double_buffer: bool = False
     compaction: int = 0
+    # supersteps between checkpoints of ``DistributedEngine.run`` (0:
+    # only the step-0 baseline, and that only with a fault injector); the
+    # monolithic engine ignores it, as the reference's does
     ckpt_every_supersteps: int = 0
 
     @property
@@ -201,14 +209,6 @@ class EngineConfig:
     @property
     def chunk_dst(self) -> int:
         return self.grid.chunk_size(self.n_dst)
-
-
-def _refuse_unported(cfg: EngineConfig) -> None:
-    """Raise on every setting this slice does not run."""
-    if cfg.ckpt_every_supersteps:
-        raise NotImplementedError(
-            "not ported to repro_torch yet: ckpt_every_supersteps "
-            "(ROADMAP A.6)")
 
 
 # Scalar stats of one superstep, in the order the per-step loop packs
@@ -266,7 +266,6 @@ class DataLocalEngine:
         if cfg.backend not in ("kernels", "torch"):
             raise ValueError(f"unknown engine backend {cfg.backend!r}")
         part = part if part is not None else ChipPartition(cfg.grid, 1, 1)
-        _refuse_unported(cfg)
         self.app = app
         self.cfg = cfg
         self.part = part
@@ -1099,15 +1098,35 @@ class DataLocalEngine:
         of ``state`` (``core/chunk.py``); double-buffered on more than one
         chip, with the ``DEFERRED`` buffer beside it (the identity: nothing
         in flight)."""
+        return ChunkRunner(self._superstep, self._with_deferred(state),
+                           length, self._write_back, self.stat_keys,
+                           count_active=(self._count_active
+                                         if self._compacting else None),
+                           vec_keys=self.vec_keys, width=self._vec_width)
+
+    def _with_deferred(self, state):
+        """``state`` with an identity ``DEFERRED`` buffer where the
+        chunked loop defers the exchange and ``state`` has none."""
         if self._defers and DEFERRED not in state:
             state = dict(state, **{DEFERRED: torch.full(
                 (self.Nd,), self.app.identity, dtype=torch.float32,
                 device=self.device)})
-        return ChunkRunner(self._superstep, state, length, self._write_back,
-                           self.stat_keys, count_active=(
-                               self._count_active if self._compacting
-                               else None),
-                           vec_keys=self.vec_keys, width=self._vec_width)
+        return state
+
+    def checkpoint_image(self, state):
+        """The engine state a checkpoint holds: the chunk runner's with
+        the ``DEFERRED`` values folded into ``mail_val`` and the buffer
+        dropped (the reference folds its deferred bank at each chunk's
+        end).  Nothing writes the mailbox between this fold and the one
+        the next superstep would make, so a run resumed from the image
+        with an identity buffer is bitwise the one that went on."""
+        deferred = state.get(DEFERRED)
+        if deferred is None:
+            return state
+        image = {k: v for k, v in state.items() if k != DEFERRED}
+        image["mail_val"] = _fold(state["mail_val"], deferred,
+                                  self.app.combine == "min")
+        return image
 
     def run(self, state, max_supersteps: Optional[int] = None,
             progress_every: int = 0, chunk: Optional[int] = None,
@@ -1145,7 +1164,8 @@ class DataLocalEngine:
         name = self.app.name
         return f"{name}/{self.n_chips}chips" if self._per_chip else name
 
-    def _run(self, state, max_supersteps, progress_every, chunk, observer):
+    def _run(self, state, max_supersteps, progress_every, chunk, observer,
+             *, fault_tolerance=None, vec_sums=None):
         """``run``'s loop, on a state in window order: also the
         distributed runtime's (``distrib.DistributedEngine.run``).
 
@@ -1157,7 +1177,19 @@ class DataLocalEngine:
         previous superstep's exchange (board leg + IO dies), and the
         last exchange drains after the loop.  On one chip the board leg
         is 0 and no record leaves, so either rule is the monolithic one
-        to the bit."""
+        to the bit.
+
+        The distributed runtime's extensions (the reference's ``run``):
+        ``vec_sums`` (a dict) sums every telemetry vector of the run
+        from the fetches the loops make anyway; ``fault_tolerance(
+        counters, trace, prev_exch, overhead)`` builds
+        ``DistributedEngine``'s controller over this run's accounting
+        (``prev_exch`` and ``overhead`` one-element lists it may
+        write).  With it the loop writes the step-0 checkpoint, calls its
+        ``at_boundary`` at every accounting boundary, turns a
+        ``ChipLostError`` into its ``recover`` (a rollback) and a replay
+        from the restored state, and adds the priced recovery overhead once, after the last
+        exchange drains."""
         cfg, part = self.cfg, self.part
         maxs = max_supersteps or cfg.max_supersteps
         K = cfg.run_chunk if chunk is None else int(chunk)
@@ -1170,7 +1202,10 @@ class DataLocalEngine:
         cycles = 0.0
         db = cfg.double_buffer
         # the exchange in flight under the next superstep (double buffer)
-        prev_exch = 0.0
+        prev_exch = [0.0]
+        # recovery overhead, kept apart from `cycles` so that a replay
+        # adds the unfailed run's floats in its order; added at the end
+        overhead = [0.0]
         links = link_provisioning(cfg.grid, pkg)
         fill = links["diameter"] * 0.5
         board_div = n_board_links * _off_pkg_bits_per_cycle(pkg)
@@ -1186,7 +1221,7 @@ class DataLocalEngine:
         def account(stats):
             """The per-step loop's accounting.  The chunked loop uses its
             vectorized twin, ``account_chunk``: edit both in lockstep."""
-            nonlocal cycles, prev_exch
+            nonlocal cycles
             _sanitize_gate(cfg, self._label,
                            stats.get("sanity_violations", 0.0))
             counters.add(superstep_counters(stats))
@@ -1198,8 +1233,8 @@ class DataLocalEngine:
             if db:
                 # this superstep's exchange hides under the next one
                 if core > 0 or t_board > 0 or stats["pending"] > 0:
-                    cycles += max(core, prev_exch) + fill
-                    prev_exch = t_board + (io_lat if off > 0 else 0.0)
+                    cycles += max(core, prev_exch[0]) + fill
+                    prev_exch[0] = t_board + (io_lat if off > 0 else 0.0)
                 return
             sc = max(core, t_board)
             if sc > 0 or stats["pending"] > 0:
@@ -1208,7 +1243,7 @@ class DataLocalEngine:
                     cycles += io_lat
 
         def account_chunk(stacked, n_act):
-            nonlocal cycles, prev_exch
+            nonlocal cycles
             bad = stacked.get("sanity_violations")
             if bad is not None:
                 _sanitize_gate(cfg, self._label, float(np.sum(bad[:n_act])))
@@ -1229,8 +1264,8 @@ class DataLocalEngine:
                 for c, b, pend, o in zip(core.tolist(), t_board.tolist(),
                                          pending, off.tolist()):
                     if c > 0 or b > 0 or pend > 0:
-                        cycles += max(c, prev_exch) + fill
-                        prev_exch = b + (io_lat if o > 0 else 0.0)
+                        cycles += max(c, prev_exch[0]) + fill
+                        prev_exch[0] = b + (io_lat if o > 0 else 0.0)
                 return
             sc = np.maximum(core, t_board)
             for s, pend, o in zip(sc.tolist(),
@@ -1240,13 +1275,39 @@ class DataLocalEngine:
                     if o > 0:
                         cycles += io_lat
 
-        if K <= 0:
-            state, steps = self._run_legacy(state, maxs, progress_every,
-                                            account, observer)
-        else:
-            state, steps = self._run_chunked(state, maxs, K, progress_every,
-                                             account_chunk, observer)
-        cycles += prev_exch      # the last exchange drains in the open
+        ft = boundary = None
+        if fault_tolerance is not None:
+            ft = fault_tolerance(counters, trace, prev_exch, overhead)
+
+            def boundary(bsteps, bstate, bflush, bdone):
+                ft.at_boundary(bsteps, bstate, bflush, bdone, cycles)
+            ft.checkpoint(0, state, False, cycles)       # step-0 baseline
+        runner = self.chunk_runner(state, K) if K > 0 else None
+        steps0, flush0 = 0, False
+        while True:
+            try:
+                if runner is None:
+                    state, steps = self._run_legacy(
+                        state, maxs, progress_every, account, observer,
+                        steps0=steps0, flush0=flush0, boundary=boundary,
+                        vec_sums=vec_sums)
+                else:
+                    state, steps = self._run_chunked(
+                        runner, maxs, progress_every, account_chunk,
+                        observer, steps0=steps0, flush0=flush0,
+                        boundary=boundary, vec_sums=vec_sums)
+                break
+            except ChipLostError as err:
+                if ft is None:
+                    raise
+                state, flush0, steps0, cycles = ft.recover(err)
+                if runner is not None:
+                    # into the captured graphs' tensors: none is captured
+                    # again; the restored copy is not kept beside them
+                    runner.load(self._with_deferred(state), flush0)
+                    state = None
+        cycles += prev_exch[0]   # the last exchange drains in the open
+        cycles += overhead[0]    # recovery legs, priced once at the end
         counters.supersteps = steps
         time_s = cycles / (CLOCK_GHZ * 1e9)
         result = RunResult(counters=counters, cycles=cycles, time_s=time_s,
@@ -1266,20 +1327,29 @@ class DataLocalEngine:
         return state, result
 
     def _run_legacy(self, state, maxs, progress_every, account,
-                    observer=None):
+                    observer=None, *, steps0=0, flush0=False,
+                    boundary=None, vec_sums=None):
         """The per-step loop: one superstep and one host sync each.  The
         flush decision for the next superstep is read from this one's
         fetched stats, and with compaction so is the next superstep's
         window (the active tiles of the state it will step, counted on
         the device), so neither costs a sync of its own.  The first
         superstep runs dense.  With an ``observer``, each superstep is
-        one single-step span."""
+        one single-step span.
+
+        ``steps0`` / ``flush0`` resume from a checkpoint (the first
+        superstep then runs dense: the count that picked the window
+        belongs to the discarded future); ``boundary(steps, state,
+        flush, done)`` runs after each superstep's accounting, where the
+        next superstep's flush flag is known and before the loop leaves
+        or goes on, so a checkpoint taken there resumes in the right
+        write-back phase; ``vec_sums`` sums the telemetry vectors."""
         sync_ctr = default_registry().counter("engine.host_syncs")
         keys = self.stat_keys
         if self._compacting:
             keys = keys + ("next_active_tiles",)
-        steps = 0
-        flush, window = False, None
+        steps = int(steps0)
+        flush, window = bool(flush0), None
         while steps < maxs:
             t0 = time.perf_counter()
             state, stats = self._superstep(state, flush, window)
@@ -1291,6 +1361,9 @@ class DataLocalEngine:
             t2 = time.perf_counter()
             steps += 1
             account(stats)
+            if vec_sums is not None:
+                for k in self.vec_keys:
+                    vec_sums[k] = vec_sums.get(k, 0.0) + stats[k]
             if observer is not None:
                 observer.on_chunk(_legacy_span(
                     steps, {k: stats[k] for k in self.stat_keys},
@@ -1299,24 +1372,29 @@ class DataLocalEngine:
             if self._compacting:
                 self._count_window(window, 1, False)
                 window = self._window(stats["next_active_tiles"])
-            flush = False
-            if stats["pending"] == 0:
-                # live work drained; spill any write-back P$ residue (the
-                # paper's TSU heuristic: flush when queues go idle).
-                # Repeated flushes terminate: a spilled value that does
-                # not improve its owner generates no new work.
-                if self._write_back and stats["p_resident"] > 0:
-                    flush = True
-                    continue
+            # live work drained: spill any write-back P$ residue (the
+            # paper's TSU heuristic: flush when queues go idle).
+            # Repeated flushes terminate: a spilled value that does not
+            # improve its owner generates no new work.
+            drained = stats["pending"] == 0
+            flush = drained and self._write_back and stats["p_resident"] > 0
+            done = drained and not flush
+            if boundary is not None:
+                boundary(steps, state, flush, done)
+            if done:
                 break
+            if flush:
+                continue
             if progress_every and steps % progress_every == 0:
                 print(f"  [{self._label}] step {steps} "
                       f"pending={stats['pending']:.0f}")
         return state, steps
 
-    def _run_chunked(self, state, maxs, K, progress_every, account_chunk,
-                     observer=None):
-        """The chunked loop (the reference's ``_drain_chunked``): per
+    def _run_chunked(self, runner, maxs, progress_every, account_chunk,
+                     observer=None, *, steps0=0, flush0=False,
+                     boundary=None, vec_sums=None):
+        """The chunked loop (the reference's ``_drain_chunked``) on
+        ``runner`` (``chunk_runner``'s): per
         chunk, K predicated supersteps enqueued on the device
         (``ChunkRunner.launch``), ONE host fetch of ``done``, the flush
         and overflow flags, the active-tile count and the stats rows,
@@ -1331,14 +1409,19 @@ class DataLocalEngine:
         the exchanged values in flight after the last superstep are
         folded into the state returned.  An ``observer``
         gets one span per chunk: ``launch`` is its dispatch, ``fetch``
-        its fetch."""
+        its fetch.
+
+        ``steps0`` / ``flush0`` resume from a checkpoint the caller has
+        loaded into ``runner`` (the first chunk then runs dense);
+        ``boundary(steps, state, flush, done)`` runs at each chunk's
+        boundary after its accounting, on the runner's state;
+        ``vec_sums`` sums the telemetry vectors of the active rows."""
         sync_ctr = default_registry().counter("engine.host_syncs")
         progress = _ProgressReporter(self._label, progress_every,
                                      sanitize=self.cfg.sanitize,
                                      tiles=self.T)
-        runner = self.chunk_runner(state, K)
         keys = self.stat_keys + ("active",)
-        steps, flush, window, index = 0, False, None, 0
+        steps, flush, window, index = int(steps0), bool(flush0), None, 0
         while steps < maxs:
             t0 = time.perf_counter()
             runner.launch(maxs - steps, flush, window)
@@ -1351,6 +1434,10 @@ class DataLocalEngine:
             n_act = int(np.sum(stacked["active"]))
             if n_act:
                 account_chunk(stacked, n_act)
+                if vec_sums is not None:
+                    for k, v in got.vecs.items():
+                        vec_sums[k] = vec_sums.get(k, 0.0) + np.sum(
+                            np.asarray(v[:n_act], np.float64), axis=0)
             if observer is not None:
                 observer.on_chunk(ChunkSpan(
                     index=index, step_lo=steps, step_hi=steps + n_act,
@@ -1365,14 +1452,11 @@ class DataLocalEngine:
                 self._count_window(window, n_act, got.overflow)
                 window = self._window(
                     min(got.active_tiles * CHUNK_HEADROOM, self.Tl))
+            if boundary is not None:
+                boundary(steps, runner.state, flush, got.done)
             if got.done or n_act == 0:
                 break
-        state = dict(runner.state)
-        deferred = state.pop(DEFERRED, None)
-        if deferred is not None:
-            state["mail_val"] = _fold(state["mail_val"], deferred,
-                                      self.app.combine == "min")
-        return state, steps
+        return self.checkpoint_image(dict(runner.state)), steps
 
     def _count_window(self, window, steps: int, overflow: bool) -> None:
         """Supersteps run in each window (``engine.window_occupancy.<W>``,

@@ -387,17 +387,12 @@ def test_superstep_ops_do_not_grow_with_chips(g, root, name, hooks):
     assert counts[2, True] == counts[16, True], counts
 
 
-# ------------------------------------------------------------- refusals
-def test_unported_distributed_options_raise(g, root):
-    with pytest.raises(NotImplementedError, match="A.6"):
-        apps.bfs(g, root, GRID, chips=4, ckpt_every_supersteps=8,
-                 device="cpu")
+# ------------------------------------------- DistributedEngine's checks
+def test_window_state_and_num_chips_checks_raise(g, root):
+    """The state of a multi-chip window is DistributedEngine's, and
+    DistributedEngine needs a partition or a chip count."""
     eng, state, _ = apps.engine_and_state("bfs", g, GRID, root=root,
                                           chips=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        eng.run(state, fault_injector=object())
-    with pytest.raises(NotImplementedError, match="A.6"):
-        eng.run(state, ckpt_dir="unused")
     kernel = eng.kernel
     for call in (lambda: kernel.init_state(),
                  lambda: kernel.activate_all(state, np.ones(g.n_rows)),

@@ -199,24 +199,6 @@ def test_default_device_is_the_card(graphs):
         _run(apps, square_grid, "bfs", g, False)
 
 
-# setting -> (its EngineConfig fields, the ROADMAP item that ports it)
-UNPORTED = {
-    "ckpt_every_supersteps": (dict(ckpt_every_supersteps=4), "A.6"),
-}
-
-
-@pytest.mark.parametrize("what", sorted(UNPORTED))
-def test_unported_settings_raise(graphs, what):
-    g, _ = graphs
-    grid = square_grid(TILES)
-    fields, item = UNPORTED[what]
-    cfg = engine.EngineConfig(grid=grid, n_src=g.n_rows, n_dst=g.n_cols,
-                              **fields)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        engine.DataLocalEngine(apps.BFS_SPEC, cfg, g.row_lo, g.row_hi,
-                               g.col_idx, device="cpu")
-
-
 def test_unported_runtime_options_raise(graphs):
     g, _ = graphs
     grid = square_grid(TILES)

@@ -6,8 +6,9 @@ no host sync of its own, the chunked run loop's CUDA-graph replays
 against the per-step loop (with compaction, one graph per flush value
 and window: no sync in any, launch counts per graph, results equal to
 dense; with telemetry, the sanitizer and an observer, results and host
-syncs equal to the run without them), and ``ops.decode_attention``
-through its kernel.
+syncs equal to the run without them), ``ops.decode_attention``
+through its kernel, and a partitioned run that recovers from a chip loss
+without capturing a graph again.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 decision is taken inside each test.  On a machine with a card:
@@ -31,6 +32,7 @@ from repro_torch.kernels import relax_min as rx
 from repro_torch.kernels import segment_combine as sc
 from repro_torch.kernels import spmv_csr as sp
 from repro_torch.obs.metrics import default_registry
+from repro_torch.runtime import FaultInjector
 
 pytestmark = pytest.mark.gpu
 
@@ -845,3 +847,47 @@ def test_partitioned_double_buffered_compacted_matches_on_card(app):
                   fn(*args, device=dev, run_chunk=0, **kw),
                   fn(*args, device="cpu", **kw)):
         _same_run(got, other, app)
+
+
+# ------------------------------------------------ fault tolerance, A.6
+def test_fault_recovery_on_card(tmp_path):
+    """A 4-chip BFS at RMAT-12 on 256 tiles on the card, chunked, with a
+    checkpoint every 8 supersteps and chip 2 lost half way: values,
+    counters, trace rows and supersteps equal the unfailed run's, the
+    recovery is priced apart and re-priced exactly, every engine kernel
+    ran, and the restore into the runner's tensors captured no graph
+    that the unfailed run did not (``engine.graph_captures`` equal)."""
+    from repro_torch.core.costmodel import trace_time_s
+    dev = _card()
+    g = rmat_edges(12, edge_factor=8, seed=1)
+    grid = square_grid(256)
+    kw = dict(proxy=apps.table2_proxy(grid, "bfs"), oq_cap=16, chips=4,
+              root=int(np.argmax(g.out_degree())), device=dev,
+              ckpt_every_supersteps=8)
+    captures = default_registry().counter("engine.graph_captures")
+    eng, state, _ = apps.engine_and_state("bfs", g, grid, **kw)
+    c0 = captures.value
+    base_state, base = eng.run(dict(state))
+    base_captures = captures.value - c0
+    eng, state, _ = apps.engine_and_state("bfs", g, grid, **kw)
+    inj = FaultInjector(at_superstep=base.supersteps // 2, chip=2)
+    ops.reset_launches()
+    c0 = captures.value
+    f_state, f = eng.run(dict(state), fault_injector=inj,
+                         ckpt_dir=str(tmp_path))
+    assert inj.fired
+    assert captures.value - c0 == base_captures
+    assert torch.equal(base_state["values"], f_state["values"])
+    assert base.counters.as_dict() == f.counters.as_dict()
+    assert base.supersteps == f.supersteps
+    a, b = base.trace.to_dict(), f.trace.to_dict()
+    a.pop("recovery_events"), b.pop("recovery_events")
+    assert a == b
+    kinds = [ev["kind"] for ev in f.trace.recovery_events]
+    assert kinds.count("rollback") == 1 and kinds.count("reshard") == 1
+    assert f.time_s > base.time_s
+    assert trace_time_s(eng.cfg.pkg, grid, f.trace) == f.time_s
+    assert rx.relax.launches >= f.supersteps
+    assert sc.segment_combine.launches >= f.supersteps
+    assert df.deliver_fused.launches >= 2 * f.supersteps
+
