@@ -153,7 +153,23 @@ on past a failure:
     on the chunked and per-step loops, each equal to 10b's run, its
     ``rebalance_plan()`` equal to the plan after the unfailed run.
     Checkpoints go to temporary directories the phase removes;
-12. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
+12. ranks (ROADMAP A.5c; ``distrib.mesh``): a one-rank NCCL group on a
+    file store in a temporary directory, opened in this process (the card
+    holds one rank: NCCL refuses two on one device), and phase 10's
+    RMAT-22 BFS on 4 chips through ``backend="shard_map"`` on it, so the
+    exchange's all-gather and the stats' all-gather run (captured in the
+    CUDA graphs on the chunked loop), chunked and per-step, each equal to
+    phase 10's in-process run (values bitwise; counters, trace,
+    supersteps, ``time_s``) with phase 10's host syncs on the chunked
+    loop and at least two all-gathers a superstep on the per-step loop;
+    ms a superstep, peak memory and graphs captured beside phase 10's;
+    20 profiled replays of BFS RMAT-18 on the group beside phase 10's
+    (device entries and busy ms; the all-gathers captured, none issued
+    by a replay, more entries than phase 10's); SpMV RMAT-18 with
+    its cascade, ``compaction=2`` and ``double_buffer=True`` on the group
+    equal to phase 10b's run.  The group is destroyed before the phase
+    ends;
+13. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
     the last line, ``{"ok": true, "device": {...}}``.
 
 Every app run prints its supersteps, wall seconds, ms per superstep,
@@ -171,8 +187,8 @@ after; a kernel on the path that did not launch (at least once per
 superstep, on the engine's paths) fails the run.  The JSON line counts
 the compacted runs under their own path, ``compaction``, phase 9b's
 RMAT-22 runs under ``hooks``, phase 10's under ``partition``, phase
-10b's three under ``partition_overlap`` and phase 11's two under
-``fault``.  A graph replay counts the launches
+10b's three under ``partition_overlap``, phase 11's two under
+``fault`` and phase 12's two under ``ranks``.  A graph replay counts the launches
 captured in it, so on the chunked loop the counts include the idle rows
 of a chunk (after the run drained, or after a flush the device
 scheduled), which are printed as the surplus.
@@ -1937,6 +1953,7 @@ def partition_phase(dev, wl) -> dict:
         del eng, state
     print(f"  graph replays by chip count "
           f"{json.dumps({c: r for c, r in nodes.items()})}")
+    wl["partition"]["nodes"] = nodes
     require(nodes[16]["entries"] <= NODE_GROWTH * nodes[4]["entries"],
             f"16 chips: {nodes[16]['entries']:.0f} device entries a "
             f"superstep against {nodes[4]['entries']:.0f} at 4 chips")
@@ -2451,6 +2468,152 @@ def fault_phase(dev, wl) -> dict:
     return launches
 
 
+# ---------------------------------------------------------- 12. ranks
+RANKS_TIMEOUT_S = 300           # the group's: a stuck collective raises
+
+
+class GatherCount:
+    """While entered, counts the mesh's all-gathers that the host issues
+    (eager ones: a CUDA-graph replay issues its captured collectives
+    without a call)."""
+
+    def __enter__(self):
+        from repro_torch.distrib import mesh
+        self.n = 0
+        self._fn = fn = mesh._all_gather_single
+
+        def counted(*args, **kw):
+            self.n += 1
+            return fn(*args, **kw)
+        mesh._all_gather_single = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.distrib import mesh
+        mesh._all_gather_single = self._fn
+
+
+def ranks_phase(dev, wl) -> dict:
+    """ROADMAP A.5c on the card: phase 10's RMAT-22 BFS on 4 chips through
+    a one-rank NCCL group, chunked and per-step, equal to phase 10's
+    in-process run; profiled replays at RMAT-18 beside phase 10's; SpMV
+    RMAT-18 with both options equal to phase 10b's run.  Returns the
+    RMAT-22 runs' launches, summed."""
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.graph import apps
+    t_phase = time.perf_counter()
+    print(f"== 12. ranks: {PART_CHIPS} chips on a one-rank NCCL group "
+          f"(backend=shard_map, its collectives run), backend=kernels")
+    fn, args, kw = main_path_apps(wl)["bfs"]
+    g, root, grid = args
+    want, want_read = wl["partition"]["bfs"]
+    launches, readings = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/store", rank=0,
+            world_size=1,
+            timeout=datetime.timedelta(seconds=RANKS_TIMEOUT_S))
+        try:
+            on = dict(chips=PART_CHIPS, backend="shard_map",
+                      group=dist.group.WORLD)
+            t0 = time.perf_counter()
+            for chunk in (None, 0):
+                extra = {} if chunk is None else dict(run_chunk=chunk)
+                loop = "chunked" if chunk is None else "per-step"
+                name = f"bfs {PART_CHIPS} chips one nccl rank, {loop}"
+                with GatherCount() as gathers:
+                    res, got, read = app_run(dev, name, fn, *args, **on,
+                                             **extra, **kw)
+                require_launches(name, got, read, ENGINE_KERNELS)
+                for k, n in got.items():
+                    launches[k] = launches.get(k, 0) + n
+                same_run(want, res, f"{name} vs phase 10")
+                if chunk is None:
+                    require(read["host_syncs"] == want_read["host_syncs"],
+                            f"{name}: {read['host_syncs']:.0f} host syncs "
+                            f"against phase 10's "
+                            f"{want_read['host_syncs']:.0f}")
+                else:
+                    require(gathers.n >= 2 * res.run.supersteps,
+                            f"{name}: {gathers.n} all-gathers in "
+                            f"{res.run.supersteps} supersteps")
+                readings[loop] = dict(
+                    ms_per_superstep=read["ms_per_superstep"],
+                    peak_gib=read["peak_gib"],
+                    host_syncs=read["host_syncs"],
+                    graph_captures=read["graph_captures"],
+                    eager_all_gathers=gathers.n)
+                print(f"    {name}: {read['ms_per_superstep']:.3f} ms a "
+                      f"superstep (phase 10 in-process chunked "
+                      f"{want_read['ms_per_superstep']:.3f}), peak "
+                      f"{read['peak_gib']:.3f} GiB "
+                      f"({want_read['peak_gib']:.3f}), host syncs "
+                      f"{read['host_syncs']:.0f} "
+                      f"({want_read['host_syncs']:.0f}), graphs captured "
+                      f"{read['graph_captures']:.0f} "
+                      f"({want_read['graph_captures']:.0f}), all-gathers "
+                      f"issued from the host {gathers.n}")
+            print(f"  RMAT-{SCALE} runs {time.perf_counter() - t0:.1f} s")
+
+            t0 = time.perf_counter()
+            g18 = wl[AGREE_SCALE]
+            root18 = int(np.argmax(g18.out_degree()))
+            eng, state, _ = apps.engine_and_state(
+                "bfs", g18, grid, apps.table2_proxy(grid, "bfs"),
+                root=root18, oq_cap=OQ_CAP, device=dev, **on)
+            require(eng.mesh.collective and eng.mesh.ndev == 1,
+                    f"the engine's mesh is not the one-rank group: "
+                    f"{eng.mesh}")
+            # the first chunk steps once eagerly and captures the step:
+            # two all-gathers each; the replays issue none from the host,
+            # they run the captured ones (on one rank NCCL's all-gather
+            # is a device copy, which a replay must run: the gathered
+            # buffer is new)
+            with GatherCount() as gathers:
+                nodes = profile_replays(eng, state, f"bfs RMAT-"
+                                        f"{AGREE_SCALE} {PART_CHIPS} chips "
+                                        f"one nccl rank")
+            del eng, state
+            before = wl["partition"]["nodes"][PART_CHIPS]
+            require(gathers.n == 4,
+                    f"profiled replays: {gathers.n} all-gathers issued from "
+                    f"the host, expected 2 eager and 2 captured")
+            require(nodes["entries"] > before["entries"],
+                    f"profiled replays: {nodes['entries']:.1f} device "
+                    f"entries a superstep, no more than phase 10's "
+                    f"{before['entries']:.1f}")
+            readings["replays"] = dict(nodes, phase10=before)
+            print(f"    replays on the rank: {nodes['entries']:.1f} device "
+                  f"entries a superstep, busy {nodes['busy_ms']:.3f} ms, "
+                  f"wall {nodes['wall_ms']:.3f} ms (the all-gathers "
+                  f"captured, none issued by a replay); phase 10 "
+                  f"in-process {before['entries']:.1f} entries, busy "
+                  f"{before['busy_ms']:.3f} ms, wall "
+                  f"{before['wall_ms']:.3f} ms")
+
+            x = np.random.default_rng(SEED).random(g18.n_cols).astype(
+                np.float32)
+            spmv = app_run(dev, f"spmv {PART_CHIPS} chips both, one nccl "
+                           f"rank", apps.spmv, g18, x, grid,
+                           proxy=apps.table2_proxy(grid, "spmv",
+                                                   cascade_levels=2),
+                           oq_cap=OQ_CAP, double_buffer=True,
+                           compaction=OVERLAP_AGREE_COMPACTION, **on)[0]
+            same_run(wl["partition"][f"spmv RMAT-{AGREE_SCALE} both"], spmv,
+                     f"spmv {PART_CHIPS} chips both, one nccl rank vs phase "
+                     f"10b", AGREE_RTOL, AGREE_ATOL)
+            check_spmv(g18, x, spmv.values, "SpMV one nccl rank y")
+            print(f"  RMAT-{AGREE_SCALE} runs {time.perf_counter() - t0:.1f}"
+                  f" s")
+        finally:
+            dist.destroy_process_group()
+    print(f"  ranks readings {json.dumps(readings)}")
+    print(f"  ranks phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2479,6 +2642,7 @@ def main() -> int:
     by_path["partition"] = partition_phase(dev, wl)
     by_path["partition_overlap"] = overlap_phase(dev, wl)
     by_path["fault"] = fault_phase(dev, wl)
+    by_path["ranks"] = ranks_phase(dev, wl)
     for row in rows:
         row["launches_by_path"] = {p: n[row["name"]]
                                    for p, n in by_path.items()}
@@ -2486,7 +2650,7 @@ def main() -> int:
         require(row["launches"] > 0,
                 f"{row['name']} never launched on a main path")
 
-    print(f"== 12. done in {time.perf_counter() - t_start:.1f} s")
+    print(f"== 13. done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(c["smi"])
     print(json.dumps({"ok": True, "device": {

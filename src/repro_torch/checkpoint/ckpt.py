@@ -14,7 +14,8 @@ key is the reference's key string: ``['state']['values']`` for dict keys,
 Restore is *elastic*: leaves are read as host arrays and placed wherever
 ``placement(key, shape)`` says, whatever device wrote them.  Writes are
 atomic (a ``.tmp`` directory, then a rename), so a failure during a save
-never corrupts the latest checkpoint.
+never corrupts the latest checkpoint.  The shards' zip entries carry a
+fixed timestamp, so a checkpoint's bytes depend on its contents alone.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import json
 import os
 import shutil
 import threading
+import zipfile
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -29,6 +31,8 @@ import torch
 
 Tree = Any
 _SHARD_BYTES = 512 * 1024 * 1024
+# the date of every zip entry (the earliest a zip file can hold)
+_ZIP_DATE = (1980, 1, 1, 0, 0, 0)
 
 # npz cannot hold bf16 or fp8: they are stored as integer views, with the
 # logical dtype named in the manifest (float16 is native to numpy)
@@ -136,8 +140,8 @@ def save_checkpoint(directory: str, step: int, tree: Tree,
     def flush():
         nonlocal shard_idx, shard_bytes, shard_payload
         if shard_payload:
-            np.savez(os.path.join(tmp, f"shard_{shard_idx:04d}.npz"),
-                     **shard_payload)
+            _write_npz(os.path.join(tmp, f"shard_{shard_idx:04d}.npz"),
+                       shard_payload)
             shard_idx += 1
             shard_bytes = 0
             shard_payload = {}
@@ -157,6 +161,18 @@ def save_checkpoint(directory: str, step: int, tree: Tree,
         shutil.rmtree(final)
     os.rename(tmp, final)
     return final
+
+
+def _write_npz(path: str, arrays: dict) -> None:
+    """``np.savez``'s file (an uncompressed zip of ``.npy`` entries) with
+    every entry dated ``_ZIP_DATE`` in place of the time of the write."""
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, arr in arrays.items():
+            info = zipfile.ZipInfo(f"{key}.npy", date_time=_ZIP_DATE)
+            with zf.open(info, "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, np.asanyarray(arr),
+                                          allow_pickle=False)
 
 
 class AsyncCheckpointer:
@@ -215,7 +231,9 @@ def restore_checkpoint(directory: str, template: Tree,
     Leaves come back as tensors of the logical dtype the manifest names,
     on the CPU, or on the device ``placement(key, shape)`` returns (None:
     the CPU): the device that wrote the checkpoint does not matter
-    (elastic restart).  The newest step when ``step`` is None."""
+    (elastic restart); a ``(device, rows)`` pair keeps the leaf's
+    ``rows`` only (one rank's block).  The newest step when ``step`` is
+    None."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -241,6 +259,9 @@ def restore_checkpoint(directory: str, template: Tree,
                                  f"template {want}")
             if placement is not None:
                 dev = placement(key, tuple(arr.shape))
+                if isinstance(dev, tuple):      # (device, rows): a block
+                    dev, rows = dev
+                    arr = arr[rows]
                 if dev is not None:
                     arr = arr.to(dev)
             out[key] = arr

@@ -47,7 +47,10 @@ the graphs replay in any order.  The first superstep of each graph
 runs eagerly: it builds and loads every kernel and warms the allocator,
 and then the same step is captured, under
 ``torch.cuda.set_sync_debug_mode("error")``.  A failed capture or replay
-raises; nothing falls back to eager stepping.  On the CPU there are no
+raises; nothing falls back to eager stepping.  On ranks the superstep's
+collectives (NCCL all-gathers: the exchange's records and the stats) are
+captured in its graph too, each rank replaying its own in step with the
+others.  On the CPU there are no
 graphs and every superstep runs the same predicated step eagerly.
 
 A replay calls no kernel wrapper, so the runner adds each graph's

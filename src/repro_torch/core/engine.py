@@ -93,6 +93,18 @@ ones.  With one chip the window is the grid, ``perm`` the identity and
 the step today's.  Such an engine refuses ``init_state``,
 ``activate_all`` and ``run`` (the driver holds the state).
 
+**Ranks** (``mesh=``, a ``distrib.mesh.ExecMesh`` on a process group):
+the window is this rank's block of ``C / R`` chips, positions ``p -
+rank * per * Tl`` (``_place``).  Owners and the exchange keep global
+chip-major positions; the off-chip records are gathered across ranks in
+the order one process makes them (``_gather_exchange``: each leg's
+chip-major sub-streams, so even the add apps' f32 sums see the same
+order) and each rank folds the ones its window owns; the stats are
+reduced across ranks in the step (``_reduce_stats``), so the predicated
+chunk and both loops decide on every rank's work; under compaction the
+busiest chip over every rank picks one window for all ranks.  Without a
+group the mesh's helpers are never called.
+
 **The double-buffered exchange** (``EngineConfig.double_buffer``): the
 BSP rule charges each superstep ``max(its chip-local work, the previous
 superstep's exchange)`` and the last exchange after the loop, on both
@@ -220,6 +232,9 @@ STAT_KEYS = ("edges_processed", "records_consumed", "compute_per_tile_max",
              "messages", "hop_msgs", "intra_die_hops", "inter_die_crossings",
              "inter_pkg_crossings", "cross_region_msgs", "owner_msgs",
              "owner_hop_msgs")
+# The stats that are maxima over the tiles (and so over the ranks); the
+# others are sums.
+_MAX_STATS = ("compute_per_tile_max", "delivered_max_per_tile")
 # With compaction, each superstep also reports its input state's active
 # tiles (summed over the chips) and the ladder rung that holds the
 # busiest chip's; the accounting ignores both.  Beside them, never in a
@@ -262,7 +277,7 @@ class DataLocalEngine:
     def __init__(self, app: AppSpec, cfg: EngineConfig,
                  row_lo, row_hi, col_idx, weights=None,
                  part: Optional[ChipPartition] = None, device=None,
-                 per_chip: bool = False):
+                 per_chip: bool = False, mesh=None):
         if cfg.backend not in ("kernels", "torch"):
             raise ValueError(f"unknown engine backend {cfg.backend!r}")
         part = part if part is not None else ChipPartition(cfg.grid, 1, 1)
@@ -274,18 +289,14 @@ class DataLocalEngine:
         self.Tl = part.tiles_per_chip
         self._multi = self.n_chips > 1
         self._per_chip = per_chip
-        T = cfg.grid.num_tiles          # the window: every chip's tiles
-        self.T = T
-        self.Tg = T
+        self.Tg = cfg.grid.num_tiles    # every chip's tiles
         self.Cs = cfg.chunk_src
         self.Cd = cfg.chunk_dst
-        self.Ns = T * self.Cs
-        self.Nd = T * self.Cd
         self.Ngs = self.Tg * self.Cs
         self.Ngd = self.Tg * self.Cd
         self._cascade_levels = 0
         if cfg.proxy is not None:
-            if T * cfg.proxy.slots >= 2**31:
+            if self.Tg * cfg.proxy.slots >= 2**31:
                 raise ValueError("T*slots must fit int32 for P$ sort keys")
             cfg.proxy.validate_window(part.sub_ny, part.sub_nx)
             casc = cfg.proxy.cascade
@@ -294,36 +305,25 @@ class DataLocalEngine:
                 self._cascade_levels = casc.levels
         self._write_back = cfg.proxy is not None and cfg.proxy.write_back
         # an improving mailbox record restarts its item's edge cursor
-        self._reactivates = app.reactivate and self.Nd == self.Ns
+        self._reactivates = app.reactivate and self.Cd == self.Cs
         dev = self.device
-        # window position p holds global tile perm[p]: chip-major, each
+        # global chip-major position p holds global tile perm[p]: each
         # chip's tiles in local row-major order (the identity on one chip)
-        perm = np.concatenate([part.tile_ids(c)
-                               for c in range(self.n_chips)])
-        self._tile_gids = torch.as_tensor(perm, dtype=torch.int32,
-                                          device=dev)
+        self._perm = np.concatenate([part.tile_ids(c)
+                                     for c in range(self.n_chips)])
         if self._multi:
-            inv = np.empty_like(perm)
-            inv[perm] = np.arange(T)
+            inv = np.empty_like(self._perm)
+            inv[self._perm] = np.arange(self.Tg)
             self._win_pos = torch.as_tensor(inv, dtype=torch.int32,
                                             device=dev)
-        # the source items' edge ranges in window order; the edge arrays
+        # the source items' edge ranges, by global item; the edge arrays
         # are indexed by global edge position and stay as they are
-        self.row_lo = self.to_window(
-            _to(_pad(row_lo, self.Ngs, 0), torch.int32, dev), self.Cs)
-        self.row_hi = self.to_window(
-            _to(_pad(row_hi, self.Ngs, 0), torch.int32, dev), self.Cs)
+        self._rows_g = (_to(_pad(row_lo, self.Ngs, 0), torch.int32, dev),
+                        _to(_pad(row_hi, self.Ngs, 0), torch.int32, dev))
         self.col_idx = _to(col_idx, torch.int32, dev)
         if weights is None:
             weights = torch.ones(self.col_idx.shape, dtype=torch.float32)
         self.weights = _to(weights, torch.float32, dev)
-        # the source tile of each emitted record and of each P$ entry,
-        # fixed per engine: made once, so no superstep sizes an output
-        # on the host
-        self._src_tile = torch.repeat_interleave(self._tile_gids, cfg.oq_cap)
-        self._pcache_src = (None if cfg.proxy is None else
-                            torch.repeat_interleave(self._tile_gids,
-                                                    cfg.proxy.slots))
         # the reference's per-chip ladder: a window of rung W is W lanes
         # on every chip
         self._ladder = capacity_ladder(self.Tl, cfg.compaction)
@@ -341,33 +341,74 @@ class DataLocalEngine:
                                   if self._multi or k != "pc_offchip")
         else:
             self.vec_keys = TELEMETRY_KEYS
-        self._vec_width = self.n_chips if per_chip else T
+        self._vec_width = self.n_chips if per_chip else self.Tg
         # the chunked loop defers the exchanged values where there is an
         # exchange; the BSP rule's overlap follows cfg.double_buffer
         self._defers = cfg.double_buffer and self._multi
         self._exch = None              # the superstep's _Exchange
         self._n_seeds = 0              # set by init_state, read by check_run
+        self._place(mesh)
+
+    def _place(self, mesh) -> None:
+        """Make this process's window: the tiles of its ``mesh``'s block
+        of chips (``distrib.mesh.ExecMesh``; None: every chip, no
+        collectives).  The driver places the engine again when a chip
+        loss rebuilds the mesh on fewer ranks."""
+        self._mesh = mesh
+        self._coll = mesh is not None and mesh.collective
+        self._per = self.n_chips if mesh is None else mesh.per
+        self._rank = 0 if mesh is None else mesh.rank
+        T = self._per * self.Tl         # the window: this block's tiles
+        self.T = T
+        self.Ns = T * self.Cs
+        self.Nd = T * self.Cd
+        # the window's first global chip-major position
+        self._base = self._rank * T
+        dev = self.device
+        self._tile_gids = torch.as_tensor(
+            self._perm[self._base:self._base + T], dtype=torch.int32,
+            device=dev)
+        self.row_lo, self.row_hi = (self.to_window(a, self.Cs)
+                                    for a in self._rows_g)
+        if not self._coll:
+            self._rows_g = None          # placed once: the window's copy
+        # the source tile of each emitted record and of each P$ entry,
+        # fixed per window: made once, so no superstep sizes an output
+        # on the host
+        self._src_tile = torch.repeat_interleave(self._tile_gids,
+                                                 self.cfg.oq_cap)
+        self._pcache_src = (None if self.cfg.proxy is None else
+                            torch.repeat_interleave(self._tile_gids,
+                                                    self.cfg.proxy.slots))
 
     def to_window(self, a, width: int):
         """A global per-item tensor of ``width`` items a tile, in window
-        order."""
+        order: this process's tiles only."""
         if not self._multi:
             return a
-        return a.reshape(self.T, width).index_select(
+        return a.reshape(self.Tg, width).index_select(
             0, self._tile_gids).reshape(-1)
 
     def from_window(self, a, width: int):
-        """A window-order per-item tensor back in global order."""
+        """A per-item tensor of every chip's window, chip-major (this
+        process's window where it holds every chip), back in global
+        order."""
         if not self._multi:
             return a.reshape(-1)
-        return a.reshape(self.T, width).index_select(
+        return a.reshape(self.Tg, width).index_select(
             0, self._win_pos).reshape(-1)
 
     def _pos(self, tid):
-        """The window positions of the (R,) global tiles ``tid``: the
-        reference's ``chip_of_tile * Tl + local_tile``
+        """The global chip-major positions of the (R,) global tiles
+        ``tid``: the reference's ``chip_of_tile * Tl + local_tile``
         (``_owner_slots``)."""
         return self._win_pos.index_select(0, tid) if self._multi else tid
+
+    def _lpos(self, tid):
+        """The window positions of the (R,) global tiles ``tid``, which
+        lie in this process's block of chips."""
+        pos = self._pos(tid)
+        return pos - self._base if self._base else pos
 
     def _require_mono(self, what: str) -> None:
         """The state of a multi-chip window is the driver's."""
@@ -450,7 +491,7 @@ class DataLocalEngine:
             row_hi) + (self._src_tile,)
 
     def _front_compact(self, row_lo, row_hi, state, active, W,
-                       commit=None):
+                       commit=None, n_max=None):
         """Compacted IQ drain + OQ emit over a window of W lanes a chip.
 
         Each chip's active tiles are compacted, in local tile order, into
@@ -470,7 +511,8 @@ class DataLocalEngine:
         ``commit`` (a 0-d bool, the chunk runner's predicate) writes the
         rows of the arrays only the front changes (``values`` and the
         cursors) into ``state``'s own tensors, where it holds and every
-        chip's active tiles fit in W, and returns those tensors: a
+        chip's active tiles fit in W (``n_max``, the busiest chip's
+        count, over every rank), and returns those tensors: a
         C*W-row write in place of a full-length copy.  Without it every
         array comes back as a new tensor.
 
@@ -481,7 +523,7 @@ class DataLocalEngine:
         a comparison of new against old would compare new with new);
         otherwise None."""
         T, Cs, Cd = self.T, self.Cs, self.Cd
-        per_chip = active.reshape(self.n_chips, self.Tl)
+        per_chip = active.reshape(self._per, self.Tl)
         lanes = _window_lanes(per_chip, W, self.Tl)
         n = lanes.shape[0]
         widths = dict(values=Cd, mail_val=Cd, mail_flag=Cd, cur_lo=Cs,
@@ -499,8 +541,7 @@ class DataLocalEngine:
         # cursors without reactivation keep their bounds and values
         kept = _FRONT_KEYS if react else _FRONT_KEYS[:4]
         if commit is not None:
-            commit = commit & (torch.amax(torch.sum(
-                per_chip, dim=1, dtype=torch.int32)) <= W)
+            commit = commit & (n_max <= W)
         raised = None
         if self.cfg.sanitize and self.app.combine == "min":
             raised = torch.sum(out[0] > win["values"])
@@ -604,13 +645,14 @@ class DataLocalEngine:
     def _chip_active_max(self, active):
         """The most active tiles on one chip of the (T,) window mask
         ``active`` (all of them on one chip), as a 0-d int32 tensor."""
-        return torch.amax(torch.sum(active.reshape(self.n_chips, self.Tl),
+        return torch.amax(torch.sum(active.reshape(self._per, self.Tl),
                                     dim=1, dtype=torch.int32))
 
     def _count_active(self, state):
-        """The busiest chip's active tiles of ``state`` as a 0-d int32
-        device tensor: what a window must hold."""
-        return self._chip_active_max(self._active_tiles(state))
+        """The busiest chip's active tiles of ``state``, over every rank,
+        as a 0-d int32 device tensor: what a window must hold."""
+        n_max = self._chip_active_max(self._active_tiles(state))
+        return self._mesh.pmax(n_max) if self._coll else n_max
 
     def _window(self, n_active):
         """The window a superstep whose busiest chip has ``n_active``
@@ -647,8 +689,16 @@ class DataLocalEngine:
         if self._compacting:
             active = self._active_tiles(state)
             n_max = self._chip_active_max(active)
+            n_act = torch.sum(active, dtype=torch.float32)
+            if self._coll:
+                # over every rank before the front: the window fits, and
+                # commits, on all ranks or on none
+                both = self._mesh.all_gather(torch.stack(
+                    [n_max.to(torch.float32), n_act])).reshape(-1, 2)
+                n_max = torch.amax(both[:, 0]).to(torch.int32)
+                n_act = torch.sum(both[:, 1])
             idx = bucket_index(n_max, self._ladder)
-            stats.update(active_tiles=torch.sum(active, dtype=torch.float32),
+            stats.update(active_tiles=n_act,
                          bucket_cap=self._ladder_t.index_select(
                              0, idx.reshape(1)).reshape(()))
             stats[ACTIVE_MAX] = n_max
@@ -659,7 +709,7 @@ class DataLocalEngine:
                 raised = torch.sum(front[0] > state["values"])
         else:
             front, lanes, raised = self._front_compact(
-                row_lo, row_hi, state, active, window, commit)
+                row_lo, row_hi, state, active, window, commit, n_max)
         (new_vals, mail_val, mail_flag, cur_lo, cur_hi, cur_val,
          consumed_vec, edges_vec, dst, cand, emit_mask, src_tile) = front
         owner = torch.clamp(dst // self.Cd, max=self.Tg - 1)
@@ -713,6 +763,8 @@ class DataLocalEngine:
             # Deferred, the flags and arrivals merge now and the values
             # combine into an identity buffer the next superstep folds.
             stream = [torch.cat(a) for a in (exch.idx, exch.val, exch.mask)]
+            if self._coll:
+                stream = self._gather_exchange(*stream, exch.lengths)
             if deferred is None:
                 mail_val, mail_flag, recv = _deliver(
                     mail_val, mail_flag, *stream, self.T, self.Nd, is_min,
@@ -753,14 +805,57 @@ class DataLocalEngine:
                 bad = bad + raised
             stats["sanity_violations"] = torch.clamp(
                 bad, max=SANITY_CAP).to(torch.float32)
+        if self._coll:
+            stats = self._reduce_stats(stats)
         return new_state, stats
+
+    def _gather_exchange(self, idx, val, mask, lengths):
+        """The board exchange across ranks: every rank's off-chip records
+        (``idx`` global chip-major mailbox indices) gathered in the order
+        one process would make them (``lengths``: the sub-streams, each
+        chip-major), and the ones whose owner lies in this window, at
+        their window index.  Returns (idx, val, mine) for ``_deliver``:
+        the fixed-length gather does not depend on the data."""
+        idx = torch.where(mask, idx.to(torch.int32), -1)
+        idx, val = self._mesh.gather_records((idx, val), lengths)
+        lo = self._base * self.Cd
+        mine = (idx >= lo) & (idx < lo + self.Nd)
+        return idx - lo, val, mine
+
+    def _reduce_stats(self, stats):
+        """The superstep's stats over every rank, as the reference's
+        ``_aggregate`` and its ``psum`` of ``pending``: maxima for the
+        per-tile bottlenecks, sums for the counts, the per-chip ``pc_*``
+        vectors in chip order; the compaction stats are every rank's
+        already.  One all-gather of one f64 row a rank (exact: the sums
+        are of integer counts)."""
+        out = {k: stats.pop(k) for k in (ACTIVE_MAX,) + COMPACTION_KEYS
+               if k in stats}
+        vecs = [k for k in self.vec_keys if k in stats]
+        scal = [k for k in stats if k not in vecs]
+        row = torch.cat([torch.stack([stats[k].to(torch.float64)
+                                      for k in scal])]
+                        + [stats[k].to(torch.float64) for k in vecs])
+        got = self._mesh.all_gather(row[None])
+        for i, k in enumerate(scal):
+            col = got[:, i]
+            out[k] = (torch.amax(col) if k in _MAX_STATS
+                      else torch.sum(col))
+        if "sanity_violations" in out:
+            out["sanity_violations"] = torch.clamp(
+                out["sanity_violations"], max=SANITY_CAP)
+        lo = len(scal)
+        for k in vecs:
+            out[k] = got[:, lo:lo + self._per].reshape(-1)
+            lo += self._per
+        return out
 
     def _chip_vectors(self, stats, exch, recv):
         """The per-chip ``pc_*`` load vectors of the reference's
         ``_aggregate``, reduced from the superstep's per-tile vectors
         (which they replace), the exchange's arrivals and the legs'
         per-chip counts."""
-        C, Tl = self.n_chips, self.Tl
+        C, Tl = self._per, self.Tl
         rec, edg, dlv = (stats.pop(k).reshape(C, Tl) for k in
                          ("tv_records", "tv_edges", "tv_delivered"))
         out = dict(pc_edges=torch.sum(edg, dim=1),
@@ -779,14 +874,16 @@ class DataLocalEngine:
 
     # ------------------------------------------------------- owner delivery
     def _drain_to_owners(self, mail_val, mail_flag, dst, val, mask, src,
-                         region_dims, is_min):
+                         region_dims, is_min, parts=None):
         """Charge the owner-bound leg and deliver the records into the
         mailboxes.  On a multi-chip window a record is delivered on the
         chip when its owner lies on its source tile's chip; the others
         are charged the board leg and handed to the superstep's
         ``_Exchange``.  Returns (mail_val, mail_flag, owner_leg_charge,
         off_chip_charge, on-chip delivered_per_tile); the off-chip charge
-        is empty on one chip."""
+        is empty on one chip.  ``parts`` are the lengths of the chip-major
+        sub-streams the records are the concatenation of (one, by
+        default), which the exchange across ranks keeps in order."""
         part, exch = self.part, self._exch
         owner = torch.clamp(dst // self.Cd, max=self.Tg - 1)
         owner_leg = netstats.charge(self.cfg.grid, src, owner, mask,
@@ -800,10 +897,14 @@ class DataLocalEngine:
             on, off = mask & on_chip, mask & ~on_chip
             idx = opos * self.Cd + dst % self.Cd
             off_ch = netstats.charge_board(part, schip, ochip, off)
-            exch.send(idx, val, off)
+            exch.send(idx, val, off, parts or (idx.shape[0],))
+            if self._base:
+                idx = idx - self._base * self.Cd    # on-chip: this window
         if self._per_chip and self.cfg.telemetry:
-            exch.count(schip if self._multi else part.chip_of_tile(src),
-                       mask, off, self.n_chips)
+            chip = schip if self._multi else part.chip_of_tile(src)
+            if self._rank:
+                chip = chip - self._rank * self._per
+            exch.count(chip, mask, off, self._per)
         mail_val, mail_flag, per_tile = _deliver(
             mail_val, mail_flag, idx, val, on, self.T, self.Nd, is_min,
             backend=self.cfg.backend)
@@ -826,7 +927,7 @@ class DataLocalEngine:
         ptile = proxy_tile(grid, pcfg, owner, src_tile)
         leg1 = netstats.charge(grid, src_tile, ptile, emit_mask)
         # the sender's region lies on its chip, so the proxy tile does
-        ptile_l = self._pos(ptile)
+        ptile_l = self._lpos(ptile)
 
         slot = pcache_slot(pcfg, dst)
         key = torch.where(emit_mask, ptile_l * S + slot, T * S)  # sentinel
@@ -903,6 +1004,7 @@ class DataLocalEngine:
         cat_val = torch.cat(all_val)
         cat_src = torch.cat(all_src)
         cat_mask = cat_dst < self.Ngd
+        parts = [d.shape[0] for d in all_dst]
 
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         lvl_max, ncomb = zero, zero
@@ -913,12 +1015,12 @@ class DataLocalEngine:
             (mail_val, mail_flag, leg2, owner_leg, per_tile, lvl_max,
              ncomb) = self._cascade_drain(
                 mail_val, mail_flag, cat_dst, cat_val, cat_src, cat_mask,
-                is_min)
+                is_min, parts)
         else:
             (mail_val, mail_flag, owner_leg, off_ch,
              per_tile) = self._drain_to_owners(
                 mail_val, mail_flag, cat_dst, cat_val, cat_mask, cat_src,
-                rdims, is_min)
+                rdims, is_min, parts)
             leg2 = netstats.merge_charges(owner_leg, off_ch)
 
         if flushing and split_flush:
@@ -981,7 +1083,7 @@ class DataLocalEngine:
 
     # ------------------------------------------------------- cascaded drain
     def _cascade_drain(self, mail_val, mail_flag, dst, val, src, mask,
-                       is_min):
+                       is_min, parts=None):
         """Drain proxy-stage output through the region reduction tree.
 
         Records climb from their region proxy to the same-index proxy of
@@ -994,7 +1096,8 @@ class DataLocalEngine:
         root exit, in the reference's order.  (The reference also takes
         an ``eligible`` mask whose records skip the tree; every caller
         passes all records, so that copy is always empty and is left
-        out here.)
+        out here.)  ``parts``: the input's sub-streams, as
+        ``_drain_to_owners``'s.
 
         Returns (mail_val, mail_flag, merged_charges, owner_leg_charge,
         delivered_per_tile, level_recv_max, n_combined)."""
@@ -1009,6 +1112,7 @@ class DataLocalEngine:
         owner = torch.clamp(dst // self.Cd, max=self.Tg - 1)
         legs = []
         out_dst, out_val, out_src, out_mask = [], [], [], []
+        in_parts, out_parts = tuple(parts or (dst.shape[0],)), []
         ncomb = torch.zeros((), dtype=torch.float32, device=self.device)
         lvl_max = torch.zeros((), dtype=torch.float32, device=self.device)
 
@@ -1025,9 +1129,10 @@ class DataLocalEngine:
                 out_val.append(val)
                 out_src.append(cur)
                 out_mask.append(near)
+                out_parts.extend(in_parts)
                 alive = alive & ~near
             ptile = cascade_proxy_tile(grid, rny, rnx, owner, cur)
-            ptile_l = self._pos(ptile)
+            ptile_l = self._lpos(ptile)
             legs.append(netstats.charge(grid, cur, ptile, alive,
                                         region_dims=rdims))
             # receive count per proxy tile (an index_add_, not bincount,
@@ -1041,15 +1146,18 @@ class DataLocalEngine:
             cur, dst, val, owner, alive, merged = self._combine_level(
                 ptile_l, dst, val, alive, is_min)
             ncomb = ncomb + merged
+            in_parts = (dst.shape[0],)     # sorted chip-major
 
         out_dst.append(dst)
         out_val.append(val)
         out_src.append(cur)
         out_mask.append(alive)
+        out_parts.extend(in_parts)
         (mail_val, mail_flag, owner_leg, off_ch,
          per_tile) = self._drain_to_owners(
             mail_val, mail_flag, torch.cat(out_dst), torch.cat(out_val),
-            torch.cat(out_mask), torch.cat(out_src), rdims, is_min)
+            torch.cat(out_mask), torch.cat(out_src), rdims, is_min,
+            out_parts)
         legs.append(owner_leg)
         legs.append(off_ch)
         return (mail_val, mail_flag, netstats.merge_charges(*legs),
@@ -1210,13 +1318,15 @@ class DataLocalEngine:
         fill = links["diameter"] * 0.5
         board_div = n_board_links * _off_pkg_bits_per_cycle(pkg)
         io_lat = 2.0 * IO_DIE_RXTX_LAT_NS * CLOCK_GHZ     # Tx + Rx IO die
-        values_before = state["values"].clone() if cfg.sanitize else None
+        values_before = (self._every_rank(state["values"]).clone()
+                         if cfg.sanitize else None)
         if observer is not None:
             observer.on_run_start(RunMeta(
                 app=self.app.name, grid_ny=cfg.grid.ny, grid_nx=cfg.grid.nx,
                 n_chips=self.n_chips, chips_y=cy, chips_x=cx, chunk=K,
                 backend=cfg.backend, sanitize=cfg.sanitize,
-                telemetry=cfg.telemetry, pkg=pkg, grid=cfg.grid))
+                telemetry=cfg.telemetry, pkg=pkg, grid=cfg.grid,
+                n_devices=1 if self._mesh is None else self._mesh.ndev))
 
         def account(stats):
             """The per-step loop's accounting.  The chunked loop uses its
@@ -1300,8 +1410,14 @@ class DataLocalEngine:
             except ChipLostError as err:
                 if ft is None:
                     raise
+                placed = self._mesh
                 state, flush0, steps0, cycles = ft.recover(err)
-                if runner is not None:
+                if runner is not None and self._mesh is not placed:
+                    # a new window on fewer ranks: the graphs bound to the
+                    # old one (and its group) go, new ones are captured
+                    runner = self.chunk_runner(state, K)
+                    state = None
+                elif runner is not None:
                     # into the captured graphs' tensors: none is captured
                     # again; the restored copy is not kept beside them
                     runner.load(self._with_deferred(state), flush0)
@@ -1319,7 +1435,7 @@ class DataLocalEngine:
                 write_back=self._write_back, seeds=self._n_seeds,
                 combine=self.app.combine,
                 values_before=values_before.cpu().numpy(),
-                values_after=state["values"].cpu().numpy(),
+                values_after=self._every_rank(state["values"]).cpu().numpy(),
                 drained=steps < maxs)
             invariants.assert_clean(findings, context=f"run({self._label})")
         if observer is not None:
@@ -1419,7 +1535,7 @@ class DataLocalEngine:
         sync_ctr = default_registry().counter("engine.host_syncs")
         progress = _ProgressReporter(self._label, progress_every,
                                      sanitize=self.cfg.sanitize,
-                                     tiles=self.T)
+                                     tiles=self.Tg)
         keys = self.stat_keys + ("active",)
         steps, flush, window, index = int(steps0), bool(flush0), None, 0
         while steps < maxs:
@@ -1458,6 +1574,12 @@ class DataLocalEngine:
                 break
         return self.checkpoint_image(dict(runner.state)), steps
 
+    def _every_rank(self, a):
+        """A window tensor of this rank, with every other rank's after it
+        in rank order: every chip's, chip-major (itself on one
+        process)."""
+        return self._mesh.all_gather(a) if self._coll else a
+
     def _count_window(self, window, steps: int, overflow: bool) -> None:
         """Supersteps run in each window (``engine.window_occupancy.<W>``,
         W the lanes a chip: the per-chip rung, ``Tl`` for the dense
@@ -1479,12 +1601,14 @@ class _Exchange:
 
     def __init__(self):
         self.idx, self.val, self.mask = [], [], []
+        self.lengths = []           # the chip-major sub-streams, in order
         self.owner = self.off = 0.0
 
-    def send(self, idx, val, off) -> None:
+    def send(self, idx, val, off, parts) -> None:
         self.idx.append(idx)
         self.val.append(val)
         self.mask.append(off)
+        self.lengths.extend(parts)
 
     def count(self, chip, mask, off, n_chips: int) -> None:
         def by_chip(m):

@@ -1,11 +1,14 @@
 """Where the port runs: the card, unless the caller asks for the CPU."""
 from __future__ import annotations
 
+import os
+
 import torch
 
 
 def resolve(device=None) -> torch.device:
-    """``None`` means the CUDA card, and raises when there is none; any
+    """``None`` means the CUDA card (``cuda:$LOCAL_RANK`` where a launcher
+    such as ``torchrun`` sets it), and raises when there is none; any
     other value is taken as the caller's explicit choice (the tests pass
     ``"cpu"``).  There is no silent fallback to the CPU."""
     if device is None:
@@ -13,5 +16,7 @@ def resolve(device=None) -> torch.device:
             raise RuntimeError(
                 "no CUDA device: repro_torch runs on the card by default; "
                 "pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
+        local = os.environ.get("LOCAL_RANK")
+        return (torch.device("cuda") if local is None
+                else torch.device("cuda", int(local)))
     return torch.device(device)

@@ -1,6 +1,6 @@
-"""The distributed multi-chip runtime (paper §V) in one process.
+"""The distributed multi-chip runtime (paper §V).
 
-The port of ``repro.distrib.driver`` for one device: a
+The port of ``repro.distrib.driver``: a
 :class:`~repro_torch.core.tilegrid.ChipPartition` splits the tile grid
 into chips, each chip's proxy regions and cascade are cut to the chip
 (``proxy.chip_local_proxy``), and records bound for another chip ride the
@@ -8,15 +8,35 @@ board between supersteps, charged ``netstats.charge_off_chip``.  Tile
 ids, data placement and hop charging keep the monolithic engine's global
 numbering, so results compare with it directly.
 
-The reference vmaps a per-chip superstep over the chips.  Here one
-superstep runs every chip's tiles at once: the engine
-(``core.engine.DataLocalEngine`` built with the partition) steps one
-chip-major window, the reference's stacked ``(chips, tiles_local *
+The reference vmaps a per-chip superstep over the chips of each device.
+Here one superstep runs every chip's tiles of a process at once: the
+engine (``core.engine.DataLocalEngine`` built with the partition) steps
+one chip-major window, the reference's stacked ``(chips, tiles_local *
 chunk)`` layout viewed flat, and folds every leg's off-chip records into
 the window's mailbox at the end of the superstep (the reference's
 ``exchange``).  The ops a superstep dispatches do not depend on the chip
 count, and on the card each superstep of the chunked loop is one CUDA
 graph replay, as on one chip.
+
+**Ranks** (``backend=`` 'auto' / 'vmap' / 'shard_map' and ``group=``,
+``distrib.mesh.ExecMesh``): over the R ranks of a ``torch.distributed``
+process group each rank steps the window of its own block of ``C / R``
+chips.  The off-chip records of every rank are gathered (one all-gather
+of a fixed length a superstep, in the order one process makes them)
+before each rank folds the ones it owns; the superstep's stats are
+reduced as the reference's ``_aggregate`` does (sums, maxima, and
+``pending``, so every rank's chunk stops on the same superstep) and the
+per-chip vectors gathered in chip order, in the same all-gather.  Under
+compaction every rank runs the window of the busiest chip on any rank
+(the reference picks a rung per device and pads the exchange to the
+dense length; one window for all ranks keeps the gathered length equal
+without the padding), so the collectives a superstep makes and their
+lengths do not depend on a rank's data.  ``run`` returns the values in
+global order on every rank of the mesh, beside the same ``RunResult``.
+A rank that holds no chip (the surplus of a group whose size does not
+divide the chips, or a rank left out after a chip loss) returns ``(None,
+None)`` from ``run`` at once.  One process with no group runs every chip
+and no collective.
 
 ``DistributedEngine`` has the reference's interface: ``init_state`` and
 ``activate_all`` give the ``(chips, ...)`` state, and ``run`` returns it
@@ -51,10 +71,14 @@ unfailed run's and re-pricing the trace gives its ``time_s`` exactly
 (``_FaultTolerance``).  ``rebalance_plan`` turns the run's summed
 per-chip telemetry into the straggler plan for the next wave.
 
-Not in this slice: more than one device (ROADMAP A.5c).  In one process
-a chip loss keeps the device every chip lives on (the reference's
-recovery on one device keeps its mesh too), and the restore places the
-state back on it.
+On ranks the checkpoint is the image one process writes (every chip's
+block gathered in chip order, written by the mesh's rank 0, then a
+barrier), and a chip loss rebuilds the mesh on the largest dividing
+subset of the other ranks (``ExecMesh.shrink``, a new group every rank
+makes), places each survivor's engine on its new block and restores the
+block from the checkpoint; the graphs bound to the old window are
+captured again.  In one process a chip loss keeps the device every chip
+lives on (the reference's recovery on one device keeps its mesh too).
 """
 from __future__ import annotations
 
@@ -65,6 +89,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..checkpoint.ckpt import save_checkpoint, to_host
 from ..core.costmodel import (PU_OPS_PER_EDGE, PU_OPS_PER_RECORD,
@@ -73,7 +98,9 @@ from ..core.costmodel import (PU_OPS_PER_EDGE, PU_OPS_PER_RECORD,
 from ..core.engine import AppSpec, DataLocalEngine, EngineConfig, _pad
 from ..core.proxy import chip_local_proxy
 from ..core.tilegrid import ChipPartition, TileGrid, partition_grid
+from .. import device as _device
 from ..runtime.elastic import reshard_checkpoint
+from .mesh import ExecMesh, LeftMesh
 from ..runtime.straggler import detect_stragglers, rebalance_chunks
 
 
@@ -137,22 +164,27 @@ class _FaultTolerance:
         return self._bits
 
     def checkpoint(self, steps, state, flush, cycles) -> None:
-        """Write the state at superstep ``steps`` + snapshot accounting."""
-        image = self.eng._stacked(self.eng.kernel.checkpoint_image(state))
+        """Write the state at superstep ``steps`` + snapshot accounting
+        (on ranks: every chip's block, written by the mesh's rank 0)."""
+        eng = self.eng
+        image = eng._every_chip(eng._stacked(
+            eng.kernel.checkpoint_image(state)))
         bits = self._image_bits(image)
-        host_state = to_host(image)          # waits for the device
         if self._tmpl is None:
             self._tmpl = {k: torch.empty(v.shape, dtype=v.dtype,
                                          device="meta")
-                          for k, v in host_state.items()}
+                          for k, v in image.items()}
         flush_b = bool(flush)
-        save_checkpoint(
-            self.dir, int(steps),
-            dict(state=host_state, flush=np.asarray(flush_b)),
-            extra_meta=dict(cycles=float(cycles),
-                            prev_exch=float(self.prev_exch[0]),
-                            overhead=float(self.overhead[0]),
-                            counters=self.counters.as_dict()))
+        if eng.mesh.rank == 0:
+            save_checkpoint(
+                self.dir, int(steps),
+                dict(state=to_host(image),   # waits for the device
+                     flush=np.asarray(flush_b)),
+                extra_meta=dict(cycles=float(cycles),
+                                prev_exch=float(self.prev_exch[0]),
+                                overhead=float(self.overhead[0]),
+                                counters=self.counters.as_dict()))
+        eng.mesh.barrier(eng.device)
         # the write is priced as overhead, never into `cycles`: the main
         # accumulator must replay bit-identically to an unfailed run
         self.overhead[0] += checkpoint_leg_cycles(self.pkg, bits,
@@ -203,15 +235,22 @@ class _FaultTolerance:
             self.vec_sums.clear()
             if snap["vec_sums"]:
                 self.vec_sums.update(snap["vec_sums"])
-        # 3. the device set without the lost chip's device
-        _, new_ndev = eng._drop_device()
-        # 4. restore the state through the elastic path, every leaf on
-        #    the engine's device
+        # 3. the device set without the lost chip's device; a rank left
+        #    out of it leaves the run here
+        _, new_ndev = eng._drop_device(int(err.chip))
+        if not eng.mesh.member:
+            raise LeftMesh(f"rank left out of the {new_ndev}-rank mesh "
+                           f"after chip {err.chip} was lost")
+        # 4. restore the state through the elastic path: this rank's
+        #    block of every chip-stacked leaf, on the engine's device
+        mesh = eng.mesh
+        rows = slice(mesh.rank * mesh.per, (mesh.rank + 1) * mesh.per)
         restored = reshard_checkpoint(
             self.dir, dict(state=self._tmpl, flush=torch.empty(
                 (), dtype=torch.bool, device="meta")),
-            lambda path, shape: (eng.device if path.startswith("['state']")
-                                 else None), step=lo)
+            lambda path, shape: ((eng.device, rows)
+                                 if path.startswith("['state']") else None),
+            step=lo)
         state = eng._flat(restored["state"])
         flush = bool(restored["flush"])
         # 5. the restore streams the image back over board links
@@ -226,19 +265,24 @@ class _FaultTolerance:
 
 
 class DistributedEngine:
-    """Multi-chip rendering of :class:`DataLocalEngine`, every chip in
-    one batched superstep on one device.
+    """Multi-chip rendering of :class:`DataLocalEngine`: the chips of
+    each rank of the mesh in one batched superstep on its device.
 
     Mirrors the monolithic engine's interface (``init_state`` /
     ``activate_all`` / ``run``) so the six applications run unchanged;
-    state is held stacked per chip ``(chips, local...)`` and ``run``
+    state is held stacked per chip ``(chips, local...)``, this rank's
+    ``(chips / ranks, local...)`` block on ranks, and ``run``
     reassembles ``values`` into global order.  ``device=None`` runs on
-    the CUDA card and raises without one (``device="cpu"`` for the CPU).
+    the CUDA card (``cuda:$LOCAL_RANK`` where the launcher sets it) and
+    raises without one (``device="cpu"`` for the CPU).  ``backend`` and
+    ``group`` place the chips on ranks (``ExecMesh.build``); the mesh is
+    ``self.mesh``, its label ``self.backend``.
     """
 
     def __init__(self, app: AppSpec, cfg: EngineConfig, row_lo, row_hi,
                  col_idx, weights=None, part: Optional[ChipPartition] = None,
-                 num_chips: Optional[int] = None, device=None):
+                 num_chips: Optional[int] = None, device=None,
+                 backend: str = "auto", group=None):
         if part is None:
             if num_chips is None:
                 raise ValueError("pass part= or num_chips=")
@@ -250,49 +294,72 @@ class DistributedEngine:
         self.app = app
         self.cfg = cfg
         self.part = part
-        self.kernel = DataLocalEngine(app, cfg, row_lo, row_hi, col_idx,
-                                      weights, part=part, device=device,
-                                      per_chip=True)
-        self.device = self.kernel.device
+        self.device = _device.resolve(device)
         self.C = part.num_chips
         self.Tl = part.tiles_per_chip
         self.Cs, self.Cd = cfg.chunk_src, cfg.chunk_dst
+        self.mesh = ExecMesh.build(self.C, backend, group=group,
+                                   device=self.device)
+        self.backend = self.mesh.backend_name
+        self.kernel = None             # none on a rank that holds no chip
+        if self.mesh.member:
+            self.kernel = DataLocalEngine(
+                app, cfg, row_lo, row_hi, col_idx, weights, part=part,
+                device=self.device, per_chip=True, mesh=self.mesh)
         self.last_load_vecs = None     # summed pc_* vectors of the last run
 
     # ----------------------------------------------------------- data moves
     def _shard(self, a_global: np.ndarray, chunk: int) -> torch.Tensor:
-        """Global per-index array -> stacked (chips, tiles_local*chunk)."""
+        """Global per-index array -> stacked (chips, tiles_local*chunk),
+        this rank's chips."""
         a = torch.as_tensor(np.asarray(a_global), device=self.device)
-        return self.kernel.to_window(a, chunk).reshape(self.C, -1)
+        return self.kernel.to_window(a, chunk).reshape(self.mesh.per, -1)
 
     def _flat(self, state):
         """The stacked state as the engine's window (views)."""
-        T = self.C * self.Tl
+        T = self.mesh.per * self.Tl
         return {k: v.reshape(T, -1) if k.startswith("p_") else v.reshape(-1)
                 for k, v in state.items()}
 
     def _stacked(self, state):
         """The engine's window state stacked per chip (views)."""
-        return {k: v.reshape(self.C, self.Tl, -1) if k.startswith("p_")
-                else v.reshape(self.C, -1) for k, v in state.items()}
+        per = self.mesh.per
+        return {k: v.reshape(per, self.Tl, -1) if k.startswith("p_")
+                else v.reshape(per, -1) for k, v in state.items()}
+
+    def _every_chip(self, stacked):
+        """This rank's stacked state with every other rank's blocks, in
+        chip order: every chip's ``(chips, ...)`` state (itself in one
+        process)."""
+        return {k: self.mesh.all_gather(v) for k, v in stacked.items()}
 
     # ------------------------------------------------------------- elasticity
-    def _drop_device(self) -> tuple:
-        """The device set after a chip loss, as (old, new) device counts.
-        The logical chip count stays ``self.C``: the partition and the
-        global tile numbering do not change, only the devices hosting
-        the chips' blocks.  In one process every chip lives on the one
-        device, which stays (the reference rebuilds its mesh only on
-        more than one device), so this is (1, 1); more than one rank is
-        ROADMAP A.5c."""
-        return 1, 1
+    def _drop_device(self, chip: int = 0) -> tuple:
+        """The device set after the loss of chip ``chip``, as (old, new)
+        device counts.  The logical chip count stays ``self.C``: the
+        partition and the global tile numbering do not change, only the
+        ranks hosting the chips' blocks.  On ranks the mesh is rebuilt
+        on the largest dividing subset of the ranks other than the lost
+        chip's (every rank of the old mesh takes part) and each
+        survivor's engine is placed on its new block; on one rank, or in
+        one process, the device stays (the reference rebuilds its mesh
+        only on more than one device)."""
+        old = self.mesh.ndev
+        self.mesh = self.mesh.shrink(chip // self.mesh.per)
+        self.backend = self.mesh.backend_name
+        if self.mesh.member and self.mesh.ndev != old:
+            self.kernel._place(self.mesh)
+        return old, self.mesh.ndev
 
     # ---------------------------------------------------------------- state
     def init_state(self, seed_idx=None, seed_val=None,
                    values: Optional[np.ndarray] = None):
         """Fresh stacked state; ``seed_idx``/``seed_val`` (global indices)
-        pre-load mailbox records, ``values`` the global values."""
+        pre-load mailbox records, ``values`` the global values.  On a rank
+        that holds no chip, empty."""
         k = self.kernel
+        if k is None:
+            return {}
         ident = self.app.identity
         vals = (np.full((k.Ngd,), ident, np.float32) if values is None
                 else _pad(np.asarray(values, np.float32), k.Ngd, ident))
@@ -305,8 +372,10 @@ class DistributedEngine:
             mail_flag[si] = True
             k._n_seeds = int(si.shape[0])
 
+        per = self.mesh.per
+
         def zeros(dt):
-            return torch.zeros((self.C, self.Tl * self.Cs), dtype=dt,
+            return torch.zeros((per, self.Tl * self.Cs), dtype=dt,
                                device=self.device)
 
         st = dict(values=self._shard(vals, self.Cd),
@@ -315,7 +384,7 @@ class DistributedEngine:
                   cur_lo=zeros(torch.int32), cur_hi=zeros(torch.int32),
                   cur_val=zeros(torch.float32))
         if self.cfg.proxy is not None:
-            shape = (self.C, self.Tl, self.cfg.proxy.slots)
+            shape = (per, self.Tl, self.cfg.proxy.slots)
             st["p_tag"] = torch.full(shape, -1, dtype=torch.int32,
                                      device=self.device)
             st["p_val"] = torch.full(shape, ident, dtype=torch.float32,
@@ -327,8 +396,10 @@ class DistributedEngine:
         edge range and the carried global value ``cur_val``."""
         k = self.kernel
         state = dict(state)
-        state["cur_lo"] = k.row_lo.reshape(self.C, -1)
-        state["cur_hi"] = k.row_hi.reshape(self.C, -1)
+        if k is None:
+            return state
+        state["cur_lo"] = k.row_lo.reshape(self.mesh.per, -1)
+        state["cur_hi"] = k.row_hi.reshape(self.mesh.per, -1)
         state["cur_val"] = self._shard(
             _pad(np.asarray(cur_val, np.float32), k.Ngs, 0.0), self.Cs)
         return state
@@ -365,14 +436,23 @@ class DistributedEngine:
         the restore copies into the chunk runner's tensors, so no CUDA
         graph is captured again, and the first chunk after it runs
         dense.  ``ckpt_dir`` overrides the checkpoint directory
-        (default: a fresh temporary one, removed when the run ends)."""
+        (default: a fresh temporary one, removed when the run ends); on
+        ranks it is one directory every rank reads.
+
+        On ranks every rank of the mesh returns the same values and
+        ``RunResult``; a rank that holds no chip, or is left out of the
+        mesh after a chip loss, returns ``(None, None)``."""
+        if not self.mesh.member:
+            return None, None
         cfg = self.cfg
         vec_sums = {} if cfg.telemetry else None
         fault_tolerance = made = None
         if cfg.ckpt_every_supersteps > 0 or fault_injector is not None:
             if ckpt_dir is None:
-                ckpt_dir = made = tempfile.mkdtemp(
-                    prefix=f"repro_torch_ckpt_{self.app.name}_")
+                if self.mesh.rank == 0:
+                    made = tempfile.mkdtemp(
+                        prefix=f"repro_torch_ckpt_{self.app.name}_")
+                ckpt_dir = made = self._from_rank0(made)
             blinks = board_link_provisioning(cfg.pkg, self.part.chips_y,
                                              self.part.chips_x)
 
@@ -388,13 +468,26 @@ class DistributedEngine:
                 self._flat(state), max_supersteps, progress_every, chunk,
                 observer, fault_tolerance=fault_tolerance,
                 vec_sums=vec_sums)
+            values = self.kernel._every_rank(flat["values"])
+        except LeftMesh:
+            return None, None
         finally:
-            if made is not None:
+            # the mesh's rank 0 at the end: every other rank is done
+            if made is not None and self.mesh.member and self.mesh.rank == 0:
                 shutil.rmtree(made, ignore_errors=True)
         self.last_load_vecs = vec_sums
         out = self._stacked(flat)
-        out["values"] = self.kernel.from_window(flat["values"], self.Cd)
+        out["values"] = self.kernel.from_window(values, self.Cd)
         return out, result
+
+    def _from_rank0(self, obj):
+        """The mesh's rank 0's ``obj`` on every rank of the mesh."""
+        if not self.mesh.collective:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=self.mesh.ranks[0],
+                                   group=self.mesh.group, device=self.device)
+        return box[0]
 
     # ---------------------------------------------------- straggler handling
     def rebalance_plan(self, n_items: Optional[int] = None,
@@ -443,16 +536,21 @@ def run_distributed(app: AppSpec, cfg: EngineConfig, row_lo, row_hi,
                     col_idx, weights=None, *, chips: Optional[int] = None,
                     part: Optional[ChipPartition] = None, seed_idx=None,
                     seed_val=None, values=None, activate=None,
-                    max_supersteps: Optional[int] = None, device=None):
+                    max_supersteps: Optional[int] = None, device=None,
+                    backend: str = "auto", group=None):
     """One-call distributed run: partition, seed or activate, run to
-    drain.  Returns (global values as a numpy array, RunResult).
-    ``activate`` (a global per-source value array) selects epoch-style
-    activation; ``seed_idx``/``seed_val`` seed mailboxes."""
+    drain.  Returns (global values as a numpy array, RunResult), or
+    (None, None) on a rank that holds no chip.  ``activate`` (a global
+    per-source value array) selects epoch-style activation;
+    ``seed_idx``/``seed_val`` seed mailboxes."""
     eng = DistributedEngine(app, cfg, row_lo, row_hi, col_idx, weights,
-                            part=part, num_chips=chips, device=device)
+                            part=part, num_chips=chips, device=device,
+                            backend=backend, group=group)
     state = eng.init_state(seed_idx=seed_idx, seed_val=seed_val,
                            values=values)
     if activate is not None:
         state = eng.activate_all(state, activate)
     state, run = eng.run(state, max_supersteps)
+    if run is None:
+        return None, None
     return state["values"].cpu().numpy(), run

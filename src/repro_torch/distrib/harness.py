@@ -43,7 +43,8 @@ def chip_grid(chips: int, tiles_per_chip: int) -> TileGrid:
 
 def _measure(g, grid, chips: int, oq_cap: int, pkg: PackageConfig,
              backend: str, use_proxy: bool, run_chunk: Optional[int],
-             double_buffer: bool, device) -> Dict[str, float]:
+             double_buffer: bool, device) -> Optional[Dict[str, float]]:
+    """One BFS row, or None on a rank that holds no chip."""
     from ..graph import apps
     root = int(np.argmax(g.out_degree()))
     proxy = apps.table2_proxy(grid, "bfs") if use_proxy else None
@@ -51,6 +52,8 @@ def _measure(g, grid, chips: int, oq_cap: int, pkg: PackageConfig,
     r = apps.bfs(g, root, grid, proxy=proxy, oq_cap=oq_cap, chips=chips,
                  backend=backend, pkg=pkg, double_buffer=double_buffer,
                  device=device, **kw)
+    if r.run is None:
+        return None
     # re-price the measured trace under the run's own package config: the
     # analytic board-level pricing must reproduce the measured time
     rep = price(pkg, grid, r.run.counters,
@@ -85,7 +88,10 @@ def weak_scaling(chip_counts: Sequence[int] = WEAK_CHIP_COUNTS,
     ``run_chunk`` overrides the supersteps per host fetch (0: the
     per-step loop); ``double_buffer`` prices each superstep's board
     exchange under the next superstep's compute (the same counters and
-    trace, a lower or equal ``time_s``: ``distrib.driver``)."""
+    trace, a lower or equal ``time_s``: ``distrib.driver``).
+    ``backend`` goes to the app as it is: an engine backend ('kernels' /
+    'torch') or a placement on ranks ('auto' / 'vmap' / 'shard_map');
+    a rank that holds no chip of a row has no row for it."""
     rows = []
     for chips in chip_counts:
         grid = chip_grid(chips, tiles_per_chip)
@@ -93,7 +99,7 @@ def weak_scaling(chip_counts: Sequence[int] = WEAK_CHIP_COUNTS,
         g = rmat_edges(scale, edge_factor=edge_factor, seed=seed)
         rows.append(_measure(g, grid, chips, oq_cap, pkg, backend,
                              use_proxy, run_chunk, double_buffer, device))
-    return rows
+    return [r for r in rows if r is not None]
 
 
 def strong_scaling(chip_counts: Sequence[int] = (1, 4, 16, 64),
@@ -105,8 +111,8 @@ def strong_scaling(chip_counts: Sequence[int] = (1, 4, 16, 64),
                    double_buffer: bool = False,
                    device=None) -> List[Dict[str, float]]:
     """Fixed grid and dataset, re-partitioned across more chips: what the
-    off-chip boundary costs at constant total work (``double_buffer`` as
-    in ``weak_scaling``)."""
+    off-chip boundary costs at constant total work (``double_buffer`` and
+    ``backend`` as in ``weak_scaling``)."""
     g = rmat_edges(scale, edge_factor=edge_factor, seed=seed)
     grid = square_grid(n_tiles)
     rows = []
@@ -119,7 +125,7 @@ def strong_scaling(chip_counts: Sequence[int] = (1, 4, 16, 64),
             continue
         rows.append(_measure(g, grid, chips, oq_cap, pkg, backend,
                              use_proxy, run_chunk, double_buffer, device))
-    return rows
+    return [r for r in rows if r is not None]
 
 
 def measured_gteps_curve(rows: List[Dict[str, float]]) -> Dict[int, float]:

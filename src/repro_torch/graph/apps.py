@@ -12,14 +12,18 @@ The port of ``repro.graph.apps``, with the same signatures plus
 RunResult (traffic counters + BSP time), from which the paper's metrics
 (GTEPS, hops/message, energy, $) follow.
 
-``device=None`` runs on the CUDA card; ``backend="kernels"`` (default) or
+``device=None`` runs on the CUDA card; ``chips > 1`` runs the
+distributed engine (``distrib.DistributedEngine``).  ``backend=`` takes
+either set of the reference's names: ``"kernels"`` (default) or
 ``"torch"`` picks the engine's hot-spot implementation (the reference's
-``"pallas"`` / ``"jnp"``; its multi-device backends are ROADMAP A.5c);
-``chips > 1`` runs the distributed engine (``distrib.DistributedEngine``,
-every chip in one process); every other keyword is an ``EngineConfig``
-field.  ``observer=`` (an ``obs.timeline.Observer``)
+``"pallas"`` / ``"jnp"``), ``"auto"`` / ``"vmap"`` / ``"shard_map"`` the
+distributed placement over the ranks of ``group=`` (default: the
+``torch.distributed`` default group, where one is initialised;
+``distrib.mesh.ExecMesh.build``).  Every other keyword is an
+``EngineConfig`` field.  ``observer=`` (an ``obs.timeline.Observer``)
 goes to the engine's ``run``; PageRank's observer sees one
-``on_run_start`` / ``on_run_end`` pair per epoch.
+``on_run_start`` / ``on_run_end`` pair per epoch.  On a rank that holds
+no chip an app returns ``values`` and ``run`` None.
 """
 from __future__ import annotations
 
@@ -93,6 +97,22 @@ class AppResult:
         return self.teps_edges / max(self.run.time_s, 1e-12) / 1e9
 
 
+def _split_backends(kw: dict):
+    """The apps-level ``backend=`` names either the distributed placement
+    ('auto' / 'vmap' / 'shard_map') or, given an engine backend's name
+    ('kernels' / 'torch'), the ``EngineConfig.backend`` hot-spot
+    implementation; the two sets are disjoint, so one keyword serves
+    both.  Returns (placement, the EngineConfig keywords)."""
+    backend = kw.pop("backend", "auto")
+    if backend in ("kernels", "torch"):
+        return "auto", dict(kw, backend=backend)
+    if backend not in ("auto", "vmap", "shard_map"):
+        raise ValueError(
+            f"unknown backend {backend!r}: an engine backend ('kernels', "
+            f"'torch') or a placement ('auto', 'vmap', 'shard_map')")
+    return backend, kw
+
+
 def _engine(spec: AppSpec, g: CSR, grid: TileGrid,
             proxy: Optional[ProxyConfig], chips: int = 0, device=None,
             **kw):
@@ -104,11 +124,15 @@ def _build(spec: AppSpec, grid: TileGrid, proxy: Optional[ProxyConfig],
            n_src: int, n_dst: int, row_lo, row_hi, col_idx, weights,
            chips: int, device, kw: dict):
     """The monolithic engine, or the distributed one for ``chips > 1``."""
+    kw = dict(kw)
+    group = kw.pop("group", None)
+    placement, kw = _split_backends(kw)
     cfg = EngineConfig(grid=grid, n_src=n_src, n_dst=n_dst, proxy=proxy,
                        **kw)
     if chips and chips > 1:
         return DistributedEngine(spec, cfg, row_lo, row_hi, col_idx,
-                                 weights, num_chips=chips, device=device)
+                                 weights, num_chips=chips, device=device,
+                                 backend=placement, group=group)
     return DataLocalEngine(spec, cfg, row_lo, row_hi, col_idx, weights,
                            device=device)
 
@@ -157,8 +181,16 @@ def engine_and_state(name: str, g: CSR, grid: TileGrid,
     raise ValueError(name)
 
 
-def _values(state, n: int) -> np.ndarray:
-    return state["values"][:n].cpu().numpy()
+def _values(state, n: int) -> Optional[np.ndarray]:
+    """The first ``n`` values, None on a rank that holds no chip."""
+    return None if state is None else state["values"][:n].cpu().numpy()
+
+
+def _traversal(vals, run, g: CSR) -> AppResult:
+    """A BFS or SSSP result: TEPS counts the edges of reached vertices."""
+    teps = 0.0 if vals is None else float(
+        g.out_degree()[np.isfinite(vals)].sum())
+    return AppResult(values=vals, run=run, teps_edges=teps)
 
 
 # ---------------------------------------------------------------- traversals
@@ -168,10 +200,7 @@ def bfs(g: CSR, root: int, grid: TileGrid,
     eng = _engine(BFS_SPEC, g, grid, proxy, device=device, **kw)
     state = eng.init_state(seed_idx=root, seed_val=0.0)
     state, run = eng.run(state, observer=observer)
-    vals = _values(state, g.n_rows)
-    reached = np.isfinite(vals)
-    teps = float(g.out_degree()[reached].sum())
-    return AppResult(values=vals, run=run, teps_edges=teps)
+    return _traversal(_values(state, g.n_rows), run, g)
 
 
 def sssp(g: CSR, root: int, grid: TileGrid,
@@ -180,10 +209,7 @@ def sssp(g: CSR, root: int, grid: TileGrid,
     eng = _engine(SSSP_SPEC, g, grid, proxy, device=device, **kw)
     state = eng.init_state(seed_idx=root, seed_val=0.0)
     state, run = eng.run(state, observer=observer)
-    vals = _values(state, g.n_rows)
-    reached = np.isfinite(vals)
-    teps = float(g.out_degree()[reached].sum())
-    return AppResult(values=vals, run=run, teps_edges=teps)
+    return _traversal(_values(state, g.n_rows), run, g)
 
 
 def wcc(g: CSR, grid: TileGrid, proxy: Optional[ProxyConfig] = None,
@@ -228,6 +254,8 @@ def pagerank(g: CSR, grid: TileGrid, proxy: Optional[ProxyConfig] = None,
         contrib = damping * ranks / deg
         state = eng.activate_all(eng.init_state(), contrib)
         state, run = eng.run(state, observer=observer)
+        if run is None:                 # a rank that holds no chip
+            return AppResult(values=None, run=None, teps_edges=0.0)
         ranks = (1.0 - damping) / n + _values(state, n)
         _accumulate(total, run)
     return AppResult(values=ranks, run=total,

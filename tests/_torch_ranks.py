@@ -1,0 +1,88 @@
+"""Run a python snippet on ``n`` ranks of a gloo process group on the CPU
+(the port's counterpart of ``tests/_subproc.py``).
+
+Each rank is a ``python -c`` process with ``RANK``, ``WORLD_SIZE`` and
+``OMP_NUM_THREADS=1``; the header puts ``src`` on the path, pins torch to
+one thread and joins the group on a file store in a fresh temporary
+directory, with an explicit timeout.  With ``group=False`` the snippet
+joins it itself by calling ``init_group()`` (after work that must run
+without a group).  The snippet runs with ``device="cpu"`` in mind: no
+rank touches a card.
+"""
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+HEADER = """\
+import datetime
+import os
+import sys
+import warnings
+warnings.filterwarnings("ignore")
+sys.path.insert(0, {src!r})
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+RANK = int(os.environ["RANK"])
+WORLD = int(os.environ["WORLD_SIZE"])
+
+
+def init_group():
+    dist.init_process_group(
+        "gloo", init_method="file://" + {store!r}, rank=RANK,
+        world_size=WORLD, timeout=datetime.timedelta(seconds={timeout}))
+
+
+"""
+FOOTER = """
+if dist.is_initialized():
+    dist.destroy_process_group()
+"""
+
+
+def run_ranks(snippet: str, n: int, timeout: int = 240,
+              group: bool = True) -> list:
+    """Run ``snippet`` on ``n`` ranks; returns each rank's stdout, in rank
+    order.  Every rank must exit 0 within ``timeout`` seconds; past it
+    every rank is killed and the call fails."""
+    with tempfile.TemporaryDirectory(prefix="torch_ranks_") as tmp:
+        code = (HEADER.format(src=os.path.abspath(SRC),
+                              store=os.path.join(tmp, "store"),
+                              timeout=timeout)
+                + ("init_group()\n" if group else "") + snippet + FOOTER)
+        procs, outs = [], []
+        for rank in range(n):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(n),
+                       OMP_NUM_THREADS="1")
+            out = open(os.path.join(tmp, f"out{rank}"), "w+")
+            err = open(os.path.join(tmp, f"err{rank}"), "w+")
+            outs.append((out, err))
+            procs.append(subprocess.Popen([sys.executable, "-c", code],
+                                          stdout=out, stderr=err, env=env))
+        deadline = time.monotonic() + timeout
+        try:
+            for p in procs:
+                p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        texts = []
+        for out, err in outs:
+            out.seek(0)
+            err.seek(0)
+            texts.append((out.read(), err.read()))
+            out.close()
+            err.close()
+    for rank, (p, (out, err)) in enumerate(zip(procs, texts)):
+        assert p.returncode == 0, (
+            f"rank {rank} of {n} failed (exit {p.returncode}):\n"
+            f"STDOUT:\n{out}\nSTDERR:\n{err}")
+    return [out for out, _ in texts]

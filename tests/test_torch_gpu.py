@@ -891,3 +891,81 @@ def test_fault_recovery_on_card(tmp_path):
     assert sc.segment_combine.launches >= f.supersteps
     assert df.deliver_fused.launches >= 2 * f.supersteps
 
+
+
+# ------------------------------------------------------- ranks, A.5c
+@pytest.fixture
+def nccl_group(tmp_path):
+    """A one-rank NCCL group on a file store: the card holds one rank,
+    and a group given to the engine runs its collectives even there."""
+    import datetime
+    import torch.distributed as dist
+    _card()
+    if not dist.is_nccl_available():
+        pytest.skip("this PyTorch has no NCCL")
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def test_ranks_one_nccl_rank_matches_in_process(nccl_group, monkeypatch):
+    """A 4-chip BFS at RMAT-12 on 256 tiles through a one-rank NCCL group
+    equals the in-process run on both loops (values bitwise; counters,
+    trace, supersteps, ``time_s``), its collectives ran (two all-gathers
+    a superstep on the per-step loop: the exchange and the stats), and a
+    chunk of its graphs, collectives captured, replays with no sync that
+    PyTorch's sync debug mode detects."""
+    from repro_torch.distrib import mesh as tmesh
+    dev = _card()
+    g = rmat_edges(12, edge_factor=8, seed=1)
+    grid = square_grid(256)
+    root = int(np.argmax(g.out_degree()))
+    kw = dict(proxy=apps.table2_proxy(grid, "bfs"), oq_cap=16, chips=4,
+              device=dev)
+    want = apps.bfs(g, root, grid, **kw)
+    gathers = []
+    gather = tmesh._all_gather_single
+
+    def counted(*a, **k):
+        gathers.append(1)
+        return gather(*a, **k)
+    monkeypatch.setattr(tmesh, "_all_gather_single", counted)
+    on_ranks = dict(kw, backend="shard_map", group=nccl_group)
+    for chunk in (16, 0):
+        n0 = len(gathers)
+        got = apps.bfs(g, root, grid, run_chunk=chunk, **on_ranks)
+        _same_run(got, want, "bfs")
+    assert len(gathers) - n0 >= 2 * got.run.supersteps
+    eng, state, _ = apps.engine_and_state("bfs", g, grid, root=root,
+                                          **on_ranks)
+    assert eng.mesh.collective and eng.mesh.ndev == 1
+    runner = eng.chunk_runner(state, 4)
+    runner.launch(10_000, False)                  # warm-up and capture
+    runner.fetch()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runner.launch(10_000, False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = runner.fetch()
+    assert not got.done and got.rows[:, -1].sum() == 4
+
+
+def test_ranks_one_nccl_rank_compacted_double_buffered(nccl_group):
+    """SpMV (write-back P$, cascade, the flush graph) on 4 chips with
+    ``compaction=3`` and ``double_buffer=True`` through a one-rank NCCL
+    group, on both loops: equal to the in-process run (counters, trace,
+    supersteps, ``time_s``; values to f32 re-association), every
+    (flush, window) graph captured with its collectives."""
+    dev = _card()
+    fn, args, kw = _chips_case("spmv")
+    kw = dict(kw, device=dev, compaction=3, double_buffer=True)
+    want = fn(*args, **kw)
+    for chunk in (16, 0):
+        got = fn(*args, backend="shard_map", group=nccl_group,
+                 run_chunk=chunk, **kw)
+        _same_run(got, want, "spmv")
