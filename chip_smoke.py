@@ -158,10 +158,11 @@ on past a failure:
     holds one rank: NCCL refuses two on one device), and phase 10's
     RMAT-22 BFS on 4 chips through ``backend="shard_map"`` on it, so the
     exchange's all-gather and the stats' all-gather run (captured in the
-    CUDA graphs on the chunked loop), chunked and per-step, each equal to
-    phase 10's in-process run (values bitwise; counters, trace,
-    supersteps, ``time_s``) with phase 10's host syncs on the chunked
-    loop and at least two all-gathers a superstep on the per-step loop;
+    CUDA graphs on the chunked loop), chunked, equal to phase 10's
+    in-process run (values bitwise; counters, trace, supersteps,
+    ``time_s``) with phase 10's host syncs; 10b's RMAT-18 BFS on the
+    per-step loop (two NCCL calls from the host a superstep, so RMAT-18),
+    equal to 10b's synchronous run, at least two all-gathers a superstep;
     ms a superstep, peak memory and graphs captured beside phase 10's;
     20 profiled replays of BFS RMAT-18 on the group beside phase 10's
     (device entries and busy ms; the all-gathers captured, none issued
@@ -169,7 +170,23 @@ on past a failure:
     its cascade, ``compaction=2`` and ``double_buffer=True`` on the group
     equal to phase 10b's run.  The group is destroyed before the phase
     ends;
-13. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
+13. product search (ROADMAP A.7; ``repro_torch.products``): BFS at
+    RMAT-22 on the 4096-tile package (``MeasureSpec`` defaults: phase
+    5's call) swept over the chips axis, ``chip_counts_for(4096)`` = 1,
+    4, 16 and 64 chips, each chip count's products (3 memory styles x 4
+    networks at 1.5 MiB SRAM, board links 1, 2 and 4 on more than one
+    chip): 120 rows from 4 engine runs, the search's one RMAT-22 graph
+    asked for once (and handed phase 3's, the same graph: ``DatasetTap``).
+    Gates: a second sweep makes no engine run and gives equal rows from
+    the cache; the 1-chip and 4-chip measurements equal phase 5's and
+    phase 10's runs (counters, trace, supersteps, ``time_s``, TEPS
+    edges); every measurement re-priced under its own package within
+    1e-12 of its ``time_s``; one board link never faster and always
+    cheaper than the default two; each measurement launches every
+    engine kernel.  Printed: each chip count's supersteps, wall, peak
+    memory, modelled ``time_s`` and GTEPS; the Pareto front over all
+    rows; the winners by objective at each chip count and overall;
+14. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
     the last line, ``{"ok": true, "device": {...}}``.
 
 Every app run prints its supersteps, wall seconds, ms per superstep,
@@ -188,7 +205,8 @@ superstep, on the engine's paths) fails the run.  The JSON line counts
 the compacted runs under their own path, ``compaction``, phase 9b's
 RMAT-22 runs under ``hooks``, phase 10's under ``partition``, phase
 10b's three under ``partition_overlap``, phase 11's two under
-``fault`` and phase 12's two under ``ranks``.  A graph replay counts the launches
+``fault``, phase 12's two under ``ranks`` and phase 13's four
+measurements under ``products``.  A graph replay counts the launches
 captured in it, so on the chunked loop the counts include the idle rows
 of a chunk (after the run drained, or after a flush the device
 scheduled), which are printed as the surplus.
@@ -2120,9 +2138,10 @@ def overlap_phase(dev, wl) -> dict:
           f"double_buffer and compaction={OVERLAP_AGREE_COMPACTION}: both "
           f"backends, both loops")
     bfs_px = apps.table2_proxy(grid, "bfs")
-    bfs_sync = app_run(dev, f"bfs {PART_CHIPS} chips synchronous dense",
-                       apps.bfs, g18, root18, grid, proxy=bfs_px,
-                       oq_cap=OQ_CAP, chips=PART_CHIPS)[0]
+    bfs_sync, _, bfs_read = app_run(
+        dev, f"bfs {PART_CHIPS} chips synchronous dense", apps.bfs, g18,
+        root18, grid, proxy=bfs_px, oq_cap=OQ_CAP, chips=PART_CHIPS)
+    wl["partition"][f"bfs RMAT-{AGREE_SCALE}"] = (bfs_sync, bfs_read)
     cases = (("bfs", apps.bfs, (g18, root18, grid), bfs_px, bfs_sync,
               (None, None)),
              ("spmv", apps.spmv, (g18, x, grid),
@@ -2495,10 +2514,11 @@ class GatherCount:
 
 def ranks_phase(dev, wl) -> dict:
     """ROADMAP A.5c on the card: phase 10's RMAT-22 BFS on 4 chips through
-    a one-rank NCCL group, chunked and per-step, equal to phase 10's
-    in-process run; profiled replays at RMAT-18 beside phase 10's; SpMV
-    RMAT-18 with both options equal to phase 10b's run.  Returns the
-    RMAT-22 runs' launches, summed."""
+    a one-rank NCCL group on the chunked loop, equal to phase 10's
+    in-process run, and 10b's RMAT-18 BFS on the per-step loop, equal to
+    10b's synchronous run; profiled replays at RMAT-18 beside phase 10's;
+    SpMV RMAT-18 with both options equal to phase 10b's run.  Returns the
+    two BFS runs' launches, summed."""
     import datetime
     import tempfile
     import torch.distributed as dist
@@ -2507,8 +2527,14 @@ def ranks_phase(dev, wl) -> dict:
     print(f"== 12. ranks: {PART_CHIPS} chips on a one-rank NCCL group "
           f"(backend=shard_map, its collectives run), backend=kernels")
     fn, args, kw = main_path_apps(wl)["bfs"]
-    g, root, grid = args
-    want, want_read = wl["partition"]["bfs"]
+    grid = args[2]
+    g18 = wl[AGREE_SCALE]
+    root18 = int(np.argmax(g18.out_degree()))
+    # the per-step loop makes two NCCL calls from the host a superstep
+    # (~19 ms a superstep at RMAT-22): it runs at RMAT-18
+    runs = ((SCALE, None, args, wl["partition"]["bfs"], "phase 10"),
+            (AGREE_SCALE, 0, (g18, root18, grid),
+             wl["partition"][f"bfs RMAT-{AGREE_SCALE}"], "phase 10b"))
     launches, readings = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group(
@@ -2519,21 +2545,22 @@ def ranks_phase(dev, wl) -> dict:
             on = dict(chips=PART_CHIPS, backend="shard_map",
                       group=dist.group.WORLD)
             t0 = time.perf_counter()
-            for chunk in (None, 0):
+            for scale, chunk, bargs, (want, want_read), was in runs:
                 extra = {} if chunk is None else dict(run_chunk=chunk)
                 loop = "chunked" if chunk is None else "per-step"
-                name = f"bfs {PART_CHIPS} chips one nccl rank, {loop}"
+                name = (f"bfs RMAT-{scale} {PART_CHIPS} chips one nccl "
+                        f"rank, {loop}")
                 with GatherCount() as gathers:
-                    res, got, read = app_run(dev, name, fn, *args, **on,
+                    res, got, read = app_run(dev, name, fn, *bargs, **on,
                                              **extra, **kw)
                 require_launches(name, got, read, ENGINE_KERNELS)
                 for k, n in got.items():
                     launches[k] = launches.get(k, 0) + n
-                same_run(want, res, f"{name} vs phase 10")
+                same_run(want, res, f"{name} vs {was}")
                 if chunk is None:
                     require(read["host_syncs"] == want_read["host_syncs"],
                             f"{name}: {read['host_syncs']:.0f} host syncs "
-                            f"against phase 10's "
+                            f"against {was}'s "
                             f"{want_read['host_syncs']:.0f}")
                 else:
                     require(gathers.n >= 2 * res.run.supersteps,
@@ -2546,7 +2573,7 @@ def ranks_phase(dev, wl) -> dict:
                     graph_captures=read["graph_captures"],
                     eager_all_gathers=gathers.n)
                 print(f"    {name}: {read['ms_per_superstep']:.3f} ms a "
-                      f"superstep (phase 10 in-process chunked "
+                      f"superstep ({was} in-process chunked "
                       f"{want_read['ms_per_superstep']:.3f}), peak "
                       f"{read['peak_gib']:.3f} GiB "
                       f"({want_read['peak_gib']:.3f}), host syncs "
@@ -2555,11 +2582,9 @@ def ranks_phase(dev, wl) -> dict:
                       f"{read['graph_captures']:.0f} "
                       f"({want_read['graph_captures']:.0f}), all-gathers "
                       f"issued from the host {gathers.n}")
-            print(f"  RMAT-{SCALE} runs {time.perf_counter() - t0:.1f} s")
+            print(f"  BFS runs {time.perf_counter() - t0:.1f} s")
 
             t0 = time.perf_counter()
-            g18 = wl[AGREE_SCALE]
-            root18 = int(np.argmax(g18.out_degree()))
             eng, state, _ = apps.engine_and_state(
                 "bfs", g18, grid, apps.table2_proxy(grid, "bfs"),
                 root=root18, oq_cap=OQ_CAP, device=dev, **on)
@@ -2614,6 +2639,210 @@ def ranks_phase(dev, wl) -> dict:
     return launches
 
 
+# ---------------------------------------------- 13. product search (A.7)
+PRODUCT_BOARD_LINKS = (1, 2, 4)     # on more than one chip; 2 the default
+WINNER_OBJECTIVES = ("time", "energy", "cost")
+
+
+class DatasetTap:
+    """While entered, counts the calls of ``graph.rmat.rmat_edges`` (the
+    product search's dataset) and answers the call for phase 3's RMAT-22
+    graph with that graph (``rmat_edges`` is a function of its
+    arguments: the graph the call would make, without its ~35-70 s on
+    the host); any other call makes its graph."""
+
+    def __init__(self, wl):
+        self.wl = wl
+
+    def __enter__(self):
+        from repro_torch.graph import rmat
+        self.calls = 0
+        self._made = made = rmat.rmat_edges
+
+        def tap(*args, **kw):
+            self.calls += 1
+            if args == (SCALE,) and kw == dict(edge_factor=EDGE_FACTOR,
+                                                seed=SEED):
+                return self.wl[SCALE]
+            return made(*args, **kw)
+        rmat.rmat_edges = tap
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.graph import rmat
+        rmat.rmat_edges = self._made
+
+
+def same_measurement(m, res, what: str) -> None:
+    """A product-search measurement equal to an app run of an earlier
+    phase: counters, trace, supersteps, ``time_s`` and TEPS edges."""
+    run = res.run
+    require(m.counters.as_dict() == run.counters.as_dict(),
+            f"{what}: counters differ")
+    require(m.trace.to_dict() == run.trace.to_dict(),
+            f"{what}: trace differs")
+    require(m.supersteps == run.supersteps, f"{what}: supersteps differ")
+    require(m.time_s == run.time_s, f"{what}: time_s differs")
+    require(m.teps_edges == res.teps_edges, f"{what}: TEPS edges differ")
+    print(f"    {what}: counters, trace, supersteps, time_s, TEPS edges "
+          f"equal")
+
+
+def products_phase(dev, wl, smi: str) -> dict:
+    """ROADMAP A.7 on the card: BFS at RMAT-22 measured through
+    ``products.ProductSearch`` at every chip count of the 4096-tile
+    package and priced over each count's products; the 1- and 4-chip
+    measurements equal to phases 5 and 10.  Returns the four
+    measurements' launches, summed."""
+    import dataclasses
+    import tempfile
+    from repro_torch.core.costmodel import DCRA_SRAM
+    from repro_torch.kernels import ops
+    from repro_torch.products import (DEFAULT_BOARD_LINKS, OBJECTIVES,
+                                      MeasureSpec, ProductSearch,
+                                      chip_counts_for, pareto_front,
+                                      product_space, select_products)
+    t_phase = time.perf_counter()
+    spec = MeasureSpec(app="bfs", scale=SCALE, tiles=TILES,
+                       edge_factor=EDGE_FACTOR, seed=SEED)
+    counts = chip_counts_for(TILES)
+    configs = [cfg for n in counts for cfg in product_space(
+        chips=(n,),
+        board_links=PRODUCT_BOARD_LINKS if n > 1 else DEFAULT_BOARD_LINKS)]
+    print(f"== 13. product search: {spec.label} (oq_cap {spec.oq_cap}, "
+          f"{spec.slots} P$ slots, region_div {spec.region_div}: phase 5's "
+          f"call), chips {list(counts)}, {len(configs)} products, "
+          f"backend=kernels ({smi})")
+    launches, measured = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ps = ProductSearch(cache_dir=tmp, device=dev)
+        measure = ps.measure
+
+        def timed(s, run_chunk=None):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            with LoopClock() as clock:
+                m = measure(s, run_chunk)
+            torch.cuda.synchronize()
+            got = ops.launch_counts()
+            n = max(s.chips, 1)
+            measured[n] = (m, dict(
+                wall_s=time.perf_counter() - t0, loop_s=clock.seconds,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                launches=got))
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            return m
+        ps.measure = timed
+        with DatasetTap(wl) as data:
+            t0 = time.perf_counter()
+            rows = ps.sweep([spec], configs)
+            sweep_s = time.perf_counter() - t0
+        require(ps.engine_runs == len(counts),
+                f"first sweep: {ps.engine_runs} engine runs for "
+                f"{len(counts)} chip counts")
+        require(data.calls == 1, f"first sweep asked for {data.calls} RMAT "
+                f"graphs, expected one")
+        print(f"  first sweep: {len(rows)} rows from {ps.engine_runs} "
+              f"engine runs in {sweep_s:.1f} s; the RMAT-{SCALE} graph "
+              f"asked for once (phase 3's)")
+        for n in counts:
+            m, r = measured[n]
+            require(not m.from_cache, f"{n} chip(s): measured from cache")
+            for name in ENGINE_KERNELS:
+                require(r["launches"][name] >= m.supersteps,
+                        f"{n} chip(s): {name} launched "
+                        f"{r['launches'][name]} times in {m.supersteps} "
+                        f"supersteps")
+            print(f"    {n} chip(s), {m.spec.label}: {m.supersteps} "
+                  f"supersteps, wall {r['wall_s']:.2f} s on the card "
+                  f"({r['loop_s']:.2f} s in the run loop, "
+                  f"{r['loop_s'] / m.supersteps * 1e3:.3f} ms a superstep), "
+                  f"peak {r['peak_gib']:.3f} GiB; modelled time_s "
+                  f"{m.time_s:.6e}, "
+                  f"{m.teps_edges / m.time_s / 1e9:.2f} GTEPS; off-chip "
+                  f"msgs {m.counters.off_chip_msgs:.0f}; launches "
+                  + json.dumps({k: r["launches"][k] for k in ENGINE_KERNELS}))
+        same_measurement(measured[1][0], wl["dense"]["bfs"][0],
+                         "1 chip vs phase 5")
+        same_measurement(measured[PART_CHIPS][0],
+                         wl["partition"]["bfs"][0],
+                         f"{PART_CHIPS} chips vs phase 10")
+
+        ps.measure = measure
+        t0 = time.perf_counter()
+        again = ps.sweep([spec], configs)
+        require(ps.engine_runs == len(counts),
+                f"second sweep ran the engine "
+                f"{ps.engine_runs - len(counts)} times")
+        require(len(again) == len(rows)
+                and all(b["from_cache"] for b in again)
+                and all(dict(a, from_cache=True) == b
+                        for a, b in zip(rows, again)),
+                "second sweep: rows differ from the first or not cached")
+        print(f"  second sweep: {len(again)} rows equal field by field, "
+              f"all from the cache, no engine run, in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        worst = 0.0
+        for n in counts:
+            s = ps.spec_for_product(spec, dataclasses.replace(DCRA_SRAM,
+                                                              chips=n))
+            for m in (measured[n][0], ps.measure(s)):
+                rep = ps.price_product(m, dataclasses.replace(DCRA_SRAM,
+                                                              chips=n))
+                err = abs(rep.time_s - m.time_s) / m.time_s
+                require(err <= REPRICE_TOL,
+                        f"{n} chip(s): re-priced time_s {rep.time_s!r} vs "
+                        f"{m.time_s!r}")
+                worst = max(worst, err)
+        require(ps.engine_runs == len(counts), "re-pricing ran the engine")
+    print(f"  re-priced under its own package, live and cached, at every "
+          f"chip count: within {worst:.1e} relative (limit {REPRICE_TOL})")
+
+    links = {}
+    for cfg, row in zip(configs, rows):
+        if cfg.chips > 1:
+            base = cfg.name.split("/bl")[0]
+            links.setdefault((cfg.chips, base), {})[cfg.board_links_y] = row
+    for (n, base), by in links.items():
+        one, two = by[1], by[DEFAULT_BOARD_LINKS[0]]
+        require(one["time_s"] >= two["time_s"]
+                and one["cost_usd"] < two["cost_usd"],
+                f"{base}: one board link time {one['time_s']!r} / cost "
+                f"{one['cost_usd']!r} vs two {two['time_s']!r} / "
+                f"{two['cost_usd']!r}")
+    slow = {n: max(by[1]["time_s"] / by[DEFAULT_BOARD_LINKS[0]]["time_s"]
+                   for (c, _), by in links.items() if c == n)
+            for n in counts if n > 1}
+    print(f"  board links: one never faster and always cheaper than two, "
+          f"in all {len(links)} products; largest time_s one / two by "
+          f"chip count {json.dumps(slow)}")
+
+    front = pareto_front(rows)
+    print(f"  Pareto front (throughput / $ x efficiency / $) over "
+          f"{len(rows)} rows: {len(front)} products, chip counts "
+          f"{sorted({r['chips'] for r in front})}")
+    for r in front:
+        print(f"    {r['product']}: {r['thr_per_usd']:.6e} TEPS/s/$, "
+              f"{r['eff_per_usd']:.6e} TEPS/J/$, time_s "
+              f"{r['time_s']:.6e}, ${r['cost_usd']:.2f}")
+    for n in counts:
+        sel = select_products([r for r in rows if r["chips"] == n],
+                              WINNER_OBJECTIVES)
+        print(f"  winners at {n} chip(s): " + "; ".join(
+            f"{k} {v['product']} ({v[OBJECTIVES[k][0]]:.6e})"
+            for k, v in sel.items()))
+    sel = select_products(rows)
+    print("  winners overall: " + "; ".join(
+        f"{k} {v['product']} ({v[OBJECTIVES[k][0]]:.6e})"
+        for k, v in sel.items()))
+    print(f"  products phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2643,6 +2872,7 @@ def main() -> int:
     by_path["partition_overlap"] = overlap_phase(dev, wl)
     by_path["fault"] = fault_phase(dev, wl)
     by_path["ranks"] = ranks_phase(dev, wl)
+    by_path["products"] = products_phase(dev, wl, c["smi"])
     for row in rows:
         row["launches_by_path"] = {p: n[row["name"]]
                                    for p, n in by_path.items()}
@@ -2650,7 +2880,7 @@ def main() -> int:
         require(row["launches"] > 0,
                 f"{row['name']} never launched on a main path")
 
-    print(f"== 13. done in {time.perf_counter() - t_start:.1f} s")
+    print(f"== 14. done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(c["smi"])
     print(json.dumps({"ok": True, "device": {

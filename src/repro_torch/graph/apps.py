@@ -290,6 +290,9 @@ def histogram(values: np.ndarray, bins: int, grid: TileGrid,
 
 APPS = dict(bfs=bfs, sssp=sssp, wcc=wcc, pagerank=pagerank, spmv=spmv,
             histo=histogram)
+# every app runs on the distributed engine (``chips > 1``); the product
+# search's chips axis measures any of them
+DISTRIBUTED_APPS = frozenset(APPS)
 
 
 def _zero_counters() -> TrafficCounters:

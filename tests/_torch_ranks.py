@@ -8,7 +8,16 @@ directory, with an explicit timeout.  With ``group=False`` the snippet
 joins it itself by calling ``init_group()`` (after work that must run
 without a group).  The snippet runs with ``device="cpu"`` in mind: no
 rank touches a card.
+
+A rank aborted at exit ("terminate called without an active
+exception") in about one 4-rank spawn in four while another spawn ran
+at once (two test workers), and in a few in a hundred alone.  So the
+ranks meet at a barrier before the footer destroys the group, and one
+spawn runs at a time on the machine (an exclusive lock on a file in the
+temporary directory, held from the spawn to the last rank's exit):
+together, none in 80 spawns two at a time.
 """
+import fcntl
 import os
 import subprocess
 import sys
@@ -16,6 +25,7 @@ import tempfile
 import time
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+LOCK = os.path.join(tempfile.gettempdir(), "repro_torch_ranks.lock")
 
 HEADER = """\
 import datetime
@@ -40,6 +50,7 @@ def init_group():
 """
 FOOTER = """
 if dist.is_initialized():
+    dist.barrier()
     dist.destroy_process_group()
 """
 
@@ -49,7 +60,9 @@ def run_ranks(snippet: str, n: int, timeout: int = 240,
     """Run ``snippet`` on ``n`` ranks; returns each rank's stdout, in rank
     order.  Every rank must exit 0 within ``timeout`` seconds; past it
     every rank is killed and the call fails."""
-    with tempfile.TemporaryDirectory(prefix="torch_ranks_") as tmp:
+    with open(LOCK, "a") as lock, \
+            tempfile.TemporaryDirectory(prefix="torch_ranks_") as tmp:
+        fcntl.flock(lock, fcntl.LOCK_EX)
         code = (HEADER.format(src=os.path.abspath(SRC),
                               store=os.path.join(tmp, "store"),
                               timeout=timeout)

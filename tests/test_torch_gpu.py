@@ -969,3 +969,28 @@ def test_ranks_one_nccl_rank_compacted_double_buffered(nccl_group):
         got = fn(*args, backend="shard_map", group=nccl_group,
                  run_chunk=chunk, **kw)
         _same_run(got, want, "spmv")
+
+
+def test_product_sweep_on_card_equals_cpu(tmp_path):
+    """``repro_torch.products`` through the kernels: a BFS sweep at
+    RMAT-12 on 256 tiles over 1 and 4 chips (every memory style and
+    network, board links 1 / 2 / 4) prices, row by row and field by
+    field, the same as the sweep measured on the CPU; the card's run
+    launches every engine kernel."""
+    from repro_torch.products import MeasureSpec, ProductSearch, product_space
+    dev = _card()
+    spec = MeasureSpec(app="bfs", scale=12, tiles=256)
+    configs = product_space(chips=(1, 4), board_links=(1, 2, 4))
+    ops.reset_launches()
+    card = ProductSearch(cache_dir=str(tmp_path / "card"), device=dev)
+    got = card.sweep([spec], configs)
+    launched = ops.launch_counts()
+    cpu = ProductSearch(cache_dir=str(tmp_path / "cpu"), device="cpu")
+    want = cpu.sweep([spec], configs)
+    assert card.engine_runs == cpu.engine_runs == 2
+    assert len(got) == len(want) == 12 + 3 * 12
+    for g, w in zip(got, want):
+        assert g == w, (g["product"], {k: (g[k], w[k]) for k in g
+                                       if g[k] != w[k]})
+    for name in ("relax", "segment_combine", "deliver_fused"):
+        assert launched[name] > 0, name
