@@ -186,7 +186,21 @@ on past a failure:
     engine kernel.  Printed: each chip count's supersteps, wall, peak
     memory, modelled ``time_s`` and GTEPS; the Pareto front over all
     rows; the winners by objective at each chip count and overall;
-14. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
+14. the analysis passes (ROADMAP A.9; ``repro_torch.analysis``): (a)
+    the lint matrix (``runner.run_all``: ``steplint``, ``invariants``,
+    ``deadcode``) on the kernels backend, the six apps' five cells each
+    (monolithic, 4 chips, 4 chips double-buffered, and both compacted)
+    at RMAT-7 on 16 tiles, through the kernels and their CUDA-graph
+    captures (one graph a (flush, window) key); (b) the ``steplint``
+    walk of single supersteps at RMAT-22 on 4096 tiles: BFS dense, in
+    phase 6b's commonest compacted window, on 4 chips double-buffered,
+    and Histogram's flush superstep (the P$'s spare-row repeats cut off,
+    the window's distinct lanes); (c) ``kernel_races`` on every kernel's
+    ``analysis_cases`` and on phase 4's shapes, each case in its own
+    order, reversed and permuted, three times each.  Any finding outside
+    ``analysis_baseline_torch.json`` fails; each part's cells, findings
+    and seconds printed;
+15. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
     the last line, ``{"ok": true, "device": {...}}``.
 
 Every app run prints its supersteps, wall seconds, ms per superstep,
@@ -205,8 +219,10 @@ superstep, on the engine's paths) fails the run.  The JSON line counts
 the compacted runs under their own path, ``compaction``, phase 9b's
 RMAT-22 runs under ``hooks``, phase 10's under ``partition``, phase
 10b's three under ``partition_overlap``, phase 11's two under
-``fault``, phase 12's two under ``ranks`` and phase 13's four
-measurements under ``products``.  A graph replay counts the launches
+``fault``, phase 12's two under ``ranks``, phase 13's four
+measurements under ``products`` and phase 14's matrix runs and walks
+under ``analysis`` (its race checks compare kernels with their plain
+versions and are not counted).  A graph replay counts the launches
 captured in it, so on the chunked loop the counts include the idle rows
 of a chunk (after the run drained, or after a flush the device
 scheduled), which are printed as the surplus.
@@ -1363,11 +1379,13 @@ def profile_window(eng, state, window, label: str, n: int = 20) -> dict:
                 full_length_ms=full / n / 1e3)
 
 
-def commonest_rung(label: str, rungs):
-    """The rung of the per-superstep reference rungs ``rungs`` that holds
-    most supersteps, and the first superstep and length of the longest
-    stretch of supersteps at it (printed)."""
-    caps, counts = np.unique(rungs, return_counts=True)
+def commonest_rung(label: str, rungs, below=None):
+    """The rung of the per-superstep reference rungs ``rungs`` (those
+    below ``below``, when given) that holds most supersteps, and the
+    first superstep and length of the longest stretch of supersteps at
+    it (printed)."""
+    caps, counts = np.unique(rungs if below is None
+                             else rungs[rungs < below], return_counts=True)
     cap = int(caps[np.argmax(counts)])
     at = np.flatnonzero(rungs == cap)
     breaks = np.flatnonzero(np.diff(at) > 1)
@@ -2843,6 +2861,169 @@ def products_phase(dev, wl, smi: str) -> dict:
     return launches
 
 
+# ------------------------------------------ 14. analysis passes (A.9)
+ANALYSIS_BUDGET_S = 90          # the phase's budget, printed beside it
+WALK_AT = 64                    # supersteps into a run before a walk
+
+
+def walk_readings(label, eng, state, plan, t_setup) -> list:
+    """One ``steplint`` walk (both loops) of ``plan``'s supersteps from
+    ``state``; prints its ops, spare-row cuts, its seconds and those of
+    its set-up since ``t_setup``.  Returns its findings."""
+    from repro_torch.analysis import steplint
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    findings, got = steplint.lint_steps(eng, state, label, plan)
+    torch.cuda.synchronize()
+    print(f"    {label}: {len(findings)} finding(s); aten ops a walk "
+          f"{json.dumps(got['ops'])}; spare-row repeats cut off "
+          f"{got['spare_row_cuts']}; set-up {t0 - t_setup:.1f} s, walk "
+          f"{time.perf_counter() - t0:.1f} s")
+    return findings
+
+
+def full_width_walks(dev, wl) -> list:
+    """(b): the ``steplint`` walk of single supersteps at RMAT-22 on 4096
+    tiles, as phases 5, 6b, 10b and 6 run them: BFS dense, BFS in the
+    window of phase 6b's commonest compacted rung below the dense one,
+    BFS on 4 chips double-buffered, and Histogram's flush superstep (the
+    write-back P$ and the add kernels); each ``WALK_AT`` supersteps into
+    its run, the compacted one at the first superstep at that rung.
+    SpMV is left out: its ``transpose_csr`` set-up alone takes ~22 s."""
+    from repro_torch.graph import apps
+    g, grid = wl[SCALE], wl["grid"]
+    calls = main_path_apps(wl)
+    root, proxy = calls["bfs"][1][1], calls["bfs"][2]["proxy"]
+    findings = []
+    bfs = dict(proxy=proxy, root=root, oq_cap=OQ_CAP, device=dev)
+    t0 = time.perf_counter()
+    eng, state, _ = apps.engine_and_state("bfs", g, grid, **bfs)
+    findings += walk_readings(f"bfs/kernels/RMAT-{SCALE} dense", eng,
+                              advance(eng, state, WALK_AT), [(False, None)],
+                              t0)
+    del eng, state
+    t0 = time.perf_counter()
+    rungs = wl["compacted"]["bfs"][1]["rungs"]
+    cap = commonest_rung("bfs", rungs, below=TILES)[0]
+    start = int(np.flatnonzero(rungs == cap)[0])
+    print(f"    the first superstep at rung {cap}: {start}")
+    eng, state, _ = apps.engine_and_state("bfs", g, grid,
+                                          compaction=COMPACTION, **bfs)
+    findings += walk_readings(f"bfs/kernels/RMAT-{SCALE} window {cap}", eng,
+                              advance(eng, state, start), [(False, cap)], t0)
+    del eng, state
+    t0 = time.perf_counter()
+    eng, state, _ = apps.engine_and_state("bfs", g, grid, chips=PART_CHIPS,
+                                          double_buffer=True, **bfs)
+    findings += walk_readings(
+        f"bfs/kernels/RMAT-{SCALE} {PART_CHIPS}chips-db", eng,
+        advance(eng, state, WALK_AT), [(False, None)], t0)
+    del eng, state
+    t0 = time.perf_counter()
+    hkw = calls["histo"][2]
+    eng, state, _ = apps.engine_and_state(
+        "histo", None, grid, hkw["proxy"], histo_values=wl["histo"],
+        bins=wl["bins"], oq_cap=OQ_CAP, device=dev)
+    findings += walk_readings(f"histo/kernels/RMAT-{SCALE} flush", eng,
+                              advance(eng, state, WALK_AT), [(True, None)],
+                              t0)
+    del eng, state
+    return findings
+
+
+def race_cases_at_phase4(gen, dev) -> list:
+    """(c)'s cases at phase 4's shapes (``kernel_inputs``, 4096 tiles):
+    relax (elementwise), segment_combine (the P$ job, unsorted ids too,
+    and the flush wave) and deliver_fused (the BFS delivery and the
+    flush wave), min and add."""
+    from repro_torch.kernels import ops, ref
+    x = kernel_inputs(gen, dev, tiles=TILES)
+    cases = []
+    for key, c in (("relax", "min"), ("relax_add", "add")):
+        cases.append(ref.Case(f"relax:phase4:{c}", ops.relax, ref.relax_ref,
+                              x[key] + (c,), (0, 1, 2),
+                              ("overwrite", "overwrite"), positional=True))
+    for key in ("seg", "seg_rand", "seg_add"):
+        for c in (("add",) if key == "seg_add" else ("min", "add")):
+            cases.append(ref.Case(f"segment_combine:phase4:{key}:{c}",
+                                  ops.segment_combine,
+                                  ref.segment_combine_ref, x[key] + (c,),
+                                  (0, 1), (c,), tol=(ADD_RTOL, ADD_ATOL)))
+    for key in ("deliver", "deliver_add"):
+        for c in (("add",) if key == "deliver_add" else ("min", "add")):
+            cases.append(ref.Case(f"deliver_fused:phase4:{key}:{c}",
+                                  ops.deliver_fused, ref.deliver_fused_ref,
+                                  x[key] + (c,), (0, 1), (c, "count"),
+                                  tol=(ADD_RTOL, ADD_ATOL)))
+    return cases
+
+
+def analysis_phase(dev, wl, smi: str) -> dict:
+    """ROADMAP A.9 on the card: (a) the port's lint matrix
+    (``analysis.runner.run_all``) on the kernels backend, every app's
+    five cells, through the kernels and their CUDA-graph captures; (b)
+    the ``steplint`` walk at full width (``full_width_walks``); (c)
+    ``kernel_races`` on every kernel's ``analysis_cases`` and at phase
+    4's shapes.  Any finding outside ``analysis_baseline_torch.json``
+    fails the phase.  Returns the launches of (a) and (b) (engine runs
+    and walks; (c)'s are comparisons with the plain versions)."""
+    from repro_torch.analysis import kernel_races, load_baseline
+    from repro_torch.analysis.runner import APP_NAMES, run_all
+    from repro_torch.kernels import ops
+    repo = Path(__file__).resolve().parent
+    baseline = load_baseline(repo / "analysis_baseline_torch.json")
+    t_phase = time.perf_counter()
+    print(f"== 14. analysis passes: the lint matrix on backend=kernels, "
+          f"steplint at RMAT-{SCALE}, kernel races ({smi}; budget "
+          f"{ANALYSIS_BUDGET_S} s)")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    secs = {}
+    report = run_all(repo, app_names=APP_NAMES,
+                     passes=("steplint", "invariants", "deadcode"),
+                     device=dev, backends=("kernels",), seconds=secs)
+    torch.cuda.synchronize()
+    print(f"  (a) matrix: {len(report.matrix)} cells "
+          f"({report.matrix[0]} ... {report.matrix[-1]}), "
+          f"{len(report.findings)} finding(s), "
+          f"{time.perf_counter() - t0:.1f} s; seconds by part "
+          + json.dumps({k: round(v, 2) for k, v in secs.items()}))
+    findings = list(report.findings)
+    t0 = time.perf_counter()
+    print(f"  (b) steplint at RMAT-{SCALE} on {TILES} tiles:")
+    findings += full_width_walks(dev, wl)
+    torch.cuda.synchronize()
+    print(f"  (b) {time.perf_counter() - t0:.1f} s")
+    launches = ops.launch_counts()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    suites = (("analysis_cases", ops.analysis_cases()),
+              ("phase 4 shapes", race_cases_at_phase4(gen, dev)))
+    for label, cases in suites:
+        t1 = time.perf_counter()
+        got = kernel_races.check_kernels(dev, cases)
+        torch.cuda.synchronize()
+        findings += got
+        print(f"  (c) kernel_races, {label}: {len(cases)} cases x 3 orders "
+              f"x {kernel_races.REPEATS} runs, {len(got)} finding(s), "
+              f"{time.perf_counter() - t1:.1f} s")
+    print(f"  (c) {time.perf_counter() - t0:.1f} s")
+    for f in findings:
+        print(f"    {f.key}{' [baselined]' if f.key in baseline else ''}: "
+              f"{f.message}")
+    new = [f.key for f in findings if f.key not in baseline]
+    require(not new, f"analysis: {len(new)} finding(s) outside the "
+            f"baseline: {new[:4]}")
+    for name in ENGINE_KERNELS:
+        require(launches[name] > 0, f"analysis: {name} never launched")
+    took = time.perf_counter() - t_phase
+    print(f"    launches {json.dumps(launches)}")
+    print(f"  analysis phase {took:.1f} s (budget {ANALYSIS_BUDGET_S} s"
+          f"{', over' if took > ANALYSIS_BUDGET_S else ''})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2873,6 +3054,7 @@ def main() -> int:
     by_path["fault"] = fault_phase(dev, wl)
     by_path["ranks"] = ranks_phase(dev, wl)
     by_path["products"] = products_phase(dev, wl, c["smi"])
+    by_path["analysis"] = analysis_phase(dev, wl, c["smi"])
     for row in rows:
         row["launches_by_path"] = {p: n[row["name"]]
                                    for p, n in by_path.items()}
@@ -2880,7 +3062,7 @@ def main() -> int:
         require(row["launches"] > 0,
                 f"{row['name']} never launched on a main path")
 
-    print(f"== 14. done in {time.perf_counter() - t_start:.1f} s")
+    print(f"== 15. done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(c["smi"])
     print(json.dumps({"ok": True, "device": {

@@ -69,6 +69,9 @@ import torch
 from ..kernels import ops as kops
 from ..obs.metrics import default_registry
 
+# The chunk's stats rows: exact for every f32 charge and every int32
+# count (``analysis.steplint``'s ``int-stat-f32-row`` holds it to that).
+STATS_DTYPE = torch.float64
 # The stat of a compacted superstep that a window must hold: the most
 # active tiles on one chip of the state it steps (all of them on one
 # chip).  Never a stats row's.
@@ -117,7 +120,7 @@ class ChunkRunner:
         self.left = torch.zeros((), dtype=torch.int64, device=dev)
         self.row = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.rows = torch.zeros((length, len(self.keys) + 1),
-                                dtype=torch.float64, device=dev)
+                                dtype=STATS_DTYPE, device=dev)
         self.vec_keys = tuple(vec_keys)
         self.vecs = torch.zeros((length, len(self.vec_keys), width),
                                 dtype=torch.float32, device=dev)
@@ -151,8 +154,8 @@ class ChunkRunner:
         for k, v in new_state.items():
             if v is not st[k]:                 # in place: one pass each
                 torch.where(active, v, st[k], out=st[k])
-        row = torch.stack([stats[k].to(torch.float64) for k in self.keys]
-                          + [active.to(torch.float64)])
+        row = torch.stack([stats[k].to(self.rows.dtype) for k in self.keys]
+                          + [active.to(self.rows.dtype)])
         self.rows.index_copy_(0, self.row, row[None])
         if self.vec_keys:
             self.vecs.index_copy_(0, self.row, torch.stack(

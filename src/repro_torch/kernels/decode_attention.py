@@ -21,7 +21,7 @@ import math
 import torch
 
 from . import _build
-from .ref import decode_attention_ref as plain
+from .ref import Case, decode_attention_ref as plain
 from .ref import decode_geometry
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -103,6 +103,33 @@ def decode_attention(q, k, v, lengths, scale=None, block_s: int = 512):
                       torch.cuda.current_stream(dev).cuda_stream)
     decode_attention.launches += 1
     return out
+
+
+def analysis_cases():
+    """``analysis.kernel_races`` cases: the reference's geometry
+    (``ops.py`` ``analysis_cases``: one row, two heads on one KV head,
+    six positions in blocks of four) and a grouped one (two rows, four
+    heads on two KV heads, 40 positions in blocks of 16), f32, every
+    position inside its length, with the KV positions taken in other
+    orders: the output may differ by f32 re-association only (rtol /
+    atol 1e-4, as the kernel tests).  The reference declares its kernel
+    order-dependent (the online softmax carried across the sequential
+    grid) and baselines it; the split kernel here merges its partials
+    in a fixed order."""
+    from . import ops
+    gen = torch.Generator().manual_seed(15)
+    cases = []
+    for label, (b, h, hkv, s, d, block) in (("", (1, 2, 1, 6, 8, 4)),
+                                             ("gqa:", (2, 4, 2, 40, 16, 16))):
+        q = torch.randn(b, h, d, generator=gen)
+        k = torch.randn(b, hkv, s, d, generator=gen)
+        v = torch.randn(b, hkv, s, d, generator=gen)
+        lengths = torch.full((b,), s, dtype=torch.int32)
+        cases.append(Case(f"decode_attention:{label}f32",
+                          ops.decode_attention, plain,
+                          (q, k, v, lengths, None, block), (1, 2), ("add",),
+                          axis=2, tol=(1e-4, 1e-4)))
+    return cases
 
 
 decode_attention.launches = 0

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .ref import check_combine, deliver_fused_ref as plain
+from .ref import Case, check_combine, deliver_fused_ref as plain
 
 F32_COUNT_LIMIT = 1 << 24     # from here on an f32 count can lose a unit
 
@@ -56,6 +56,34 @@ def deliver_fused(seg, val, mail_val, combine: str = "min"):
                       torch.cuda.current_stream(dev).cuda_stream)
     deliver_fused.launches += 1
     return out, cnt
+
+
+def analysis_cases():
+    """``analysis.kernel_races`` cases: the reference's
+    (``deliver_fused.py`` ``analysis_cases``: six records into an
+    eight-entry mailbox, and a compacted window's stream) and 4,096
+    records into 256 entries, each in both combines; the counts must
+    agree exactly."""
+    from . import ops
+    gen = torch.Generator().manual_seed(13)
+    mail = torch.full((8,), float("inf"))
+    mail[1] = 0.5
+    sets = (("", torch.tensor([0, 3, 3, 7, 1, 0], dtype=torch.int32),
+             torch.arange(6.0)),
+            ("compact:", torch.tensor([2, -1, 5, 2, -1, 1],
+                                      dtype=torch.int32),
+             torch.arange(6.0) + 0.25))
+    cases = [Case(f"deliver_fused:{label}{c}", ops.deliver_fused, plain,
+                  (seg, val, mail if c == "min" else torch.zeros(8), c),
+                  (0, 1), (c, "count"))
+             for label, seg, val in sets for c in ("min", "add")]
+    seg = torch.randint(-1, 256, (4096,), generator=gen, dtype=torch.int32)
+    val = torch.rand(4096, generator=gen)
+    box = torch.rand(256, generator=gen)
+    cases += [Case(f"deliver_fused:dense:{c}", ops.deliver_fused, plain,
+                   (seg, val, box, c), (0, 1), (c, "count"))
+              for c in ("min", "add")]
+    return cases
 
 
 deliver_fused.launches = 0

@@ -24,7 +24,7 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .ref import histogram_ref as plain
+from .ref import Case, histogram_ref as plain
 
 MAX_IDS = 2**31           # int32 counters could wrap at or past this
 PATHS = ("private", "sliced", "global")    # the launcher's path codes
@@ -129,6 +129,21 @@ def histogram_bin(idx, num_bins: int):
     histogram_bin.launches += 1
     histogram_bin.last = (p, resident)
     return out
+
+
+def analysis_cases():
+    """``analysis.kernel_races`` cases: the reference's
+    (``histogram_bin.py`` ``analysis_cases``: six ids into eight bins)
+    and 8,192 ids, some padding or past the last bin, into 100 bins; the
+    counts must agree exactly."""
+    from . import ops
+    gen = torch.Generator().manual_seed(14)
+    wide = torch.randint(-3, 105, (8192,), generator=gen, dtype=torch.int32)
+    return [Case("histogram_bin", ops.histogram, plain,
+                 (torch.tensor([0, 5, 5, 2, 7, 0], dtype=torch.int32), 8),
+                 (0,), ("count",)),
+            Case("histogram_bin:wide", ops.histogram, plain, (wide, 100),
+                 (0,), ("count",))]
 
 
 histogram_bin.launches = 0

@@ -76,6 +76,18 @@ def decode_attention(q, k, v, lengths, scale=None, block_s: int = 512):
     return _da.plain(q, k, v, lengths, scale, block_s)
 
 
+def analysis_cases():
+    """Every kernel's ``analysis.kernel_races`` cases (``ref.Case``),
+    from each kernel module's ``analysis_cases``: the counterpart of the
+    reference's kernel suite (``ops.py``, ``relax_min.py``,
+    ``segment_combine.py``, ``deliver_fused.py``, ``histogram_bin.py``
+    ``analysis_cases``), with spmv_bcsr and decode_attention among them."""
+    cases = []
+    for mod in (_sc, _rx, _hb, _df, _sp, _da):
+        cases.extend(mod.analysis_cases())
+    return cases
+
+
 KERNELS = (_rx.relax, _sc.segment_combine, _df.deliver_fused,
            _hb.histogram_bin, _sp.spmv_bcsr, _da.decode_attention)
 

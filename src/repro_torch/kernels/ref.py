@@ -13,14 +13,41 @@ kernel does (the reference's oracle ``spmv_ref_csr`` works on the CSR);
 ``decode_attention_ref`` is the Pallas decode kernel's function, padding
 and finite mask included, which the reference's ``decode_attention_ref``
 is not at the edges (``length <= 0``, ``length > S``).
+
+``Case`` is one set of inputs on which a kernel is held against its
+plain version with its records in other orders (each kernel module's
+``analysis_cases``, run by ``analysis.kernel_races``).
 """
 from __future__ import annotations
 
 import math
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
 INF = float("inf")
+
+
+class Case(NamedTuple):
+    """A kernel call whose result must not depend on the order of its
+    records.  ``fn(*args)`` is the entry point (``kernels.ops``: the
+    kernel for CUDA tensors, the plain version for CPU ones) and
+    ``plain(*args)`` the plain version; ``records`` are the positions in
+    ``args`` of the tensors whose ``axis`` is permuted together.  ``outs``
+    says how each output combines its records: ``"min"``, ``"count"``
+    and ``"overwrite"`` must agree bit for bit in every order, ``"add"``
+    within ``tol`` (rtol, atol: f32 re-association).  ``positional``
+    outputs follow their records' order (an elementwise kernel) and are
+    put back in the first order before they are compared."""
+    name: str
+    fn: Callable
+    plain: Callable
+    args: tuple
+    records: Tuple[int, ...]
+    outs: Tuple[str, ...]
+    axis: int = 0
+    positional: bool = False
+    tol: Tuple[float, float] = (1e-5, 1e-6)
 
 
 def check_combine(combine: str) -> None:

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .ref import check_combine, relax_ref as plain
+from .ref import Case, check_combine, relax_ref as plain
 
 _FLAG_DTYPES = (torch.bool, torch.int8, torch.uint8)
 
@@ -35,6 +35,24 @@ def relax(values, mail_val, mail_flag, combine: str = "min"):
                       torch.cuda.current_stream(dev).cuda_stream)
     relax.launches += 1
     return out_v, out_i
+
+
+def analysis_cases():
+    """``analysis.kernel_races`` cases: the reference's (``relax_min.py``
+    ``analysis_cases``: ten lanes, every flag set) in both combines, and
+    600 lanes with mixed flags.  Elementwise, so its outputs follow their
+    records and must agree bit for bit in any order."""
+    from . import ops
+    gen = torch.Generator().manual_seed(11)
+    tiny = (torch.full((10,), float("inf")), torch.arange(10.0),
+            torch.ones(10, dtype=torch.bool))
+    wide = (torch.rand(600, generator=gen),
+            torch.rand(600, generator=gen),
+            torch.rand(600, generator=gen) < 0.5)
+    return [Case(f"relax:{label}{c}", ops.relax, plain, args + (c,),
+                 (0, 1, 2), ("overwrite", "overwrite"), positional=True)
+            for label, args in (("", tiny), ("wide:", wide))
+            for c in ("min", "add")]
 
 
 relax.launches = 0

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .ref import check_combine, segment_combine_ref as plain
+from .ref import Case, check_combine, segment_combine_ref as plain
 
 
 def segment_combine(seg, val, num_segments: int, combine: str = "min"):
@@ -38,6 +38,27 @@ def segment_combine(seg, val, num_segments: int, combine: str = "min"):
                       torch.cuda.current_stream(dev).cuda_stream)
     segment_combine.launches += 1
     return out
+
+
+def analysis_cases():
+    """``analysis.kernel_races`` cases: the reference's
+    (``segment_combine.py`` ``analysis_cases``: six records into eight
+    segments, and a compacted window's stream with padding between)
+    and 4,096 records into 64 segments (many writers a segment), each
+    in both combines."""
+    from . import ops
+    gen = torch.Generator().manual_seed(12)
+    sets = (("", torch.tensor([0, 3, 3, 7, 1, 0], dtype=torch.int32),
+             torch.arange(6.0), 8),
+            ("compact:", torch.tensor([4, -1, 0, 4, -1, 6],
+                                      dtype=torch.int32),
+             torch.arange(6.0) + 0.5, 8),
+            ("dense:", torch.randint(-1, 64, (4096,), generator=gen,
+                                     dtype=torch.int32),
+             torch.rand(4096, generator=gen), 64))
+    return [Case(f"segment_combine:{label}{c}", ops.segment_combine, plain,
+                 (seg, val, n, c), (0, 1), (c,))
+            for label, seg, val, n in sets for c in ("min", "add")]
 
 
 segment_combine.launches = 0

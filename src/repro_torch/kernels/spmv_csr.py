@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .ref import spmv_ref as plain
+from .ref import Case, spmv_ref as plain
 
 DEFAULT_BM = 128
 DEFAULT_BK = 128
@@ -113,6 +113,29 @@ def spmv_bcsr(blocks, cols, x, m: int):
                       bm, bk, torch.cuda.current_stream(dev).cuda_stream)
     spmv_bcsr.launches += 1
     return y
+
+
+def analysis_cases():
+    """``analysis.kernel_races`` case: the reference's matrix (``ops.py``
+    ``analysis_cases``: 6 x 10 in 4 x 8 blocks) with each block-row's
+    blocks (and their column ids) taken in other orders: the product may
+    differ by f32 re-association only (rtol / atol 1e-4, as the kernel
+    tests)."""
+    from . import ops
+    row_ptr = np.array([0, 2, 3, 3, 5, 6, 8], np.int32)
+    col_idx = np.array([0, 9, 4, 1, 8, 2, 0, 5], np.int32)
+    mat = bcsr_from_csr(row_ptr, col_idx, None, (6, 10), bm=4, bk=8)
+    x = torch.arange(10, dtype=torch.float32)
+
+    def fn(blocks, cols, x):
+        return ops.spmv(dataclasses.replace(mat, blocks=blocks, cols=cols),
+                        x)
+
+    def ref(blocks, cols, x):
+        return plain(blocks, cols, x, mat.shape[0])
+    return [Case("spmv_bcsr", fn, ref,
+                 (torch.as_tensor(mat.blocks), torch.as_tensor(mat.cols), x),
+                 (0, 1), ("add",), axis=1, tol=(1e-4, 1e-4))]
 
 
 spmv_bcsr.launches = 0

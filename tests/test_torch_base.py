@@ -296,7 +296,8 @@ def _port_files():
     return sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "scripts" / "decode_variants.py",
         REPO / "scripts" / "engine_kernel_variants.py",
-        REPO / "scripts" / "hooks_overhead.py"]
+        REPO / "scripts" / "hooks_overhead.py",
+        REPO / "scripts" / "lint_engine_torch.py"]
 
 
 def test_port_sources_import_no_jax_or_reference():

@@ -994,3 +994,17 @@ def test_product_sweep_on_card_equals_cpu(tmp_path):
                                        if g[k] != w[k]})
     for name in ("relax", "segment_combine", "deliver_fused"):
         assert launched[name] > 0, name
+
+
+# ------------------------------------------------- analysis: kernel races
+def test_kernel_races_on_card():
+    """``analysis.kernel_races`` on the kernels: every kernel's cases in
+    their own order, reversed and permuted, three times each; min and
+    count outputs bitwise equal to each other and to the plain version,
+    add outputs within the kernel tests' tolerances."""
+    from repro_torch.analysis import kernel_races
+    dev = _card()
+    before = ops.launch_counts()
+    assert kernel_races.check_kernels(dev) == []
+    after = ops.launch_counts()
+    assert all(after[k] > before[k] for k in after), after
