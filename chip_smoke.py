@@ -200,7 +200,24 @@ on past a failure:
     order, reversed and permuted, three times each.  Any finding outside
     ``analysis_baseline_torch.json`` fails; each part's cells, findings
     and seconds printed;
-15. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
+15. the dense LM served at full published width (ROADMAP A.10a;
+    ``repro_torch.models``, ``serving``), random weights from the seed,
+    every decode step's attention through ``ops.decode_attention``:
+    (a) deepseek-7b through ``registry.get`` -> ``fam["init"]`` ->
+    ``ServeScheduler`` (the calls of ``launch/serve.py``'s ``main``): 8
+    slots, ``max_len`` 512, 12 seeded prompts of 3-64 tokens fed token
+    by token, 32 new tokens each, greedy; every request complete,
+    decode_attention launched once a layer a step, the first full-batch
+    step's logits held against the same step through the plain
+    attention (``SERVE_LOGIT_TOL``); (b) starcoder2-3b through
+    ``generate``: B 8, a 256-token prompt, 32 tokens; (c) decode_32k:
+    starcoder2-3b, B 8, a 32,768-position cache filled from the seed,
+    decode steps at position 32,767 through the kernel and the plain
+    attention in turns (logits held to the same tolerance), then 4
+    profiled kernel steps (decode_attention's share of the device
+    time).  Printed: ms a step, tokens/s, prefill ms, peak memory,
+    launches, beside the ``nvidia-smi`` line;
+16. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
     the last line, ``{"ok": true, "device": {...}}``.
 
 Every app run prints its supersteps, wall seconds, ms per superstep,
@@ -211,8 +228,8 @@ fall in the kernels' 32-record warp slices (``EngineIds``): the share
 of live records in runs of neighbours and repeated in their slice, and
 the atomics a fold would leave.
 
-Each main-path run (phases 5-8, 6b, 9b and the RMAT-22 runs of 10,
-10b and 11) sets every
+Each main-path run (phases 5-8, 6b, 9b, the RMAT-22 runs of 10,
+10b and 11, and 15's serving runs) sets every
 kernel's launch count to 0 just before it and reads the counts just
 after; a kernel on the path that did not launch (at least once per
 superstep, on the engine's paths) fails the run.  The JSON line counts
@@ -220,9 +237,11 @@ the compacted runs under their own path, ``compaction``, phase 9b's
 RMAT-22 runs under ``hooks``, phase 10's under ``partition``, phase
 10b's three under ``partition_overlap``, phase 11's two under
 ``fault``, phase 12's two under ``ranks``, phase 13's four
-measurements under ``products`` and phase 14's matrix runs and walks
+measurements under ``products``, phase 14's matrix runs and walks
 under ``analysis`` (its race checks compare kernels with their plain
-versions and are not counted).  A graph replay counts the launches
+versions and are not counted), phase 15's (a) and (b) under ``serve``
+and (c)'s kernel steps under ``serve_32k`` (its plain steps launch
+nothing).  A graph replay counts the launches
 captured in it, so on the chunked loop the counts include the idle rows
 of a chunk (after the run drained, or after a flush the device
 scheduled), which are printed as the surplus.
@@ -232,6 +251,8 @@ it, the script prints no result and exits nonzero.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -3024,6 +3045,399 @@ def analysis_phase(dev, wl, smi: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------- 15. the LM served
+# ROADMAP A.10a: the dense family at the full published widths of
+# src/repro/models/registry.py, random weights from the seed, served
+# through the calls src/repro/launch/serve.py:20 makes (registry.get ->
+# fam["init"] -> ServeScheduler) and through serving.decode.generate
+SERVE_A = dict(arch="deepseek-7b", slots=8, max_len=512, requests=12,
+               prompt=(3, 64), max_new=32)
+SERVE_B = dict(arch="starcoder2-3b", batch=8, prompt=256, tokens=32)
+SERVE_C = dict(arch="starcoder2-3b", batch=8, cache_len=32768, steps=8,
+               profiled=4)
+# kernel vs plain step: max |logit difference| at most this many standard
+# deviations of the plain step's logits.  Set before the first chip run
+# from the CPU comparison of two bf16 roundings of the same step (the
+# reference's bf16 P.V against the port's f32, tests/test_torch_models.py)
+# at d 1024 over 6 layers: 0.037-0.063 sigma
+SERVE_LOGIT_TOL = 0.25
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The port's decode steps with ``ops.decode_attention`` swapped for
+    its plain version (no launch), to hold a step through the kernel
+    against the same step without it."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    kernel = ops.decode_attention
+
+    def plain(q, k, v, lengths, scale=None, block_s=512):
+        return da.plain(q, k, v, lengths, scale, block_s)
+    ops.decode_attention = plain
+    try:
+        yield
+    finally:
+        ops.decode_attention = kernel
+
+
+def logits_agree(label, got, want, vocab) -> dict:
+    """A decode step's logits through the kernel (``got``) against the
+    same step's through the plain version (``want``), (B, V_pad): finite,
+    max |difference| within ``SERVE_LOGIT_TOL`` of the plain logits'
+    standard deviation, and the same greedy token in every row whose
+    top-2 margin exceeds twice that (where the bound cannot flip it)."""
+    g, w = got.float()[:, :vocab], want.float()[:, :vocab]
+    sigma = float(w.std())
+    tol = SERVE_LOGIT_TOL * sigma
+    err = float((g - w).abs().max())
+    top2 = w.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    same = g.argmax(-1) == w.argmax(-1)
+    require(bool(torch.isfinite(g).all()) and err <= tol,
+            f"{label}: kernel vs plain logits max |err| {err:.4g} > "
+            f"{SERVE_LOGIT_TOL} sigma = {tol:.4g}")
+    require(bool(same[clear].all()),
+            f"{label}: a greedy token differs where the top-2 margin "
+            f"exceeds {2 * tol:.4g}")
+    return dict(max_abs_err=err, sigma=sigma, tol=tol,
+                err_sigmas=err / sigma, rows=int(g.shape[0]),
+                rows_clear=int(clear.sum()), tokens_equal=int(same.sum()))
+
+
+def weight_bytes(params) -> int:
+    """Bytes of the parameters a decode step reads whole (all but the
+    token embedding, of which it gathers B rows)."""
+    def leaves(t):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                yield from leaves(v)
+            elif k != "tok_emb":
+                yield v
+    return sum(t.numel() * t.element_size() for t in leaves(params))
+
+
+class StepClock:
+    """Wraps a serve step: host seconds of each call (ending in a
+    synchronise), split by kind."""
+
+    def __init__(self, fn):
+        self.fn, self.kind, self.s = fn, "step", {}
+
+    def __call__(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kw)
+        torch.cuda.synchronize()
+        self.s.setdefault(self.kind, []).append(time.perf_counter() - t0)
+        return out
+
+    def ms(self, kind):
+        got = self.s.get(kind, [])
+        return 1e3 * sum(got) / max(len(got), 1)
+
+
+def serve_scheduler(dev, smi) -> tuple:
+    """(a) deepseek-7b through ``ServeScheduler``; its first full-batch
+    step held against the plain attention.  Returns (readings, launch
+    counts of the run)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.serving import Request, ServeScheduler
+    a = SERVE_A
+    cfg, fam = registry.get(a["arch"])
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = fam["init"](cfg, gen, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sched = ServeScheduler(cfg, fam, params, batch_slots=a["slots"],
+                           max_len=a["max_len"])
+    kernel_step, advance, checked = sched._step, sched._advance, {}
+    clock = StepClock(kernel_step)
+
+    def step(params, cache, tokens, pos, gen=None):
+        if clock.kind == "decode" and not checked:
+            # the first full-batch step, once more through the plain
+            # attention on a copy of the cache (no launch, not timed)
+            copy = {k: v.clone() for k, v in cache.items()}
+            with plain_attention():
+                want = kernel_step(params, copy, tokens, pos, gen)[1]
+            del copy
+            out = clock(params, cache, tokens, pos, gen)
+            checked.update(logits_agree(f"{a['arch']} first full-batch step",
+                                        out[1], want, cfg.vocab))
+            return out
+        return clock(params, cache, tokens, pos, gen)
+
+    def advance_by_kind(only_slot=None):
+        clock.kind = "decode" if only_slot is None else "admit"
+        return advance(only_slot)
+    sched._step, sched._advance = step, advance_by_kind
+    rng = np.random.default_rng(SEED)
+    for rid in range(a["requests"]):
+        prompt = rng.integers(0, cfg.vocab, size=int(rng.integers(
+            a["prompt"][0], a["prompt"][1] + 1))).astype(np.int32)
+        sched.submit(Request(rid=rid, prompt=prompt, max_new=a["max_new"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    steps = sum(len(v) for v in clock.s.values())
+    require(sorted(r.rid for r in done) == list(range(a["requests"])),
+            f"{a['arch']}: served {len(done)} of {a['requests']} requests")
+    for r in done:
+        require(len(r.out) == a["max_new"] or len(r.prompt) + len(r.out)
+                >= a["max_len"] - 1,
+                f"{a['arch']}: request {r.rid} stopped at {len(r.out)} "
+                f"tokens")
+        require(all(0 <= t < cfg.vocab for t in r.out),
+                f"{a['arch']}: request {r.rid} has a token outside the "
+                f"vocabulary")
+    require(launches["decode_attention"] == cfg.n_layers * steps,
+            f"{a['arch']}: decode_attention launched "
+            f"{launches['decode_attention']} times in {steps} steps of "
+            f"{cfg.n_layers} layers")
+    tokens = sum(len(r.out) for r in done)
+    decode_s = sum(clock.s.get("decode", []))
+    floor_ms = weight_bytes(params) / HBM_BYTES_PER_S * 1e3
+    read = dict(arch=a["arch"], params=cfg.param_count(),
+                init_s=init_s, requests=len(done), tokens=tokens,
+                prompt_tokens=int(sum(len(r.prompt) for r in done)),
+                steps=steps, admit_steps=len(clock.s.get("admit", [])),
+                decode_steps=len(clock.s.get("decode", [])), wall_s=wall,
+                ms_per_step=1e3 * sum(sum(v) for v in clock.s.values())
+                / steps,
+                ms_per_admit_step=clock.ms("admit"),
+                ms_per_decode_step=clock.ms("decode"),
+                tokens_per_s=tokens / wall,
+                decode_tokens_per_s=tokens / decode_s,
+                weight_floor_ms=floor_ms,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                launches=launches["decode_attention"],
+                check=dict(checked))
+    print(f"  (a) {a['arch']} (L {cfg.n_layers}, d {cfg.d_model}, H "
+          f"{cfg.n_heads}/{cfg.n_kv}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+          f"{cfg.param_count() / 1e9:.2f} B parameters drawn in "
+          f"{init_s:.1f} s), ServeScheduler: {a['slots']} slots, max_len "
+          f"{a['max_len']}, {a['requests']} requests of "
+          f"{a['prompt'][0]}-{a['prompt'][1]} prompt tokens, max_new "
+          f"{a['max_new']}, greedy [{smi}]")
+    print(f"      served {len(done)} requests, {tokens} tokens "
+          f"({read['prompt_tokens']} prompt tokens fed) in {wall:.2f} s: "
+          f"{read['tokens_per_s']:.1f} tok/s ({read['decode_tokens_per_s']:.1f}"
+          f" in the full-batch steps); {steps} steps ({read['admit_steps']} "
+          f"admitting, {read['decode_steps']} full-batch), "
+          f"{read['ms_per_step']:.3f} ms a step ({read['ms_per_admit_step']:.3f}"
+          f" / {read['ms_per_decode_step']:.3f}; weight floor "
+          f"{floor_ms:.3f}); peak {read['peak_gib']:.2f} GiB; "
+          f"decode_attention {launches['decode_attention']} launches = "
+          f"{cfg.n_layers} x {steps}")
+    print(f"      first full-batch step vs plain attention: max |err| "
+          f"{checked['max_abs_err']:.4g} = {checked['err_sigmas']:.4f} sigma "
+          f"(tolerance {SERVE_LOGIT_TOL}); greedy tokens equal in "
+          f"{checked['tokens_equal']}/{checked['rows']} rows "
+          f"({checked['rows_clear']} clear of the bound)")
+    sched._step, sched._advance = kernel_step, advance  # no cycle holds it
+    del sched, params, clock, step, advance, advance_by_kind
+    gc.collect()
+    torch.cuda.empty_cache()
+    return read, launches
+
+
+def serve_generate(dev, smi) -> tuple:
+    """(b) starcoder2-3b through ``generate``.  Returns (readings, launch
+    counts of the run, params and config for (c))."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.serving import generate
+    b = SERVE_B
+    cfg, fam = registry.get(b["arch"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    t0 = time.perf_counter()
+    params = fam["init"](cfg, gen, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompt = torch.randint(0, cfg.vocab, (b["batch"], b["prompt"]),
+                           generator=gen, device=dev)
+    prefill, decode = StepClock(fam["prefill"]), StepClock(fam["decode"])
+    timed = dict(fam, prefill=prefill, decode=decode)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = generate(cfg, timed, params, dict(tokens=prompt), b["tokens"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    steps = b["tokens"] - 1
+    require(tuple(out.shape) == (b["batch"], b["tokens"])
+            and out.dtype == torch.int32
+            and bool(((out >= 0) & (out < cfg.vocab)).all()),
+            f"{b['arch']}: generate gave {tuple(out.shape)} {out.dtype}")
+    require(len(decode.s["step"]) == steps
+            and launches["decode_attention"] == cfg.n_layers * steps,
+            f"{b['arch']}: decode_attention launched "
+            f"{launches['decode_attention']} times in "
+            f"{len(decode.s['step'])} steps of {cfg.n_layers} layers")
+    read = dict(arch=b["arch"], params=cfg.param_count(), init_s=init_s,
+                batch=b["batch"], prompt=b["prompt"], tokens=b["tokens"],
+                wall_s=wall, prefill_ms=prefill.ms("step"),
+                ms_per_decode_step=decode.ms("step"),
+                weight_floor_ms=weight_bytes(params) / HBM_BYTES_PER_S * 1e3,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                launches=launches["decode_attention"])
+    print(f"  (b) {b['arch']} (L {cfg.n_layers}, d {cfg.d_model}, H "
+          f"{cfg.n_heads}/{cfg.n_kv}, LayerNorm, GELU; "
+          f"{cfg.param_count() / 1e9:.2f} B parameters drawn in "
+          f"{init_s:.1f} s), generate: B {b['batch']}, prompt "
+          f"{b['prompt']}, {b['tokens']} tokens [{smi}]")
+    print(f"      prefill {read['prefill_ms']:.3f} ms, {steps} decode steps "
+          f"at {read['ms_per_decode_step']:.3f} ms (weight floor "
+          f"{read['weight_floor_ms']:.3f}); {wall:.2f} s in all; peak "
+          f"{read['peak_gib']:.2f} GiB; decode_attention "
+          f"{launches['decode_attention']} launches = {cfg.n_layers} x "
+          f"{steps}")
+    return read, launches, (cfg, fam, params)
+
+
+def serve_long_cache(dev, smi, model) -> tuple:
+    """(c) decode_32k: starcoder2-3b, a 32,768-position cache filled from
+    the seed, decode steps at position 32,767 through the kernel and the
+    plain attention in turns, then a profiled window of kernel steps.
+    Each step writes its own token's K/V into the last slot before
+    attending, so every step sees the same inputs.  Returns (readings,
+    launch counts of the kernel steps)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    c = SERVE_C
+    cfg, fam, params = model
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    cache = fam["init_cache"](cfg, c["batch"], c["cache_len"], dev)
+    for t in cache.values():
+        t.normal_(generator=gen)
+    tokens = torch.randint(0, cfg.vocab, (c["batch"], 1), generator=gen,
+                           device=dev)
+    pos = c["cache_len"] - 1
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    step = StepClock(fam["decode"])
+    for kind in ("kernel", "plain"):          # warm-up, not timed
+        with plain_attention() if kind == "plain" else contextlib.nullcontext():
+            want = step.fn(params, cache, tokens, pos, cfg)[0]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    errs = []
+    for i in range(2 * c["steps"]):
+        step.kind = ("kernel", "plain", "plain", "kernel")[i % 4]
+        if step.kind == "plain":
+            with plain_attention():
+                want = step(params, cache, tokens, pos, cfg)[0]
+        else:
+            got = step(params, cache, tokens, pos, cfg)[0]
+        if i % 4 in (1, 3):
+            errs.append(logits_agree(f"decode_32k step {i // 2}", got, want,
+                                     cfg.vocab))
+    launches = ops.launch_counts()
+    require(launches["decode_attention"] == cfg.n_layers * c["steps"],
+            f"decode_32k: decode_attention launched "
+            f"{launches['decode_attention']} times in {c['steps']} kernel "
+            f"steps of {cfg.n_layers} layers")
+    n = c["profiled"]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fam["decode"](params, cache, tokens, pos, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    for name, count in ops.launch_counts().items():
+        launches[name] += count
+    busy = attn = 0.0
+    entries = 0
+    top = []
+    for e in prof.key_averages():
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            us = getattr(e, "self_device_time_total", 0.0)
+            busy += us
+            entries += e.count
+            top.append((us, e.count, e.key))
+            if "decode_split" in e.key or "decode_merge" in e.key:
+                attn += us          # the kernels' names come mangled
+    require(busy > 0, "decode_32k: the profiler recorded no device time")
+    floor_ms = (weight_bytes(params) + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    read = dict(arch=cfg.arch, batch=c["batch"], cache_len=c["cache_len"],
+                cache_gib=cache_bytes / 2**30, pos=pos,
+                ms_per_step=step.ms("kernel"),
+                plain_ms_per_step=step.ms("plain"),
+                byte_floor_ms=floor_ms,
+                profiled_wall_ms=wall * 1e3 / n,
+                device_busy_ms=busy / n / 1e3,
+                attention_ms=attn / n / 1e3,
+                attention_share=attn / max(busy, 1e-9),
+                device_entries=entries / n,
+                max_err_sigmas=max(e["err_sigmas"] for e in errs),
+                max_abs_err=max(e["max_abs_err"] for e in errs),
+                launches=launches["decode_attention"])
+    print(f"  (c) decode_32k: {cfg.arch}, B {c['batch']}, a "
+          f"{c['cache_len']}-position cache from the seed "
+          f"({read['cache_gib']:.2f} GiB of K/V), position {pos} "
+          f"[{smi}]")
+    print(f"      {c['steps']} steps each way in turns: kernel "
+          f"{read['ms_per_step']:.3f} ms, plain attention "
+          f"{read['plain_ms_per_step']:.3f} ms a step (byte floor "
+          f"{floor_ms:.3f}: weights and the cache once); logits max |err| "
+          f"{read['max_abs_err']:.4g} = {read['max_err_sigmas']:.4f} sigma "
+          f"(tolerance {SERVE_LOGIT_TOL})")
+    print(f"      profiled, {n} kernel steps: {read['profiled_wall_ms']:.3f} "
+          f"ms wall, device busy {read['device_busy_ms']:.3f} ms in "
+          f"{entries / n:.0f} entries a step, decode_attention "
+          f"{read['attention_ms']:.3f} ms ({read['attention_share']:.1%} of "
+          f"the busy time); top device entries a step (us, launches, "
+          f"name):")
+    for us, count, key in sorted(top, reverse=True)[:6]:
+        print(f"        {us / n:9.1f} {count / n:6.1f}  {key[:80]}")
+    del cache
+    torch.cuda.empty_cache()
+    return read, launches
+
+
+def serve_phase(dev, smi) -> tuple:
+    """ROADMAP A.10a on the card: (a), (b) and (c) above.  Returns the
+    readings and the launch counts of the main-path runs by path:
+    ``serve`` ((a) and (b)) and ``serve_32k`` ((c)'s kernel steps)."""
+    print(f"== 15. the dense LM served at full width (repro_torch.models, "
+          f"serving; decode attention through ops.decode_attention) [{smi}]")
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    parts = [time.perf_counter()]
+    read_a, launches = serve_scheduler(dev, smi)
+    parts.append(time.perf_counter())
+    read_b, more, model = serve_generate(dev, smi)
+    launches = {k: launches[k] + more[k] for k in launches}
+    parts.append(time.perf_counter())
+    read_c, long_launches = serve_long_cache(dev, smi, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(time.perf_counter())
+    took = time.perf_counter() - t_phase
+    part_s = [b - a for a, b in zip(parts, parts[1:])]
+    print(f"  serve phase {took:.1f} s ((a) {part_s[0]:.1f}, (b) "
+          f"{part_s[1]:.1f}, (c) {part_s[2]:.1f})")
+    return dict(a=read_a, b=read_b, c=read_c, seconds=took,
+                part_seconds=part_s), dict(serve=launches,
+                                           serve_32k=long_launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3055,6 +3469,9 @@ def main() -> int:
     by_path["ranks"] = ranks_phase(dev, wl)
     by_path["products"] = products_phase(dev, wl, c["smi"])
     by_path["analysis"] = analysis_phase(dev, wl, c["smi"])
+    serve, serve_launches = serve_phase(dev, c["smi"])
+    by_path.update(serve_launches)
+    decode_row["serve"] = serve
     for row in rows:
         row["launches_by_path"] = {p: n[row["name"]]
                                    for p, n in by_path.items()}
@@ -3062,7 +3479,7 @@ def main() -> int:
         require(row["launches"] > 0,
                 f"{row['name']} never launched on a main path")
 
-    print(f"== 15. done in {time.perf_counter() - t_start:.1f} s")
+    print(f"== 16. done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(c["smi"])
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,11 @@ The two packages share no arrays: data passes between them as numpy.
 ``engine_state_from_numpy`` turns a reference engine state fetched as
 numpy (``jax.device_get``) into the port's tensors, and
 ``engine_state_to_numpy`` goes back, so one mid-run state -- warm P$
-included -- can be stepped by both engines.
+included -- can be stepped by both engines.  ``lm_params_from_numpy`` /
+``lm_cache_from_numpy`` carry an LM's parameters and KV cache across
+(and ``*_to_numpy`` back): the same keys, the cache's time and head
+axes swapped between the reference's (L, B, T, Hkv, D) and the port's
+(L, B, Hkv, T, D).
 """
 from __future__ import annotations
 
@@ -48,3 +52,58 @@ def engine_state_from_numpy(np_state, device) -> dict:
 def engine_state_to_numpy(state) -> dict:
     """A port engine state as a dict of numpy arrays."""
     return {k: v.detach().cpu().numpy() for k, v in state.items()}
+
+
+def _tensor_from_numpy(a, device):
+    """A tensor of ``a``'s dtype; a bf16 array (``ml_dtypes``, which
+    ``torch.from_numpy`` refuses) goes across as its 16 bits.  Copied,
+    so the tensor never shares a read-only buffer."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _numpy_from_tensor(t):
+    """``t`` on the host as numpy; bf16 becomes f32, which holds every
+    bf16 value exactly."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def _tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_params_from_numpy(np_params, device) -> dict:
+    """A reference LM's parameters (nested dict of numpy arrays, bf16 or
+    f32, ``jax.device_get`` of ``fam["init"]``'s) as port tensors of the
+    same dtypes on ``device``."""
+    dev = torch.device(device)
+    return _tree(lambda a: _tensor_from_numpy(a, dev), np_params)
+
+
+def lm_params_to_numpy(params) -> dict:
+    """Port LM parameters as a nested dict of numpy arrays (bf16 as
+    f32)."""
+    return _tree(_numpy_from_tensor, params)
+
+
+def lm_cache_from_numpy(np_cache, device) -> dict:
+    """A reference KV cache, dict(k, v) of (L, B, T, Hkv, D), as the
+    port's contiguous (L, B, Hkv, T, D) tensors on ``device``."""
+    dev = torch.device(device)
+    return {k: _tensor_from_numpy(v, dev).transpose(2, 3).contiguous()
+            for k, v in np_cache.items()}
+
+
+def lm_cache_to_numpy(cache) -> dict:
+    """A port KV cache as the reference's (L, B, T, Hkv, D) numpy arrays
+    (bf16 as f32)."""
+    return {k: _numpy_from_tensor(v.transpose(2, 3).contiguous())
+            for k, v in cache.items()}

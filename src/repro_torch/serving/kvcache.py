@@ -1,0 +1,50 @@
+"""KV-cache helpers: the port of ``repro/serving/kvcache.py``.
+
+Cache *structure* is family-specific and owned by the model modules
+(``fam['init_cache']``); this module adds the serving-level concerns:
+capacity planning (bytes a device) and the growth of a prefill-built
+cache.  The dense family's cache is (L, B, Hkv, T, D): time on axis 3.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class CachePlan:
+    arch: str
+    batch: int
+    cache_len: int
+    bytes_total: int
+    bytes_per_device: int
+    ring: bool
+
+
+TIME_AXIS = 3
+
+
+def pad_cache(cfg, cache, extra: int):
+    """Grow a prefill-built cache's time axis by ``extra`` decode slots
+    (zeros).  Ring (sliding-window) caches never grow."""
+    if not isinstance(cache, dict) or cfg.swa_window:
+        return cache
+    out = dict(cache)
+    for key in ("k", "v"):
+        if key in out:
+            leaf = out[key]
+            pad = [0, 0] * (leaf.dim() - 1 - TIME_AXIS) + [0, extra]
+            out[key] = F.pad(leaf, pad)
+    return out
+
+
+def plan_cache(cfg, fam, batch: int, cache_len: int,
+               n_devices: int = 1) -> CachePlan:
+    """Size the decode cache without allocating it (on the meta device)."""
+    cache = fam["init_cache"](cfg, batch, cache_len, device="meta")
+    total = sum(t.numel() * t.element_size() for t in cache.values())
+    return CachePlan(arch=cfg.arch, batch=batch, cache_len=cache_len,
+                     bytes_total=total,
+                     bytes_per_device=total // max(n_devices, 1),
+                     ring=cfg.swa_window > 0)

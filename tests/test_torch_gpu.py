@@ -1008,3 +1008,80 @@ def test_kernel_races_on_card():
     assert kernel_races.check_kernels(dev) == []
     after = ops.launch_counts()
     assert all(after[k] > before[k] for k in after), after
+
+
+# ------------------------------------------------ the dense LM (serving)
+DENSE_ARCHS = ["starcoder2-3b", "starcoder2-15b", "deepseek-7b",
+               "h2o-danube-3-4b", "pixtral-12b"]
+LM_TOL = {"float32": 1e-4, "bfloat16": 5e-2}   # tests/test_torch_models.py
+
+
+def _to(tree, device, dtype=None):
+    return {k: _to(v, device, dtype) if isinstance(v, dict) else
+            v.to(device, dtype if dtype and v.is_floating_point() else None)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_dense_decode_step_on_card_matches_cpu(arch, dtype):
+    """A reduced dense decode step through the Hopper kernel against the
+    same step on the CPU (the kernel's plain version), from one seeded
+    cache, at a position inside the cache and one past it (in a ring, one
+    that wraps): logits and the written cache within the models tests'
+    tolerances; ``decode_attention`` launched once a layer a step."""
+    from repro_torch.models import registry
+    dev = _card()
+    cfg, fam = registry.get(arch, smoke=True)
+    dt = getattr(torch, dtype)
+    params = _to(fam["init"](cfg, torch.Generator().manual_seed(0), "cpu"),
+                 "cpu", dt)
+    gen = torch.Generator().manual_seed(1)
+    cache = {k: torch.randn(v.shape, generator=gen).to(dt) for k, v in
+             fam["init_cache"](cfg, 3, 24, "cpu").items()}
+    card_params, card_cache = _to(params, dev), _to(cache, dev)
+    tol = LM_TOL[dtype]
+    for pos in (5, 30):
+        toks = torch.randint(0, cfg.vocab, (3, 1), generator=gen)
+        want, cache = fam["decode"](params, cache, toks, pos, cfg)
+        ops.reset_launches()
+        got, card_cache = fam["decode"](card_params, card_cache,
+                                        toks.to(dev), pos, cfg)
+        torch.cuda.synchronize()
+        assert da.decode_attention.launches == cfg.n_layers
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   rtol=tol, atol=tol)
+        for key in ("k", "v"):
+            torch.testing.assert_close(card_cache[key].cpu().float(),
+                                       cache[key].float(), rtol=tol,
+                                       atol=tol)
+
+
+def test_scheduler_on_card_launches_once_a_layer_a_step():
+    """``ServeScheduler`` on the card over a reduced deepseek-7b: every
+    request completes as on the CPU (order and token counts: the control
+    plane's rules), one ``decode_attention`` launch a layer a step."""
+    from repro_torch.models import registry
+    from repro_torch.serving import Request, ServeScheduler
+    dev = _card()
+    cfg, fam = registry.get("deepseek-7b", smoke=True)
+    params = fam["init"](cfg, torch.Generator().manual_seed(0), "cpu")
+    runs = {}
+    for where in ("cpu", dev):
+        sched = ServeScheduler(cfg, fam, _to(params, where), batch_slots=2,
+                               max_len=24)
+        steps = []
+        step = sched._step
+        sched._step = lambda *a, **k: steps.append(1) or step(*a, **k)
+        rng = np.random.default_rng(0)
+        for rid in range(4):
+            sched.submit(Request(rid, rng.integers(0, cfg.vocab, 5)
+                                 .astype(np.int32), max_new=6))
+        ops.reset_launches()
+        done = sched.run()
+        runs[str(where)] = ([(r.rid, len(r.out)) for r in done],
+                            da.decode_attention.launches, len(steps))
+    (cpu_done, cpu_launches, cpu_steps), (done, launches, steps) = (
+        runs["cpu"], runs[str(dev)])
+    assert done == cpu_done and len(done) == 4 and cpu_launches == 0
+    assert steps == cpu_steps and launches == cfg.n_layers * steps
