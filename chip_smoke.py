@@ -28,17 +28,15 @@ on past a failure:
    Table-II write-through proxy, backend ``kernels``, through the
    default chunked run loop (16 supersteps a host fetch, each a CUDA
    graph replay); values checked against scipy's BFS hop distances;
-   then the same call on the per-step loop (``run_chunk=0``), equal to
-   the chunked run (values bitwise; counters, trace, supersteps,
-   ``time_s``) and timed beside it (the run loop alone, without the
-   app's set-up: ``LoopClock``); two ``torch.profiler`` windows, 20
-   supersteps of the per-step loop and 20 graph replays;
+   two ``torch.profiler`` windows, 20 supersteps of the per-step loop
+   (``run_chunk=0``) and 20 graph replays (the whole run on the per-step
+   loop is phase 9's, at RMAT-18: the time limit);
 6. SpMV (write-back P$, selective 2-level cascade) and Histogram
    (write-back P$) on RMAT-22 over 4096 tiles, backend ``kernels``,
-   chunked; checked against scipy's ``A @ x`` and ``np.bincount``; each
-   also on the per-step loop (equal in counters, trace, supersteps and
-   ``time_s``, values bitwise for Histogram, within rtol 1e-4 / atol
-   1e-5 for SpMV) with the two profiler windows;
+   chunked; checked against scipy's ``A @ x`` and ``np.bincount``;
+   Histogram also on the per-step loop (equal in counters, trace,
+   supersteps, ``time_s`` and values; SpMV's is phase 9's, at RMAT-18);
+   each with the two profiler windows;
 6b. active-set compaction (``compaction=3``: windows of 4096, 1024, 256
    and 64 tiles) on the chunked loop: BFS, SpMV and Histogram at RMAT-22,
    each equal to its dense chunked run of phase 5 or 6 (counters, trace,
@@ -70,8 +68,10 @@ on past a failure:
    PageRank (epochs=3) with ``kernels`` and with ``torch``: counters,
    trace, supersteps and ``time_s`` exact, values bitwise (BFS,
    Histogram) or within rtol 1e-4 / atol 1e-5 (SpMV, PageRank);
-   Histogram and PageRank also on the per-step loop against the chunked
-   one; BFS and PageRank with ``compaction=3`` on both loops against the
+   all four also on the per-step loop against the chunked one (BFS and
+   SpMV with the ``EngineIds`` tap, timed beside the chunked run by
+   ``LoopClock``: cut from phases 5 and 6's RMAT-22 by the time limit);
+   BFS and PageRank with ``compaction=3`` on both loops against the
    dense chunked run (window overflows printed), and on the chunked loop
    with ``torch`` against ``kernels``; PageRank against its oracle;
 9b. observability and the sanitizer: BFS at RMAT-22 on the chunked loop,
@@ -217,12 +217,30 @@ on past a failure:
     profiled kernel steps (decode_attention's share of the device
     time).  Printed: ms a step, tokens/s, prefill ms, peak memory,
     launches, beside the ``nvidia-smi`` line;
-16. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
+16. dense training at full published width (ROADMAP A.10b;
+    ``repro_torch.training``, ``data``, ``launch.train``), random weights
+    from the seed: (a) ``launch.train.main`` on starcoder2-3b, 8 AdamW
+    steps of 8 x 1,024 tokens at lr 3e-6 (the entry point a user calls;
+    each block rematted); every loss and grad norm finite, the mean of the last 3
+    losses below the first (step 0 runs at lr 0), peak memory below
+    ``TRAIN_PEAK_GIB``; (b) the same configuration's step timed on 6
+    batches made before the timing (ms a step, tokens/s, the share of
+    the card's dense bf16 peak that 6 N T gives, N the parameters
+    without the token embedding), the host's ``batch_at`` seconds alone,
+    peak memory, the optimizer update's device span, and 2 profiled
+    steps (device-busy ms, the top 10 device ops); (c) 2 AdamW steps of
+    the reduced starcoder2-3b and deepseek-7b from one f32 state carried
+    by ``convert``, on the card and on the CPU, within ``TRAIN_RTOL`` /
+    ``TRAIN_PARAM_TOL``.  No kernel of the six runs on this path: the
+    launches the wrappers count in (a) and the kernels the profiler sees
+    in (b) are printed, by kernel (0 each);
+17. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
     the last line, ``{"ok": true, "device": {...}}``.
 
 Every app run prints its supersteps, wall seconds, ms per superstep,
 host syncs, CUDA-graph replays, peak device memory and launches per
-kernel.  The per-step runs of phases 5 and 6 also print, per call shape
+kernel.  The per-step runs of phase 6 (Histogram) and phase 9 (BFS,
+SpMV) also print, per call shape
 of segment_combine and deliver_fused, how the ids the engine hands them
 fall in the kernels' 32-record warp slices (``EngineIds``): the share
 of live records in runs of neighbours and repeated in their slice, and
@@ -241,7 +259,8 @@ measurements under ``products``, phase 14's matrix runs and walks
 under ``analysis`` (its race checks compare kernels with their plain
 versions and are not counted), phase 15's (a) and (b) under ``serve``
 and (c)'s kernel steps under ``serve_32k`` (its plain steps launch
-nothing).  A graph replay counts the launches
+nothing), and phase 16's training under ``train`` (none: the wrappers'
+counts in (a) plus the kernels the profiler sees in (b)).  A graph replay counts the launches
 captured in it, so on the chunked loop the counts include the idle rows
 of a chunk (after the run drained, or after a flush the device
 scheduled), which are printed as the surplus.
@@ -1142,8 +1161,6 @@ def bfs_phase(dev, wl) -> dict:
     check_bfs(g, root, res)
     require_launches("bfs", launches, chunked, ENGINE_KERNELS)
     wl["dense"] = dict(bfs=(res, chunked))
-    compare_loops("bfs", chunked,
-                  per_step_run(dev, "bfs", res, fn, args, kw))
     eng, state, _ = apps.engine_and_state("bfs", g, grid, proxy, root=root,
                                           oq_cap=OQ_CAP, device=dev)
     profile_supersteps(dev, eng, state, "bfs")
@@ -1170,9 +1187,6 @@ def add_apps_phase(dev, wl) -> dict:
     require_launches("spmv", launches, chunked, ENGINE_KERNELS)
     out["spmv"] = launches
     wl["dense"]["spmv"] = (res, chunked)
-    compare_loops("spmv", chunked,
-                  per_step_run(dev, "spmv", res, fn, args, kw, AGREE_RTOL,
-                               AGREE_ATOL))
     t1 = time.perf_counter()
     eng, state, _ = apps.engine_and_state("spmv", g, grid, proxy, x=wl["x"],
                                           oq_cap=OQ_CAP, device=dev)
@@ -1652,9 +1666,9 @@ def agreement_phase(dev, wl) -> None:
     from repro_torch.graph import apps, oracles
     from repro_torch.graph.rmat import histogram_input
     print(f"== 9. backend agreement (kernels vs torch) at RMAT-{AGREE_SCALE} "
-          f"on {TILES} tiles, chunked; Histogram and PageRank also against "
-          f"the per-step loop; BFS and PageRank with compaction={COMPACTION} "
-          f"on both loops")
+          f"on {TILES} tiles, chunked; all four also against the per-step "
+          f"loop; BFS and PageRank with compaction={COMPACTION} on both "
+          f"loops")
     g, grid = wl[AGREE_SCALE], wl["grid"]
     bins = g.n_rows // 8
     hv = histogram_input(g, bins)
@@ -1674,11 +1688,20 @@ def agreement_phase(dev, wl) -> None:
     ]
     for name, fn, args, kw, tol in cases:
         t0 = time.perf_counter()
-        runs = [app_run(dev, name, fn, *args, oq_cap=OQ_CAP, backend=b,
-                        **kw)[0] for b in ("kernels", "torch")]
+        got = [app_run(dev, name, fn, *args, oq_cap=OQ_CAP, backend=b, **kw)
+               for b in ("kernels", "torch")]
+        runs = [r[0] for r in got]
         same_run(runs[0], runs[1], f"{name} kernels vs torch",
                  *(tol or (None, None)))
         wl.setdefault("agree", {})[name] = (runs[0], fn, args, kw, tol)
+        if name in ("bfs", "spmv"):
+            # the per-step loop against the chunked run, with the
+            # EngineIds tap (cut from phases 5 and 6's RMAT-22 to
+            # RMAT-18 by the time limit)
+            compare_loops(name, got[0][2], per_step_run(
+                dev, name, runs[0], fn, args,
+                dict(kw, oq_cap=OQ_CAP, backend="kernels"),
+                *(tol or (None, None))))
         if name in ("histo", "pagerank"):
             per_step = app_run(dev, name, fn, *args, oq_cap=OQ_CAP,
                                run_chunk=0, **kw)[0]
@@ -3438,6 +3461,309 @@ def serve_phase(dev, smi) -> tuple:
                                            serve_32k=long_launches)
 
 
+# -------------------------------------------------- 16. the LM trained
+# ROADMAP A.10b: starcoder2-3b at the full published widths of
+# src/repro/models/registry.py (3.18 B parameters; deepseek-7b's AdamW
+# state does not fit one 80 GB card), random weights from the seed,
+# trained through the calls src/repro/launch/train.py:42 makes
+# lr 3e-6: the launcher's default (3e-4, with its automatic warmup of one
+# step at 8 steps) diverged here at full width (loss 11.42 -> 12.44 at
+# step 5, grad norm 35.8), as did 1e-4 and a 4-step warmup; a 2,000-step
+# warmup to 3e-4 and 1e-6 stayed flat within 0.03; 3e-6 fell at every
+# step but one (11.421 -> 11.340; PERF.md, Findings)
+TRAIN = dict(arch="starcoder2-3b", steps=8, batch=8, seq=1024, lr=3e-6,
+             timed=6, profiled=2)
+TRAIN_PEAK_GIB = 75.0
+# (c): the reduced archs, 2 AdamW steps (lr 1e-3, warmup 1: the second
+# moves the parameters) of 4 x 64 tokens, card vs CPU in f32.  Set before
+# the first chip run from the port against the reference on the CPU over
+# this configuration: loss and grad norm 1.5e-7 relative, parameters
+# 1.1e-4 of a leaf's max |x| (tok_emb, rows whose gradients sit near
+# AdamW's eps), with room for the card's other summation orders
+TRAIN_SMALL = dict(archs=("starcoder2-3b", "deepseek-7b"), steps=2,
+                   batch=4, seq=64, lr=1e-3)
+TRAIN_RTOL = 1e-5
+TRAIN_PARAM_TOL = 2e-3
+# the six kernels' device symbols, as the profiler names them
+KERNEL_SYMBOLS = dict(relax=("relax_kernel",),
+                      segment_combine=("segment_combine_kernel",),
+                      deliver_fused=("deliver_fused_kernel",),
+                      histogram_bin=("histogram_slice_kernel",
+                                     "histogram_global_kernel"),
+                      spmv_bcsr=("spmv_bcsr_kernel",),
+                      decode_attention=("decode_split", "decode_merge"))
+
+
+def train_entry(dev, smi) -> tuple:
+    """(a) ``launch.train.main`` at full width.  Returns (readings,
+    launch counts of the run)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    t = TRAIN
+    seen = []
+    make = train.make_train_step
+
+    def recording(*args, **kw):
+        step = make(*args, **kw)
+
+        def wrapped(state, batch):
+            out = step(state, batch)
+            seen.append(out[1])
+            return out
+        return wrapped
+    argv = ["--arch", t["arch"], "--steps", str(t["steps"]), "--batch",
+            str(t["batch"]), "--seq", str(t["seq"]), "--lr", str(t["lr"])]
+    print(f"  (a) launch.train.main({argv}, device={dev.type!r}) [{smi}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    train.make_train_step = recording
+    t0 = time.perf_counter()
+    try:
+        losses = train.main(argv, device=dev.type)
+    finally:
+        train.make_train_step = make
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gnorms = [float(m["grad_norm"]) for m in seen]
+    require(len(losses) == t["steps"] and len(gnorms) == t["steps"],
+            f"train: {len(losses)} losses, {len(gnorms)} grad norms of "
+            f"{t['steps']} steps")
+    require(all(math.isfinite(x) for x in losses + gnorms),
+            f"train: a loss or grad norm is not finite: {losses} {gnorms}")
+    last = float(np.mean(losses[-3:]))
+    require(last < losses[0],
+            f"train: the last 3 losses' mean {last:.4f} is not below the "
+            f"first {losses[0]:.4f}")
+    require(peak < TRAIN_PEAK_GIB,
+            f"train: peak {peak:.2f} GiB >= {TRAIN_PEAK_GIB} GiB")
+    read = dict(arch=t["arch"], steps=t["steps"], batch=t["batch"],
+                seq=t["seq"], losses=losses, grad_norms=gnorms, wall_s=wall,
+                s_per_step=wall / t["steps"], peak_gib=peak)
+    print(f"      losses {[round(x, 4) for x in losses]}; grad norms "
+          f"{[round(x, 3) for x in gnorms]}; last-3 mean {last:.4f} < first "
+          f"{losses[0]:.4f}; {wall:.2f} s in all ({read['s_per_step']:.3f} s "
+          f"a step with init and the host's batches); peak {peak:.2f} GiB "
+          f"(limit {TRAIN_PEAK_GIB})")
+    return read, launches
+
+
+def kernel_symbols_seen(prof) -> dict:
+    """{kernel name: device launches the profiler saw of its symbols}."""
+    from torch.autograd import DeviceType
+    seen = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for name, symbols in KERNEL_SYMBOLS.items():
+            if any(sym in e.key for sym in symbols):
+                seen[name] += e.count
+    return seen
+
+
+def train_timing(dev, smi) -> tuple:
+    """(b) The full-width step on batches made before the timing.
+    Returns (readings, kernel launches the profiler saw)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch.train import batch_source, make_optimizer
+    from repro_torch.models import registry
+    from repro_torch.training import TrainState, make_train_step
+    from repro_torch.training.optimizer import Optimizer, tree_leaves
+    t = TRAIN
+    cfg, fam = registry.get(t["arch"])
+    warmup = min(100, max(1, t["steps"] // 10))      # (a)'s, as main's
+    opt = make_optimizer(cfg, t["lr"], warmup)
+    spans = []
+
+    def update(*args):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = opt.update(*args)
+        b.record()
+        spans.append((a, b))
+        return out
+    timed_opt = Optimizer(init=opt.init, update=update, name=opt.name)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = fam["init"](cfg, gen, dev)
+    n_all = sum(p.numel() for p in tree_leaves(params))
+    n_mm = n_all - params["tok_emb"].numel()
+    state = TrainState.create(params, timed_opt)
+    del params
+    step = make_train_step(cfg, fam, timed_opt)
+    _, host_batch = batch_source(cfg, t["seq"], t["batch"])
+    t0 = time.perf_counter()
+    host_batch(t["timed"])
+    host_s = time.perf_counter() - t0
+    batches = [to_device(host_batch(i), dev) for i in range(t["timed"])]
+    state, _ = step(state, batches[0])                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spans.clear()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    losses = []
+    for b in batches:
+        state, m = step(state, b)
+        losses.append(m["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = start.elapsed_time(end) / len(batches)
+    opt_ms = sum(a.elapsed_time(b) for a, b in spans) / len(spans)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(all(math.isfinite(float(x)) for x in losses),
+            "train timing: a loss is not finite")
+    tokens = t["batch"] * t["seq"]
+    flop = 6 * n_mm * tokens
+    n = t["profiled"]
+    # device activity only: the host's ~20,000 ops a step would cost the
+    # phase seconds in tracing and nothing this reading uses
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for b in batches[:n]:
+            state, m = step(state, b)
+        torch.cuda.synchronize()
+    busy = 0.0
+    top = []
+    for e in prof.key_averages():
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            us = getattr(e, "self_device_time_total", 0.0)
+            busy += us
+            top.append((us, e.count, e.key))
+    require(busy > 0, "train: the profiler recorded no device time")
+    seen = kernel_symbols_seen(prof)
+    read = dict(arch=t["arch"], params=n_all, params_matmul=n_mm,
+                tokens=tokens, ms_per_step=ms, wall_ms_per_step=wall * 1e3
+                / len(batches), tokens_per_s=tokens / (ms / 1e3),
+                flop_6nt=flop, peak_share=flop / (ms / 1e3)
+                / BF16_FLOP_PER_S, host_batch_s=host_s,
+                optimizer_ms=opt_ms, optimizer_share=opt_ms / ms,
+                peak_gib=peak, device_busy_ms=busy / n / 1e3,
+                profiled_steps=n,
+                top=[(us / n / 1e3, c / n, k) for us, c, k
+                     in sorted(top, reverse=True)[:10]],
+                kernels_seen=seen)
+    print(f"  (b) {t['arch']} (L {cfg.n_layers}, d {cfg.d_model}, H "
+          f"{cfg.n_heads}/{cfg.n_kv}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+          f"{n_all / 1e9:.3f} B parameters, {n_mm / 1e9:.3f} B without the "
+          f"token embedding), AdamW, {t['batch']} x {t['seq']} tokens, "
+          f"{len(batches)} steps on batches made before the timing "
+          f"[{smi}]")
+    print(f"      {ms:.2f} ms a step (host wall {read['wall_ms_per_step']:.2f}"
+          f"), {read['tokens_per_s']:.0f} tokens/s; 6NT = "
+          f"{flop / 1e12:.1f} TFLOP a step = {read['peak_share']:.1%} of "
+          f"the dense bf16 peak ({BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; "
+          f"remat's extra forward not counted); optimizer update "
+          f"{opt_ms:.2f} ms device span ({read['optimizer_share']:.1%}); "
+          f"host batch_at {host_s:.3f} s alone; peak {peak:.2f} GiB")
+    print(f"      profiled, {n} steps: device busy "
+          f"{read['device_busy_ms']:.2f} ms a step; six kernels seen "
+          f"{json.dumps(seen)}; top device ops a step (ms, calls, name):")
+    for ms_, calls, key in read["top"]:
+        print(f"        {ms_:9.3f} {calls:7.1f}  {key[:90]}")
+    del state, batches, m, losses
+    gc.collect()
+    torch.cuda.empty_cache()
+    return read, seen
+
+
+def _leaf_rel_errs(got, want, path="") -> dict:
+    """{leaf path: max |got - want| / max |want|} of two numpy trees."""
+    if isinstance(want, dict):
+        out = {}
+        for k in want:
+            out.update(_leaf_rel_errs(got[k], want[k], f"{path}/{k}"))
+        return out
+    return {path: float(np.abs(got - want).max())
+            / max(float(np.abs(want).max()), 1e-30)}
+
+
+def train_card_vs_cpu(dev) -> dict:
+    """(c) 2 AdamW steps of the reduced archs from one f32 state carried
+    by ``convert``, on the card and on the CPU."""
+    from repro_torch import convert
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import registry
+    from repro_torch.training import TrainState, adamw, make_train_step
+    from repro_torch.training.optimizer import tree_map
+    c = TRAIN_SMALL
+    out = {}
+    for arch in c["archs"]:
+        cfg, fam = registry.get(arch, smoke=True)
+        gen = torch.Generator().manual_seed(SEED)
+        params = tree_map(lambda p: p.float(), fam["init"](cfg, gen, "cpu"))
+        np_state = convert.train_state_to_numpy(TrainState.create(
+            params, adamw(lr=c["lr"], warmup=1)))
+        src = SyntheticLM(vocab=cfg.vocab, seq_len=c["seq"],
+                          batch=c["batch"])
+        runs = []
+        for where in (dev, torch.device("cpu")):
+            state = convert.train_state_from_numpy(np_state, where)
+            step = make_train_step(cfg, fam, adamw(lr=c["lr"], warmup=1))
+            ms = []
+            for i in range(c["steps"]):
+                b = src.batch_at(i)
+                state, m = step(state, to_device(
+                    dict(tokens=b["tokens"], labels=b["labels"]), where))
+                ms.append({k: float(v) for k, v in m.items()})
+            runs.append((ms, convert.train_state_to_numpy(state)))
+        (card_m, card_s), (cpu_m, cpu_s) = runs
+        rel = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(card_m, cpu_m)
+                  for k in ("loss", "grad_norm"))
+        errs = _leaf_rel_errs(card_s["params"], cpu_s["params"])
+        worst = max(errs, key=errs.get)
+        require(all(math.isfinite(a[k]) for a in card_m
+                    for k in ("loss", "grad_norm")) and rel <= TRAIN_RTOL,
+                f"train (c) {arch}: loss / grad norm card vs CPU {rel:.3g} "
+                f"> {TRAIN_RTOL}")
+        require(errs[worst] <= TRAIN_PARAM_TOL,
+                f"train (c) {arch}: parameters card vs CPU {errs[worst]:.3g}"
+                f" of {worst}'s max > {TRAIN_PARAM_TOL}")
+        out[arch] = dict(loss_rel=rel, param_rel=errs[worst],
+                         param_leaf=worst,
+                         losses=[m["loss"] for m in card_m])
+        print(f"  (c) {arch} reduced (L {cfg.n_layers}, d {cfg.d_model}), "
+              f"f32, {c['steps']} AdamW steps of {c['batch']} x {c['seq']}: "
+              f"card vs CPU loss / grad norm {rel:.3g} (tolerance "
+              f"{TRAIN_RTOL}), parameters {errs[worst]:.3g} of {worst}'s "
+              f"max (tolerance {TRAIN_PARAM_TOL})")
+    return out
+
+
+def train_phase(dev, smi) -> tuple:
+    """ROADMAP A.10b on the card: (a), (b) and (c) above.  Returns the
+    readings and the launch counts of the path ``train``."""
+    print(f"== 16. the dense LM trained at full width (repro_torch."
+          f"training, data, launch.train; no kernel on this path) [{smi}]")
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parts = [time.perf_counter()]
+    read_a, launches = train_entry(dev, smi)
+    parts.append(time.perf_counter())
+    read_b, seen = train_timing(dev, smi)
+    parts.append(time.perf_counter())
+    read_c = train_card_vs_cpu(dev)
+    parts.append(time.perf_counter())
+    launches = {k: launches[k] + seen[k] for k in launches}
+    took = time.perf_counter() - t_phase
+    part_s = [b - a for a, b in zip(parts, parts[1:])]
+    print(f"    launches on the train path {json.dumps(launches)}")
+    print(f"  train phase {took:.1f} s ((a) {part_s[0]:.1f}, (b) "
+          f"{part_s[1]:.1f}, (c) {part_s[2]:.1f})")
+    return dict(a=read_a, b=read_b, c=read_c, seconds=took,
+                part_seconds=part_s), launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3472,6 +3798,7 @@ def main() -> int:
     serve, serve_launches = serve_phase(dev, c["smi"])
     by_path.update(serve_launches)
     decode_row["serve"] = serve
+    _, by_path["train"] = train_phase(dev, c["smi"])
     for row in rows:
         row["launches_by_path"] = {p: n[row["name"]]
                                    for p, n in by_path.items()}
@@ -3479,7 +3806,7 @@ def main() -> int:
         require(row["launches"] > 0,
                 f"{row['name']} never launched on a main path")
 
-    print(f"== 16. done in {time.perf_counter() - t_start:.1f} s")
+    print(f"== 17. done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(c["smi"])
     print(json.dumps({"ok": True, "device": {

@@ -6,10 +6,13 @@ checkpoints): <dir>/step_<n>/
                      and the caller's metadata
     shard_<k>.npz    leaf payloads (leaf key -> array), cut at 512 MiB
 
-A tree is nested dicts, lists and tuples whose leaves are tensors,
-numpy arrays or numpy scalars (``None`` is an empty subtree).  A leaf's
-key is the reference's key string: ``['state']['values']`` for dict keys,
-``[0]`` for list and tuple positions, dict keys in sorted order.
+A tree is nested dicts, lists, tuples and dataclass instances whose
+leaves are tensors, numpy arrays or numpy scalars (``None`` is an empty
+subtree).  A leaf's key is the reference's key string (``jax``'s
+``keystr``): ``['state']['values']`` for dict keys, ``[0]`` for list and
+tuple positions, ``.params`` for a dataclass field; dict keys in sorted
+order, fields in declaration order (``TrainState``: params, opt_state,
+step).
 
 Restore is *elastic*: leaves are read as host arrays and placed wherever
 ``placement(key, shape)`` says, whatever device wrote them.  Writes are
@@ -19,6 +22,7 @@ fixed timestamp, so a checkpoint's bytes depend on its contents alone.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -74,10 +78,21 @@ def _from_storable(arr: np.ndarray, logical: str) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
+def _is_node(tree) -> bool:
+    """A dataclass instance (a pytree node, as the reference registers
+    ``TrainState``), not a dataclass type."""
+    return dataclasses.is_dataclass(tree) and not isinstance(tree, type)
+
+
 def flatten(tree, prefix: str = "") -> dict:
     """{key string: leaf} of ``tree`` in the reference's leaf order."""
     if tree is None:
         return {}
+    if _is_node(tree):
+        out = {}
+        for f in dataclasses.fields(tree):
+            out.update(flatten(getattr(tree, f.name), f"{prefix}.{f.name}"))
+        return out
     if isinstance(tree, dict):
         out = {}
         for k in sorted(tree):
@@ -95,6 +110,10 @@ def tree_map(fn: Callable, tree):
     """``tree`` with every leaf replaced by ``fn(leaf)``."""
     if tree is None:
         return None
+    if _is_node(tree):
+        return dataclasses.replace(tree, **{
+            f.name: tree_map(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -105,6 +124,11 @@ def tree_map(fn: Callable, tree):
 def _unflatten(template, leaves: dict, prefix: str = ""):
     if template is None:
         return None
+    if _is_node(template):
+        return dataclasses.replace(template, **{
+            f.name: _unflatten(getattr(template, f.name), leaves,
+                               f"{prefix}.{f.name}")
+            for f in dataclasses.fields(template)})
     if isinstance(template, dict):
         return {k: _unflatten(v, leaves, f"{prefix}[{k!r}]")
                 for k, v in template.items()}

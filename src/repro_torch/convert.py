@@ -9,7 +9,10 @@ included -- can be stepped by both engines.  ``lm_params_from_numpy`` /
 ``lm_cache_from_numpy`` carry an LM's parameters and KV cache across
 (and ``*_to_numpy`` back): the same keys, the cache's time and head
 axes swapped between the reference's (L, B, T, Hkv, D) and the port's
-(L, B, Hkv, T, D).
+(L, B, Hkv, T, D).  ``train_state_from_numpy`` / ``train_state_to_numpy``
+carry a training state (parameters, the optimizer's f32 moments in the
+parameters' structure -- AdamW's ``mu`` / ``nu``, Adafactor's ``vr`` /
+``vc`` / ``v`` -- and the step), so both packages can start from one.
 """
 from __future__ import annotations
 
@@ -67,8 +70,9 @@ def _tensor_from_numpy(a, device):
 
 def _numpy_from_tensor(t):
     """``t`` on the host as numpy; bf16 becomes f32, which holds every
-    bf16 value exactly."""
-    t = t.detach().cpu()
+    bf16 value exactly.  Always a copy: a CPU tensor's array would share
+    its memory, and a training step updates its state in place."""
+    t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
@@ -107,3 +111,30 @@ def lm_cache_to_numpy(cache) -> dict:
     (bf16 as f32)."""
     return {k: _numpy_from_tensor(v.transpose(2, 3).contiguous())
             for k, v in cache.items()}
+
+
+def _field(state, name):
+    return state[name] if isinstance(state, dict) else getattr(state, name)
+
+
+def train_state_from_numpy(np_state, device):
+    """A training state as numpy (a dict, or any object, with
+    ``params``, ``opt_state`` and ``step``: the reference's
+    ``TrainState`` after ``jax.device_get``) as the port's
+    ``TrainState`` on ``device``: each leaf keeps its dtype, the step a
+    0-d int32 tensor."""
+    from .training.train_step import TrainState
+    dev = torch.device(device)
+    return TrainState(
+        params=lm_params_from_numpy(_field(np_state, "params"), dev),
+        opt_state=lm_params_from_numpy(_field(np_state, "opt_state"), dev),
+        step=torch.tensor(int(np.asarray(_field(np_state, "step"))),
+                          dtype=torch.int32, device=dev))
+
+
+def train_state_to_numpy(state) -> dict:
+    """The port's ``TrainState`` as dict(params, opt_state, step) of numpy
+    arrays (bf16 as f32, the step an int32 scalar)."""
+    return dict(params=lm_params_to_numpy(state.params),
+                opt_state=lm_params_to_numpy(state.opt_state),
+                step=np.asarray(int(state.step), np.int32))

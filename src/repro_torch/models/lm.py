@@ -20,12 +20,25 @@ the contiguous (B, Hkv, T, D) block ``ops.decode_attention`` reads
 transposes).  Decode updates the cache in place and returns it.
 Prefill and decode run under ``torch.inference_mode()``; forward does
 not, so that training can take its gradient.
+
+Training (``lm_loss`` and ``dense_forward`` under autograd): each block
+runs under ``torch.utils.checkpoint`` when grad is enabled, the
+counterpart of the reference's ``jax.checkpoint(...,
+policy=nothing_saveable)``: only the blocks' inputs are kept, and each
+block is run again in the backward.  The blocks hold no randomness, so
+the gradients are the same bits with and without it.  Forward takes the
+stacked leaves apart once (``unstack``: one ``unbind`` a leaf, whose
+backward is one ``stack``); indexing ``v[i]`` once a layer would make,
+in the backward, a zero gradient of the whole (L, ...) stack for every
+layer.  The stacked tensors stay the parameters, so an optimizer sees
+the reference's leaves and shapes.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import device as device_mod
 from .layers import (DTYPE, apply_norm, attention, attention_decode,
@@ -43,6 +56,23 @@ def _embed_in(params, batch, cfg):
 def _head(params, x, cfg):
     x = apply_norm(params["final_norm"], x)
     return torch.einsum("bsd,vd->bsv", x, params["lm_head"])
+
+
+def lm_loss(logits, labels, cfg, aux=0.0):
+    """Mean cross-entropy in f32 over the (padded) logits, plus
+    ``cfg.moe_aux_weight * aux``.  Columns at or past ``cfg.vocab`` are
+    masked to -1e30 before the logsumexp, as the reference masks them.
+    The true logit is a ``gather`` of the label's column: the
+    reference's iota-compare masked sum adds that one value to zeros,
+    so both give the same number."""
+    lf = logits.float()
+    if lf.shape[-1] > cfg.vocab:
+        vids = torch.arange(lf.shape[-1], device=lf.device)
+        lf = torch.where(vids < cfg.vocab, lf, -1e30)
+    lse = torch.logsumexp(lf, dim=-1)                     # (B, S)
+    true = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    ce = torch.mean(lse - true)
+    return ce + cfg.moe_aux_weight * aux
 
 
 def _base_init(cfg, gen):
@@ -88,6 +118,25 @@ def layer(stack, i: int):
             for k, v in stack.items()}
 
 
+def unstack(stack, n: int) -> list:
+    """Every layer of a stacked parameter dict, each leaf taken apart by
+    one ``unbind`` (views, no copy; under autograd one ``stack`` in the
+    backward, where ``layer`` would add a zero (L, ...) gradient a
+    layer)."""
+    def parts(t):
+        if isinstance(t, dict):
+            return {k: parts(v) for k, v in t.items()}
+        return torch.unbind(t, 0)
+
+    def pick(t, i):
+        if isinstance(t, dict):
+            return {k: pick(v, i) for k, v in t.items()}
+        return t[i]
+
+    cut = parts(stack)
+    return [pick(cut, i) for i in range(n)]
+
+
 # ======================================================================
 # dense
 # ======================================================================
@@ -114,11 +163,22 @@ def _dense_block(lp, x, cfg, positions):
     return x, kv
 
 
+def _block_out(lp, x, cfg, positions):
+    return _dense_block(lp, x, cfg, positions)[0]
+
+
 def dense_forward(params, batch, cfg):
+    """(logits, aux); under grad each block runs under ``checkpoint``
+    (the reference's remat)."""
     x = _embed_in(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for i in range(cfg.n_layers):
-        x, _ = _dense_block(layer(params["layers"], i), x, cfg, positions)
+    remat = torch.is_grad_enabled()
+    for lp in unstack(params["layers"], cfg.n_layers):
+        if remat:
+            x = checkpoint(_block_out, lp, x, cfg, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _block_out(lp, x, cfg, positions)
     return _head(params, x, cfg), 0.0
 
 

@@ -10,12 +10,21 @@ without a group).  The snippet runs with ``device="cpu"`` in mind: no
 rank touches a card.
 
 A rank aborted at exit ("terminate called without an active
-exception") in about one 4-rank spawn in four while another spawn ran
-at once (two test workers), and in a few in a hundred alone.  So the
-ranks meet at a barrier before the footer destroys the group, and one
-spawn runs at a time on the machine (an exclusive lock on a file in the
-temporary directory, held from the spawn to the last rank's exit):
-together, none in 80 spawns two at a time.
+exception", exit -6) in about one 4-rank spawn in four while another
+spawn ran at once, and in a few in a hundred alone.  A barrier before
+the footer destroys the group, and one spawn at a time on the machine
+(an exclusive lock on a file in the temporary directory, held from the
+spawn to the last rank's exit), made it rarer but did not end it: two
+spawns at once without the lock still aborted 1 in 60 (and a
+whole-suite run lost a module's fixture to it).  Markers printed to
+stderr after the barrier and after ``destroy_process_group`` show that
+it fires after both have returned, in the interpreter's own teardown of
+torch's C++ state, with no thread of the port's running and every
+group destroyed (the mesh test's snippet starts no thread and, at 4
+ranks, makes no subgroup).  So the footer ends each rank there:
+it flushes stdout and stderr and calls ``os._exit(0)``, which skips that
+teardown.  A rank still exits 0 only when its whole snippet ran, and
+``run_ranks`` still asserts every rank's exit code.
 """
 import fcntl
 import os
@@ -52,6 +61,9 @@ FOOTER = """
 if dist.is_initialized():
     dist.barrier()
     dist.destroy_process_group()
+sys.stdout.flush()
+sys.stderr.flush()
+os._exit(0)
 """
 
 

@@ -7,8 +7,9 @@ against the per-step loop (with compaction, one graph per flush value
 and window: no sync in any, launch counts per graph, results equal to
 dense; with telemetry, the sanitizer and an observer, results and host
 syncs equal to the run without them), ``ops.decode_attention``
-through its kernel, and a partitioned run that recovers from a chip loss
-without capturing a graph again.
+through its kernel, a partitioned run that recovers from a chip loss
+without capturing a graph again, and the dense train step on the card
+against the same step on the CPU.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 decision is taken inside each test.  On a machine with a card:
@@ -1085,3 +1086,88 @@ def test_scheduler_on_card_launches_once_a_layer_a_step():
         runs["cpu"], runs[str(dev)])
     assert done == cpu_done and len(done) == 4 and cpu_launches == 0
     assert steps == cpu_steps and launches == cfg.n_layers * steps
+
+
+# ---------------------------------------------------------------- training
+# card vs CPU, f32 (chip_smoke.py phase 16 (c)): set from the port against
+# the reference on the CPU over (c)'s configuration, 1.5e-7 relative on
+# the loss and grad norm and 1.1e-4 of a leaf's max |x| on the parameters
+# (tok_emb: rows with gradients near AdamW's eps), with room for the
+# card's other summation orders
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_PARAM_TOL = 2e-3
+
+
+def _leaf_errs(got, want, path=""):
+    """{leaf path: max |got - want| / max |want|} of two numpy trees."""
+    if isinstance(want, dict):
+        out = {}
+        for k in want:
+            out.update(_leaf_errs(got[k], want[k], f"{path}/{k}"))
+        return out
+    return {path: float(np.abs(got - want).max())
+            / max(float(np.abs(want).max()), 1e-30)}
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_train_step_on_card_matches_cpu(arch):
+    """Two AdamW steps of the reduced arch (lr 1e-3, warmup 1: the
+    second moves the parameters) from one f32 state carried by
+    ``convert``, on the card and on the CPU: loss, grad norm and the
+    parameters within the tolerances above; no kernel launched."""
+    from repro_torch import convert
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import registry
+    from repro_torch.training import TrainState, adamw, make_train_step
+    dev = _card()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg, fam = registry.get(arch, smoke=True)
+        params = _to(fam["init"](cfg, torch.Generator().manual_seed(0),
+                                 "cpu"), "cpu", torch.float32)
+        np_state = convert.train_state_to_numpy(
+            TrainState.create(params, adamw(lr=1e-3, warmup=1)))
+        src = SyntheticLM(vocab=cfg.vocab, seq_len=64, batch=4)
+        runs = {}
+        for where in ("cpu", dev):
+            state = convert.train_state_from_numpy(np_state, where)
+            step = make_train_step(cfg, fam, adamw(lr=1e-3, warmup=1))
+            ops.reset_launches()
+            metrics = []
+            for i in range(2):
+                b = src.batch_at(i)
+                state, m = step(state, to_device(
+                    dict(tokens=b["tokens"], labels=b["labels"]), where))
+                metrics.append({k: float(v) for k, v in m.items()})
+            runs[str(where)] = (metrics, convert.train_state_to_numpy(state),
+                                sum(ops.launch_counts().values()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (cpu_m, cpu_s, _), (card_m, card_s, launches) = (runs["cpu"],
+                                                     runs[str(dev)])
+    assert launches == 0
+    for a, b in zip(card_m, cpu_m):
+        for k in ("loss", "grad_norm"):
+            assert np.isfinite(a[k]) and abs(a[k] - b[k]) <= \
+                TRAIN_LOSS_RTOL * abs(b[k]), (k, a, b)
+    assert card_s["step"] == cpu_s["step"] == 2
+    errs = _leaf_errs(card_s["params"], cpu_s["params"])
+    assert max(errs.values()) <= TRAIN_PARAM_TOL, errs
+
+
+def test_train_main_on_card():
+    """The launcher on its default device, the card: a reduced run whose
+    loss falls, through the fault-tolerant loop's checkpoints too."""
+    import tempfile
+
+    from repro_torch.launch import train
+    _card()
+    argv = ["--arch", "starcoder2-3b", "--smoke", "--steps", "8", "--batch",
+            "4", "--seq", "32", "--lr", "3e-3"]
+    losses = train.main(argv)
+    assert np.isfinite(losses).all() and np.mean(losses[-3:]) < losses[0]
+    with tempfile.TemporaryDirectory() as d:
+        looped = train.main(argv + ["--ckpt-dir", d, "--ckpt-every", "4"])
+    assert np.isfinite(looped).all() and len(looped) == 8
