@@ -70,7 +70,9 @@ on past a failure:
    Histogram) or within rtol 1e-4 / atol 1e-5 (SpMV, PageRank);
    all four also on the per-step loop against the chunked one (BFS and
    SpMV with the ``EngineIds`` tap, timed beside the chunked run by
-   ``LoopClock``: cut from phases 5 and 6's RMAT-22 by the time limit);
+   ``LoopClock``: cut from phases 5 and 6's RMAT-22 by the time limit;
+   PageRank's per-step runs at one epoch against a chunked run at one
+   epoch, cut from three by the time limit);
    BFS and PageRank with ``compaction=3`` on both loops against the
    dense chunked run (window overflows printed), and on the chunked loop
    with ``torch`` against ``kernels``; PageRank against its oracle;
@@ -111,18 +113,22 @@ on past a failure:
 10b. the partition's overlap and windows (ROADMAP A.5b; the card runs
    the deferred exchange in order, the BSP model prices the overlap):
    BFS on RMAT-22 on 4 chips with ``compaction=3`` (per-chip windows of
-   1024, 256, 64 and 16 tiles), ``double_buffer=True`` and both, each
+   1024, 256, 64 and 16 tiles) and ``double_buffer=True`` both on,
    against scipy and against phase 10's synchronous dense run (counters,
    the trace less its ``double_buffer`` field, supersteps; host syncs
-   equal, or at most one more per window overflow; ``time_s`` equal
-   without the double buffer, strictly below with it, its trace
-   re-priced within 1e-12), with ms a superstep, wall, peak memory,
-   supersteps by window and overflows, then the synchronous dense run
-   again (equal to phase 10's; ms a superstep of all five in the order
-   run); at RMAT-18, Table-II, BFS and
+   equal, or at most one more per window overflow; ``time_s`` strictly
+   below, its trace re-priced within 1e-12), with ms a superstep, wall,
+   peak memory, supersteps by window and overflows; each option alone
+   is checked the same way at RMAT-18 (cut from RMAT-22 by the time
+   limit): BFS with ``compaction=2`` and with ``double_buffer=True``
+   against its synchronous dense run (``time_s`` equal without the
+   double buffer, below with it); at RMAT-18, Table-II, BFS and
    SpMV (cascade cut at the chip boundary) with both on,
    ``compaction=2``, below their synchronous dense runs in ``time_s``
-   and equal to them otherwise, on both backends and both loops
+   and equal to them otherwise, on the torch backend chunked and on
+   the per-step loop; at RMAT-14 (cut from RMAT-18 by the time limit)
+   both on the torch backend's per-step loop against the kernels'
+   chunked run
    (counters, trace, supersteps, ``time_s`` exact; BFS values bitwise,
    SpMV within rtol 1e-4 / atol 1e-5, and against scipy); 20 profiled
    graph replays of BFS RMAT-18 on 4 chips synchronous, double-buffered
@@ -234,7 +240,30 @@ on past a failure:
     ``TRAIN_PARAM_TOL``.  No kernel of the six runs on this path: the
     launches the wrappers count in (a) and the kernels the profiler sees
     in (b) are printed, by kernel (0 each);
-17. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
+17. the MoE families at full published width (ROADMAP A.10c-1;
+    ``repro_torch.models`` ``moe`` and ``mla_moe``), random bf16 weights
+    from the seed, each depth cut printed beside the published depth:
+    (a) granite-moe-1b-a400m at its full depth through ``registry.get``
+    -> ``fam["init"]`` -> ``ServeScheduler``: 8 slots, ``max_len`` 256,
+    8 seeded prompts of 3-32 tokens, 16 new tokens each, greedy; every
+    request complete, decode_attention launched once a layer a step,
+    the first full-batch step's logits held against the plain attention
+    (``SERVE_LOGIT_TOL``), then decode_attention at one layer of the
+    served cache (B 8, Hkv 8, T 256, D 64, G 2) against its plain
+    version and SDPA; (b) granite trained through ``launch.train.main``
+    (AdamW, 8 x 1,024 tokens, 8 steps, lr 1e-4; finite losses, the last
+    3's mean below the first, peak below ``TRAIN_PEAK_GIB``), then its
+    step timed on batches made first (6 N_active T's share of the bf16
+    peak) and 2 profiled steps; (c) deepseek-v3-671b, 61 -> 4 layers (3
+    dense, 1 MoE, the MTP parameters present), through ``generate``: B
+    4, a 64-token prompt, 16 tokens; MLA decode launches no kernel; its
+    latent cache's bytes beside a (T, H, D) cache's; (d) deepseek-v3, 61
+    -> 2 layers (1 dense, 1 MoE), MTP on, Adafactor, 1 x 512 tokens, 2
+    steps: finite, peak below ``TRAIN_PEAK_GIB``; (e) the reduced
+    granite and deepseek-v3 card vs CPU: a decode step in f32 and bf16
+    (``SERVE_LOGIT_TOL``), 2 train steps in f32 (``MOE_TRAIN_RTOL``;
+    each leaf's update within ``MOE_UPDATE_RTOL`` of the CPU's);
+18. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
     the last line, ``{"ok": true, "device": {...}}``.
 
 Every app run prints its supersteps, wall seconds, ms per superstep,
@@ -247,20 +276,22 @@ of live records in runs of neighbours and repeated in their slice, and
 the atomics a fold would leave.
 
 Each main-path run (phases 5-8, 6b, 9b, the RMAT-22 runs of 10,
-10b and 11, and 15's serving runs) sets every
+10b and 11, 15's serving runs and 17's) sets every
 kernel's launch count to 0 just before it and reads the counts just
 after; a kernel on the path that did not launch (at least once per
 superstep, on the engine's paths) fails the run.  The JSON line counts
 the compacted runs under their own path, ``compaction``, phase 9b's
 RMAT-22 runs under ``hooks``, phase 10's under ``partition``, phase
-10b's three under ``partition_overlap``, phase 11's two under
+10b's RMAT-22 run under ``partition_overlap``, phase 11's two under
 ``fault``, phase 12's two under ``ranks``, phase 13's four
 measurements under ``products``, phase 14's matrix runs and walks
 under ``analysis`` (its race checks compare kernels with their plain
 versions and are not counted), phase 15's (a) and (b) under ``serve``
 and (c)'s kernel steps under ``serve_32k`` (its plain steps launch
-nothing), and phase 16's training under ``train`` (none: the wrappers'
-counts in (a) plus the kernels the profiler sees in (b)).  A graph replay counts the launches
+nothing), phase 16's training under ``train`` (none: the wrappers'
+counts in (a) plus the kernels the profiler sees in (b)), and phase
+17's (a) under ``serve_moe``, (c) under ``serve_mla`` (none) and (b) and
+(d) under ``train_moe`` (none).  A graph replay counts the launches
 captured in it, so on the chunked loop the counts include the idle rows
 of a chunk (after the run drained, or after a flush the device
 scheduled), which are printed as the surplus.
@@ -292,6 +323,7 @@ TILES, OQ_CAP = 4096, 32
 AGREE_SCALE = 18               # backend agreement and PageRank
 SPMV_KERNEL_SCALE = 14         # ops.spmv: ELL-padded BCSR densifies RMAT
 PAGERANK_EPOCHS = 3
+PAGERANK_LOOP_EPOCHS = 1       # PageRank's per-step runs (the time limit)
 
 ADD_RTOL, ADD_ATOL = 1e-5, 1e-6   # f32 re-association of atomic adds
 SPMV_RTOL, SPMV_ATOL = 1e-4, 1e-4     # tests/test_kernels.py (spmv_bcsr)
@@ -1702,10 +1734,17 @@ def agreement_phase(dev, wl) -> None:
                 dev, name, runs[0], fn, args,
                 dict(kw, oq_cap=OQ_CAP, backend="kernels"),
                 *(tol or (None, None))))
+        # PageRank's per-step runs at one epoch, against a chunked run at
+        # one epoch (cut from three by the time limit)
+        loop_kw, loop_base = kw, runs[0]
+        if name == "pagerank":
+            loop_kw = dict(kw, epochs=PAGERANK_LOOP_EPOCHS)
+            loop_base = app_run(dev, f"{name} {PAGERANK_LOOP_EPOCHS} epoch",
+                                fn, *args, oq_cap=OQ_CAP, **loop_kw)[0]
         if name in ("histo", "pagerank"):
             per_step = app_run(dev, name, fn, *args, oq_cap=OQ_CAP,
-                               run_chunk=0, **kw)[0]
-            same_run(runs[0], per_step, f"{name} chunked vs per-step loop",
+                               run_chunk=0, **loop_kw)[0]
+            same_run(loop_base, per_step, f"{name} chunked vs per-step loop",
                      *(tol or (None, None)))
         if name in ("bfs", "pagerank"):
             # the per-step loop's window chosen every superstep, and the
@@ -1719,12 +1758,12 @@ def agreement_phase(dev, wl) -> None:
                 comp = app_run(dev, f"{name} compacted", fn, *args,
                                oq_cap=OQ_CAP, run_chunk=chunk,
                                compaction=COMPACTION, backend=backend,
-                               **kw)[0]
+                               **(loop_kw if chunk == 0 else kw))[0]
                 moved = counter_deltas(
                     before, counter_values("engine.window_overflows"))
-                same_run(runs[0], comp, f"{name} compacted (run_chunk "
-                         f"{chunk}, {backend}) vs dense chunked",
-                         *(tol or (None, None)))
+                same_run(loop_base if chunk == 0 else runs[0], comp,
+                         f"{name} compacted (run_chunk {chunk}, {backend})"
+                         f" vs dense chunked", *(tol or (None, None)))
                 if backend == "torch":
                     same_run(comp_kernels, comp, f"{name} compacted "
                              f"kernels vs torch", *(tol or (None, None)))
@@ -2065,10 +2104,11 @@ def partition_phase(dev, wl) -> dict:
 
 
 # --------------------------- 10b. the partition's overlap and windows
-OVERLAP_RUNS = (("compaction=3", dict(compaction=COMPACTION)),
-                ("double_buffer", dict(double_buffer=True)),
-                ("both", dict(compaction=COMPACTION, double_buffer=True)))
+# at RMAT-22 both options together (phase 11 starts from this run); each
+# alone at RMAT-18 (cut from RMAT-22 by the time limit)
+OVERLAP_RUNS = (("both", dict(compaction=COMPACTION, double_buffer=True)),)
 OVERLAP_AGREE_COMPACTION = 2    # capacity_ladder(1024, 2): 1024, 256, 64
+OVERLAP_TORCH_STEP_SCALE = AGREE_SCALE - 4   # the time limit
 REPRICE_TOL = 1e-12
 
 
@@ -2174,20 +2214,7 @@ def overlap_phase(dev, wl) -> dict:
               f"syncs {syncs:.0f} (dense {dense:.0f}); supersteps by window "
               f"a chip {json.dumps(by_window) if by_window else 'all dense'}"
               f", overflows {overflows}")
-    # the synchronous dense run again, so that the three runs above lie
-    # between two readings of it in this call
-    again, got, read = app_run(dev, f"bfs {PART_CHIPS} chips synchronous "
-                               f"dense again", fn, *args, chips=PART_CHIPS,
-                               **kw)
-    same_run(sync, again, f"bfs {PART_CHIPS} chips synchronous dense again "
-             f"vs phase 10")
-    readings["synchronous"] = [sync_read["ms_per_superstep"],
-                               read["ms_per_superstep"]]
-    print(f"    bfs {PART_CHIPS} chips ms a superstep, in this order: "
-          f"synchronous {sync_read['ms_per_superstep']:.3f}, "
-          + ", ".join(f"{k} {v['ms_per_superstep']:.3f}"
-                      for k, v in readings.items() if k != "synchronous")
-          + f", synchronous again {read['ms_per_superstep']:.3f}")
+    readings["synchronous"] = [sync_read["ms_per_superstep"]]
     print(f"  RMAT-{SCALE} runs {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -2198,12 +2225,25 @@ def overlap_phase(dev, wl) -> dict:
                 chips=PART_CHIPS, oq_cap=OQ_CAP)
     print(f"  RMAT-{AGREE_SCALE}, Table-II, {PART_CHIPS} chips, "
           f"double_buffer and compaction={OVERLAP_AGREE_COMPACTION}: both "
-          f"backends, both loops")
+          f"backends chunked, the per-step loop on kernels")
     bfs_px = apps.table2_proxy(grid, "bfs")
     bfs_sync, _, bfs_read = app_run(
         dev, f"bfs {PART_CHIPS} chips synchronous dense", apps.bfs, g18,
         root18, grid, proxy=bfs_px, oq_cap=OQ_CAP, chips=PART_CHIPS)
     wl["partition"][f"bfs RMAT-{AGREE_SCALE}"] = (bfs_sync, bfs_read)
+    for label, extra in (
+            (f"compaction={OVERLAP_AGREE_COMPACTION}",
+             dict(compaction=OVERLAP_AGREE_COMPACTION)),
+            ("double_buffer", dict(double_buffer=True))):
+        name = f"bfs {PART_CHIPS} chips {label}"
+        res, _, read = app_run(dev, name, apps.bfs, g18, root18, grid,
+                               proxy=bfs_px, oq_cap=OQ_CAP, chips=PART_CHIPS,
+                               **extra)
+        check_bfs(g18, root18, res)
+        overlap_gates(name, g18, grid, bfs_sync, res, extra)
+        readings[f"{label} RMAT-{AGREE_SCALE}"] = dict(
+            ms_per_superstep=read["ms_per_superstep"],
+            synchronous=bfs_read["ms_per_superstep"], time_s=res.run.time_s)
     cases = (("bfs", apps.bfs, (g18, root18, grid), bfs_px, bfs_sync,
               (None, None)),
              ("spmv", apps.spmv, (g18, x, grid),
@@ -2223,7 +2263,9 @@ def overlap_phase(dev, wl) -> dict:
         ratio = reprice_ratio(aargs[0], grid, base)
         require(abs(ratio - 1.0) < REPRICE_TOL,
                 f"{label}: reprice ratio {ratio!r}")
-        for backend, chunk in (("torch", 16), ("kernels", 0), ("torch", 0)):
+        # the torch backend on the chunked loop, the per-step loop on the
+        # kernels (the torch backend's per-step run at RMAT-14, below)
+        for backend, chunk in (("torch", 16), ("kernels", 0)):
             other = app_run(dev, label, afn, *aargs, proxy=px,
                             backend=backend, run_chunk=chunk, **both)[0]
             same_run(base, other, f"{label} kernels chunked vs {backend} "
@@ -2231,6 +2273,34 @@ def overlap_phase(dev, wl) -> dict:
         if name == "spmv":
             check_spmv(g18, x, base.values, f"SpMV {PART_CHIPS} chips both y")
     print(f"  RMAT-{AGREE_SCALE} runs {time.perf_counter() - t0:.1f} s")
+
+    # the torch backend on the per-step loop with both options, against
+    # the kernels' chunked run, at RMAT-14 (cut from RMAT-18 by the time
+    # limit)
+    t0 = time.perf_counter()
+    scale = OVERLAP_TORCH_STEP_SCALE
+    gs = wl[scale]
+    roots = int(np.argmax(gs.out_degree()))
+    xs = np.random.default_rng(SEED).random(gs.n_cols).astype(np.float32)
+    print(f"  RMAT-{scale}, Table-II, {PART_CHIPS} chips, double_buffer and "
+          f"compaction={OVERLAP_AGREE_COMPACTION}: torch on the per-step "
+          f"loop against kernels chunked")
+    for name, afn, aargs, px, tol in (
+            ("bfs", apps.bfs, (gs, roots, grid), bfs_px, (None, None)),
+            ("spmv", apps.spmv, (gs, xs, grid),
+             apps.table2_proxy(grid, "spmv", cascade_levels=2),
+             (AGREE_RTOL, AGREE_ATOL))):
+        label = f"{name} RMAT-{scale} {PART_CHIPS} chips both"
+        base = app_run(dev, label, afn, *aargs, proxy=px, **both)[0]
+        if name == "bfs":
+            check_bfs(gs, roots, base)
+        else:
+            check_spmv(gs, xs, base.values, f"SpMV RMAT-{scale} both y")
+        other = app_run(dev, label, afn, *aargs, proxy=px, backend="torch",
+                        run_chunk=0, **both)[0]
+        same_run(base, other, f"{label} kernels chunked vs torch "
+                 f"run_chunk=0", *tol)
+    print(f"  RMAT-{scale} runs {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     cap, start, _ = commonest_rung(f"bfs RMAT-{AGREE_SCALE} {PART_CHIPS} "
@@ -3160,14 +3230,14 @@ class StepClock:
         return 1e3 * sum(got) / max(len(got), 1)
 
 
-def serve_scheduler(dev, smi) -> tuple:
-    """(a) deepseek-7b through ``ServeScheduler``; its first full-batch
-    step held against the plain attention.  Returns (readings, launch
-    counts of the run)."""
+def serve_scheduler(dev, smi, a=SERVE_A, label="(a)", after=None) -> tuple:
+    """(a) deepseek-7b (or ``a``'s arch) through ``ServeScheduler``; its
+    first full-batch step held against the plain attention; ``after(cfg,
+    cache)`` reads the served cache before it is freed.  Returns
+    (readings, launch counts of the run)."""
     from repro_torch.kernels import ops
     from repro_torch.models import registry
     from repro_torch.serving import Request, ServeScheduler
-    a = SERVE_A
     cfg, fam = registry.get(a["arch"])
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3243,8 +3313,10 @@ def serve_scheduler(dev, smi) -> tuple:
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                 launches=launches["decode_attention"],
                 check=dict(checked))
-    print(f"  (a) {a['arch']} (L {cfg.n_layers}, d {cfg.d_model}, H "
-          f"{cfg.n_heads}/{cfg.n_kv}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+    ff = (f"{cfg.n_experts} experts of d_ff {cfg.moe_d_ff}, top "
+          f"{cfg.top_k}" if cfg.n_experts else f"d_ff {cfg.d_ff}")
+    print(f"  {label} {a['arch']} (L {cfg.n_layers}, d {cfg.d_model}, H "
+          f"{cfg.n_heads}/{cfg.n_kv}, {ff}, vocab {cfg.vocab}; "
           f"{cfg.param_count() / 1e9:.2f} B parameters drawn in "
           f"{init_s:.1f} s), ServeScheduler: {a['slots']} slots, max_len "
           f"{a['max_len']}, {a['requests']} requests of "
@@ -3265,6 +3337,8 @@ def serve_scheduler(dev, smi) -> tuple:
           f"(tolerance {SERVE_LOGIT_TOL}); greedy tokens equal in "
           f"{checked['tokens_equal']}/{checked['rows']} rows "
           f"({checked['rows_clear']} clear of the bound)")
+    if after is not None:
+        read["after"] = after(cfg, sched.cache)
     sched._step, sched._advance = kernel_step, advance  # no cycle holds it
     del sched, params, clock, step, advance, advance_by_kind
     gc.collect()
@@ -3494,12 +3568,11 @@ KERNEL_SYMBOLS = dict(relax=("relax_kernel",),
                       decode_attention=("decode_split", "decode_merge"))
 
 
-def train_entry(dev, smi) -> tuple:
+def train_entry(dev, smi, t=TRAIN, label="(a)") -> tuple:
     """(a) ``launch.train.main`` at full width.  Returns (readings,
     launch counts of the run)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
-    t = TRAIN
     seen = []
     make = train.make_train_step
 
@@ -3513,7 +3586,8 @@ def train_entry(dev, smi) -> tuple:
         return wrapped
     argv = ["--arch", t["arch"], "--steps", str(t["steps"]), "--batch",
             str(t["batch"]), "--seq", str(t["seq"]), "--lr", str(t["lr"])]
-    print(f"  (a) launch.train.main({argv}, device={dev.type!r}) [{smi}]")
+    print(f"  {label} launch.train.main({argv}, device={dev.type!r}) "
+          f"[{smi}]")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -3565,8 +3639,10 @@ def kernel_symbols_seen(prof) -> dict:
     return seen
 
 
-def train_timing(dev, smi) -> tuple:
-    """(b) The full-width step on batches made before the timing.
+def train_timing(dev, smi, t=TRAIN, label="(b)") -> tuple:
+    """(b) The full-width step on batches made before the timing.  6NT
+    counts N without the token embedding; for a MoE arch, the parameters
+    a token runs through (``active_param_count``: the top-k experts).
     Returns (readings, kernel launches the profiler saw)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3575,7 +3651,6 @@ def train_timing(dev, smi) -> tuple:
     from repro_torch.models import registry
     from repro_torch.training import TrainState, make_train_step
     from repro_torch.training.optimizer import Optimizer, tree_leaves
-    t = TRAIN
     cfg, fam = registry.get(t["arch"])
     warmup = min(100, max(1, t["steps"] // 10))      # (a)'s, as main's
     opt = make_optimizer(cfg, t["lr"], warmup)
@@ -3594,6 +3669,8 @@ def train_timing(dev, smi) -> tuple:
     params = fam["init"](cfg, gen, dev)
     n_all = sum(p.numel() for p in tree_leaves(params))
     n_mm = n_all - params["tok_emb"].numel()
+    if cfg.n_experts:
+        n_mm = cfg.active_param_count() - params["tok_emb"].numel()
     state = TrainState.create(params, timed_opt)
     del params
     step = make_train_step(cfg, fam, timed_opt)
@@ -3652,10 +3729,12 @@ def train_timing(dev, smi) -> tuple:
                 top=[(us / n / 1e3, c / n, k) for us, c, k
                      in sorted(top, reverse=True)[:10]],
                 kernels_seen=seen)
-    print(f"  (b) {t['arch']} (L {cfg.n_layers}, d {cfg.d_model}, H "
-          f"{cfg.n_heads}/{cfg.n_kv}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
-          f"{n_all / 1e9:.3f} B parameters, {n_mm / 1e9:.3f} B without the "
-          f"token embedding), AdamW, {t['batch']} x {t['seq']} tokens, "
+    active = " active" if cfg.n_experts else ""
+    print(f"  {label} {t['arch']} (L {cfg.n_layers}, d {cfg.d_model}, H "
+          f"{cfg.n_heads}/{cfg.n_kv}, d_ff {cfg.d_ff or cfg.moe_d_ff}, vocab "
+          f"{cfg.vocab}; {n_all / 1e9:.3f} B parameters, {n_mm / 1e9:.3f} B"
+          f"{active} without the token embedding), {opt.name}, "
+          f"{t['batch']} x {t['seq']} tokens, "
           f"{len(batches)} steps on batches made before the timing "
           f"[{smi}]")
     print(f"      {ms:.2f} ms a step (host wall {read['wall_ms_per_step']:.2f}"
@@ -3764,6 +3843,351 @@ def train_phase(dev, smi) -> tuple:
                 part_seconds=part_s), launches
 
 
+# ------------------------------------- 17. the MoE families (A.10c-1)
+# ROADMAP A.10c-1 at the full published widths of
+# src/repro/models/registry.py, random bf16 weights from the seed:
+# granite-moe-1b-a400m at its full depth, deepseek-v3-671b with its depth
+# cut (one 80 GB card holds 4 of its 61 layers to serve, 2 to train)
+MOE_SERVE = dict(arch="granite-moe-1b-a400m", slots=8, max_len=256,
+                 requests=8, prompt=(3, 32), max_new=16)
+# lr 1e-4: phase 16's 3e-6, and 1e-5 and 3e-5, left the last 3 losses'
+# mean above the first at full width (11.1068, 11.1059, 11.1003 against
+# 11.0967); 1e-4 fell to 11.0332 (PERF.md, Findings)
+MOE_TRAIN = dict(arch="granite-moe-1b-a400m", steps=8, batch=8, seq=1024,
+                 lr=1e-4, timed=4, profiled=2)
+V3_SERVE = dict(arch="deepseek-v3-671b", n_layers=4, batch=4, prompt=64,
+                tokens=16)
+V3_TRAIN = dict(arch="deepseek-v3-671b", n_layers=2, n_dense_layers=1,
+                batch=1, seq=512, steps=2, lr=1e-5)
+# (e): the reduced archs card vs CPU.  The MoE layer rounds to bf16 where
+# the reference casts, f32 runs included, so an f32 value whose last bits
+# differ (another summation order) can round one bf16 step the other way.
+# Two steps' loss and grad norm: 1e-3 relative (the port against the
+# reference on the CPU read 1.3e-4, tests/test_torch_moe.py).  Each
+# leaf's update (parameters after the steps less before) against the
+# CPU's, over the CPU's update's norm: AdamW's first moving step is
+# sign-like, so a gradient near zero that such a rounding turns moves its
+# element 2 lr the other way; an update halved reads 0.5, one skipped 1.
+# Read on an H100 80GB HBM3 (700 W): granite 0.0469 at tok_emb,
+# deepseek-v3 0.00475 (the port against the reference on the CPU: 2.1e-3
+# at most); the gate is 3x the worst reading.  Decode steps:
+# SERVE_LOGIT_TOL.
+MOE_SMALL = dict(archs=("granite-moe-1b-a400m", "deepseek-v3-671b"),
+                 steps=2, batch=4, seq=64, lr=1e-3)
+MOE_TRAIN_RTOL = 1e-3
+MOE_UPDATE_RTOL = 0.15
+
+
+def decode_in_cache(cfg, cache) -> dict:
+    """``ops.decode_attention`` at one layer of (a)'s served cache (B 8,
+    Hkv 8, T 256, D 64, G 2), every position attended, against its plain
+    version and SDPA: ms, bounds and max |err|."""
+    from repro_torch.kernels import decode_attention as da
+    k, v = cache["k"][0], cache["v"][0]
+    b, hkv, t, d = k.shape
+    h = cfg.n_heads
+    gen = torch.Generator(device=k.device).manual_seed(SEED + 5)
+    q = (torch.randn((b, h, d), generator=gen, device=k.device)
+         * DECODE_Q_STD).to(k.dtype)
+    full = torch.full((b,), t, dtype=torch.int32, device=k.device)
+    out = da.decode_attention(q, k, v, full)
+    err = max_abs_err(out.float(), da.plain(q, k, v, full).float())
+    require(bool(torch.isfinite(out).all()) and err <= DECODE_TOL,
+            f"decode_attention in granite's cache: max |err| {err} > "
+            f"{DECODE_TOL}")
+    nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + 4 * b
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = 4 * b * h * t * d / BF16_FLOP_PER_S * 1e3
+    args = copies((q, k, v, full), nbytes)
+    ms = time_cuda(da.decode_attention, args)
+    plain_ms = time_cuda(da.plain, args)
+    lib_ms, backend, lib_out = sdpa_library(q, k, v, full, d ** -0.5)
+    read = dict(shape=f"{cfg.arch}, (a)'s cache", B=b, H=h, Hkv=hkv, S=t,
+                D=d, kernel=da.split_kernel(q.dtype), max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=max(byte_ms, op_ms),
+                bound_by="bytes" if byte_ms >= op_ms else "operations",
+                byte_bound_ms=byte_ms, op_bound_ms=op_ms, library_ms=lib_ms,
+                library_backend=backend,
+                library_max_abs_err=max_abs_err(lib_out.float(),
+                                                out.float()))
+    print(f"      decode_attention at one layer of the served cache (B {b}, "
+          f"H {h}, Hkv {hkv}, T {t}, D {d}): {ms:.4f} ms vs byte bound "
+          f"{byte_ms:.4f} ({nbytes / 1e6:.2f} MB), plain {plain_ms:.4f}, "
+          f"SDPA {lib_ms:.4f} ({backend}); max |err| {err:g}")
+    return read
+
+
+def v3_config(spec):
+    """deepseek-v3-671b at full width with ``spec``'s depth cut."""
+    import dataclasses
+    from repro_torch.models import registry
+    cfg, fam = registry.get(spec["arch"])
+    cut = dataclasses.replace(cfg, **{k: spec[k] for k in
+                                      ("n_layers", "n_dense_layers")
+                                      if k in spec})
+    return cfg, cut, registry.get_family(cut)
+
+
+def serve_v3(dev, smi) -> tuple:
+    """(c) deepseek-v3 at full width, depth cut to 4 layers (its 3 dense
+    and one MoE), through ``generate``: MLA decode against the latent
+    cache, no kernel.  Returns (readings, launch counts)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import generate
+    from repro_torch.serving.kvcache import plan_cache
+    from repro_torch.training.optimizer import tree_leaves
+    c = V3_SERVE
+    full, cfg, fam = v3_config(c)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = fam["init"](cfg, gen, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(t.numel() for t in tree_leaves(params))
+    prompt = torch.randint(0, cfg.vocab, (c["batch"], c["prompt"]),
+                           generator=gen, device=dev)
+    prefill, decode = StepClock(fam["prefill"]), StepClock(fam["decode"])
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = generate(cfg, dict(fam, prefill=prefill, decode=decode), params,
+                   dict(tokens=prompt), c["tokens"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    require(tuple(out.shape) == (c["batch"], c["tokens"])
+            and bool(((out >= 0) & (out < cfg.vocab)).all()),
+            f"deepseek-v3: generate gave {tuple(out.shape)}")
+    require(sum(launches.values()) == 0,
+            f"deepseek-v3: a kernel launched on the MLA path {launches}")
+    t_len = c["prompt"] + c["tokens"]
+    latent = plan_cache(cfg, fam, c["batch"], t_len).bytes_total
+    per_head = cfg.qk_nope_dim + cfg.qk_rope_dim + cfg.v_head_dim
+    thd = cfg.n_layers * c["batch"] * t_len * cfg.n_heads * per_head * 2
+    read = dict(arch=cfg.arch, n_layers=cfg.n_layers,
+                published_layers=full.n_layers, params=n, init_s=init_s,
+                prefill_ms=prefill.ms("step"),
+                ms_per_decode_step=decode.ms("step"), wall_s=wall,
+                weight_floor_ms=weight_bytes(params) / HBM_BYTES_PER_S * 1e3,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                latent_cache_bytes=latent, thd_cache_bytes=thd)
+    print(f"  (c) {cfg.arch}: depth cut {full.n_layers} -> {cfg.n_layers} "
+          f"layers ({cfg.n_dense_layers} dense, "
+          f"{cfg.n_layers - cfg.n_dense_layers} MoE of {cfg.n_experts} "
+          f"experts + {cfg.n_shared_experts} shared, top {cfg.top_k}; MTP "
+          f"parameters present), d {cfg.d_model}, H {cfg.n_heads}, "
+          f"vocab {cfg.vocab}: {n / 1e9:.2f} B parameters drawn in "
+          f"{init_s:.1f} s; generate: B {c['batch']}, prompt "
+          f"{c['prompt']}, {c['tokens']} tokens [{smi}]")
+    print(f"      prefill {read['prefill_ms']:.2f} ms, "
+          f"{c['tokens'] - 1} decode steps at "
+          f"{read['ms_per_decode_step']:.2f} ms (weight floor "
+          f"{read['weight_floor_ms']:.2f}); peak {read['peak_gib']:.2f} GiB; "
+          f"latent cache {latent / 2**20:.2f} MiB against "
+          f"{thd / 2**20:.2f} MiB as (T, H, D) k and v "
+          f"({thd / latent:.1f}x); launches {json.dumps(launches)}")
+    del params, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return read, launches
+
+
+def train_v3(dev, smi) -> tuple:
+    """(d) deepseek-v3 at full width, depth cut to 2 layers (1 dense, 1
+    MoE) with the MTP head, the launcher's optimizer (Adafactor), 1 x
+    512 tokens, 2 steps.  Returns (readings, launch counts)."""
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import batch_source, make_optimizer
+    from repro_torch.training import TrainState, make_train_step
+    from repro_torch.training.optimizer import tree_leaves
+    d = V3_TRAIN
+    full, cfg, fam = v3_config(d)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    params = fam["init"](cfg, gen, dev)
+    n = sum(t.numel() for t in tree_leaves(params))
+    opt = make_optimizer(cfg, d["lr"], 1)
+    state = TrainState.create(params, opt)
+    del params
+    step = make_train_step(cfg, fam, opt)
+    _, host_batch = batch_source(cfg, d["seq"], d["batch"])
+    ops.reset_launches()
+    metrics, ms = [], []
+    for i in range(d["steps"]):
+        b = to_device(host_batch(i), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(all(math.isfinite(m[k]) for m in metrics
+                for k in ("loss", "grad_norm")),
+            f"deepseek-v3 train: a loss or grad norm is not finite "
+            f"{metrics}")
+    require(peak < TRAIN_PEAK_GIB,
+            f"deepseek-v3 train: peak {peak:.2f} GiB >= {TRAIN_PEAK_GIB}")
+    read = dict(arch=cfg.arch, n_layers=cfg.n_layers,
+                n_dense_layers=cfg.n_dense_layers,
+                published_layers=full.n_layers, params=n, optimizer=opt.name,
+                losses=[m["loss"] for m in metrics],
+                grad_norms=[m["grad_norm"] for m in metrics], ms=ms,
+                peak_gib=peak)
+    print(f"  (d) {cfg.arch}: depth cut {full.n_layers} -> {cfg.n_layers} "
+          f"layers ({cfg.n_dense_layers} dense, 1 MoE), MTP on, {n / 1e9:.2f}"
+          f" B parameters, {opt.name}, {d['batch']} x {d['seq']} tokens, "
+          f"{d['steps']} steps [{smi}]")
+    print(f"      losses {[round(x, 4) for x in read['losses']]}, grad norms "
+          f"{[round(x, 3) for x in read['grad_norms']]}, "
+          f"{[round(x, 1) for x in ms]} ms a step (host clock, the first "
+          f"with the allocator's growth); peak {peak:.2f} GiB (limit "
+          f"{TRAIN_PEAK_GIB}); launches {json.dumps(launches)}")
+    del state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return read, launches
+
+
+def moe_card_vs_cpu(dev) -> dict:
+    """(e) the reduced granite-moe and deepseek-v3 from one state carried
+    by ``convert``: a decode step from one seeded cache in f32 and in
+    bf16 (``SERVE_LOGIT_TOL``), then 2 train steps in f32 with the
+    launcher's optimizer (``MOE_TRAIN_RTOL``; each leaf's update within
+    ``MOE_UPDATE_RTOL`` of the CPU's)."""
+    from repro_torch import convert
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models import registry
+    from repro_torch.training import TrainState, make_train_step
+    from repro_torch.training.optimizer import tree_map
+    c = MOE_SMALL
+    out = {}
+    for arch in c["archs"]:
+        cfg, fam = registry.get(arch, smoke=True)
+        gen = torch.Generator().manual_seed(SEED)
+        params = tree_map(lambda p: p.float(), fam["init"](cfg, gen, "cpu"))
+        np_params = convert.lm_params_to_numpy(params)
+        cache = {k: torch.randn(v.shape, generator=gen) for k, v in
+                 fam["init_cache"](cfg, 4, 32, "cpu").items()}
+        np_cache = convert.lm_cache_to_numpy(cache)
+        toks = torch.randint(0, cfg.vocab, (4, 1), generator=gen)
+        steps = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            logits = []
+            for where in (dev, torch.device("cpu")):
+                p = tree_map(lambda t: t.to(dtype) if t.dtype ==
+                             torch.float32 and t.dim() >= 2 and
+                             dtype == torch.bfloat16 else t,
+                             convert.lm_params_from_numpy(np_params, where))
+                kv = {k: v.to(dtype) for k, v in
+                      convert.lm_cache_from_numpy(np_cache, where).items()}
+                logits.append(fam["decode"](p, kv, toks.to(where), 20,
+                                            cfg)[0].cpu())
+            steps[str(dtype)] = logits_agree(
+                f"(e) {arch} decode step {dtype}", logits[0], logits[1],
+                cfg.vocab)
+        opt = make_optimizer(cfg, c["lr"], 1)
+        np_state = convert.train_state_to_numpy(TrainState.create(params,
+                                                                  opt))
+        src = SyntheticLM(vocab=cfg.vocab, seq_len=c["seq"],
+                          batch=c["batch"])
+        runs = []
+        for where in (dev, torch.device("cpu")):
+            state = convert.train_state_from_numpy(np_state, where)
+            step = make_train_step(cfg, fam, make_optimizer(cfg, c["lr"], 1))
+            ms = []
+            for i in range(c["steps"]):
+                b = src.batch_at(i)
+                state, m = step(state, to_device(
+                    dict(tokens=b["tokens"], labels=b["labels"]), where))
+                ms.append({k: float(v) for k, v in m.items()})
+            runs.append((ms, convert.train_state_to_numpy(state)))
+        (card_m, card_s), (cpu_m, cpu_s) = runs
+        rel = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(card_m, cpu_m)
+                  for k in ("loss", "grad_norm"))
+        got, want = _flat_np(card_s["params"], ""), _flat_np(
+            cpu_s["params"], "")
+        start = _flat_np(np_state["params"], "")
+        errs = {k: float(np.linalg.norm(got[k] - w)
+                         / max(np.linalg.norm(w - start[k]), 1e-30))
+                for k, w in want.items()}
+        worst = max(errs, key=errs.get)
+        require(all(math.isfinite(a[k]) for a in card_m
+                    for k in ("loss", "grad_norm")) and rel <= MOE_TRAIN_RTOL,
+                f"(e) {arch}: loss / grad norm card vs CPU {rel:.3g} > "
+                f"{MOE_TRAIN_RTOL}")
+        require(errs[worst] <= MOE_UPDATE_RTOL,
+                f"(e) {arch}: update card vs CPU {errs[worst]:.3g} at "
+                f"{worst} > {MOE_UPDATE_RTOL}")
+        out[arch] = dict(decode=steps, loss_rel=rel, update_rel=errs[worst],
+                         param_leaf=worst, optimizer=opt.name)
+        print(f"  (e) {arch} reduced (L {cfg.n_layers}, d {cfg.d_model}): "
+              f"decode step card vs CPU f32 "
+              f"{steps[str(torch.float32)]['err_sigmas']:.2e} sigma, bf16 "
+              f"{steps[str(torch.bfloat16)]['err_sigmas']:.2e} sigma "
+              f"(tolerance {SERVE_LOGIT_TOL}); {c['steps']} {opt.name} steps "
+              f"f32: loss / grad norm {rel:.3g} (tolerance "
+              f"{MOE_TRAIN_RTOL}), update {errs[worst]:.3g} of the CPU's "
+              f"at {worst} (tolerance {MOE_UPDATE_RTOL})")
+    return out
+
+
+def _flat_np(tree, prefix) -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_np(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def moe_phase(dev, smi) -> tuple:
+    """ROADMAP A.10c-1 on the card: (a)-(e) above.  Returns the readings
+    and the launch counts by path: ``serve_moe`` ((a)), ``serve_mla``
+    ((c)) and ``train_moe`` ((b)'s run and profiled steps, (d))."""
+    print(f"== 17. the MoE families at full width (repro_torch.models moe, "
+          f"mla_moe; granite's decode attention through "
+          f"ops.decode_attention) [{smi}]")
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts = [time.perf_counter()]
+    read_a, serve_moe = serve_scheduler(dev, smi, MOE_SERVE, "(a)",
+                                        after=decode_in_cache)
+    parts.append(time.perf_counter())
+    read_b, train_moe = train_entry(dev, smi, MOE_TRAIN, "(b)")
+    read_b2, seen = train_timing(dev, smi, MOE_TRAIN, "(b)")
+    train_moe = {k: train_moe[k] + seen[k] for k in train_moe}
+    parts.append(time.perf_counter())
+    read_c, serve_mla = serve_v3(dev, smi)
+    parts.append(time.perf_counter())
+    read_d, more = train_v3(dev, smi)
+    train_moe = {k: train_moe[k] + more[k] for k in train_moe}
+    parts.append(time.perf_counter())
+    read_e = moe_card_vs_cpu(dev)
+    parts.append(time.perf_counter())
+    took = time.perf_counter() - t_phase
+    part_s = [b - a for a, b in zip(parts, parts[1:])]
+    print(f"    launches serve_moe {json.dumps(serve_moe)}; serve_mla "
+          f"{json.dumps(serve_mla)}; train_moe {json.dumps(train_moe)}")
+    print(f"  moe phase {took:.1f} s ((a) {part_s[0]:.1f}, (b) "
+          f"{part_s[1]:.1f}, (c) {part_s[2]:.1f}, (d) {part_s[3]:.1f}, (e) "
+          f"{part_s[4]:.1f})")
+    return dict(a=read_a, b=(read_b, read_b2), c=read_c, d=read_d, e=read_e,
+                seconds=took, part_seconds=part_s), dict(
+                    serve_moe=serve_moe, serve_mla=serve_mla,
+                    train_moe=train_moe)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3799,6 +4223,10 @@ def main() -> int:
     by_path.update(serve_launches)
     decode_row["serve"] = serve
     _, by_path["train"] = train_phase(dev, c["smi"])
+    moe, moe_launches = moe_phase(dev, c["smi"])
+    by_path.update(moe_launches)
+    decode_row["serve_moe"] = moe["a"]
+    decode_row["shapes"].append(moe["a"]["after"])
     for row in rows:
         row["launches_by_path"] = {p: n[row["name"]]
                                    for p, n in by_path.items()}
@@ -3806,7 +4234,7 @@ def main() -> int:
         require(row["launches"] > 0,
                 f"{row['name']} never launched on a main path")
 
-    print(f"== 17. done in {time.perf_counter() - t_start:.1f} s")
+    print(f"== 18. done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(c["smi"])
     print(json.dumps({"ok": True, "device": {

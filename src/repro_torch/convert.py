@@ -7,9 +7,10 @@ numpy (``jax.device_get``) into the port's tensors, and
 ``engine_state_to_numpy`` goes back, so one mid-run state -- warm P$
 included -- can be stepped by both engines.  ``lm_params_from_numpy`` /
 ``lm_cache_from_numpy`` carry an LM's parameters and KV cache across
-(and ``*_to_numpy`` back): the same keys, the cache's time and head
-axes swapped between the reference's (L, B, T, Hkv, D) and the port's
-(L, B, Hkv, T, D).  ``train_state_from_numpy`` / ``train_state_to_numpy``
+(and ``*_to_numpy`` back): the same keys, a dense or moe cache's time
+and head axes swapped between the reference's (L, B, T, Hkv, D) and the
+port's (L, B, Hkv, T, D); MLA's latent leaves (L, B, T, r) keep their
+layout.  ``train_state_from_numpy`` / ``train_state_to_numpy``
 carry a training state (parameters, the optimizer's f32 moments in the
 parameters' structure -- AdamW's ``mu`` / ``nu``, Adafactor's ``vr`` /
 ``vc`` / ``v`` -- and the step), so both packages can start from one.
@@ -98,19 +99,25 @@ def lm_params_to_numpy(params) -> dict:
     return _tree(_numpy_from_tensor, params)
 
 
+def _swap_heads(t):
+    """Time and head axes swapped on a leaf with a head axis, (L, B, T,
+    Hkv, D) <-> (L, B, Hkv, T, D); a latent (L, B, T, r) leaf as it is."""
+    return t.transpose(2, 3).contiguous() if t.dim() == 5 else t
+
+
 def lm_cache_from_numpy(np_cache, device) -> dict:
-    """A reference KV cache, dict(k, v) of (L, B, T, Hkv, D), as the
-    port's contiguous (L, B, Hkv, T, D) tensors on ``device``."""
+    """A reference KV cache as the port's tensors on ``device``: dict(k, v)
+    of (L, B, T, Hkv, D) as contiguous (L, B, Hkv, T, D); MLA's
+    dict(dc, dkr, mc, mkr) of (L, B, T, r) as they are."""
     dev = torch.device(device)
-    return {k: _tensor_from_numpy(v, dev).transpose(2, 3).contiguous()
+    return {k: _swap_heads(_tensor_from_numpy(v, dev))
             for k, v in np_cache.items()}
 
 
 def lm_cache_to_numpy(cache) -> dict:
-    """A port KV cache as the reference's (L, B, T, Hkv, D) numpy arrays
-    (bf16 as f32)."""
-    return {k: _numpy_from_tensor(v.transpose(2, 3).contiguous())
-            for k, v in cache.items()}
+    """A port KV cache in the reference's layout as numpy arrays (bf16 as
+    f32)."""
+    return {k: _numpy_from_tensor(_swap_heads(v)) for k, v in cache.items()}
 
 
 def _field(state, name):

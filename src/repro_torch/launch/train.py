@@ -1,16 +1,18 @@
 """End-to-end training launcher, the port of ``repro/launch/train.py``.
 
-Trains a registered dense arch (reduced or custom-scaled config) on the
-synthetic LM stream, with checkpointing and the fault-tolerant loop
-under ``--ckpt-dir``.
+Trains a registered dense or MoE arch (reduced or custom-scaled config)
+on the synthetic LM stream, with checkpointing and the fault-tolerant
+loop under ``--ckpt-dir``; ``mla_moe`` (deepseek-v3) with Adafactor,
+the others with AdamW.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
       --smoke --steps 25 --batch 8 --seq 32 --lr 3e-3 --log-every 10
 
 Runs on the CUDA card; ``main(argv, device="cpu")`` runs it on the CPU.
 Parameters are drawn from a ``torch.Generator`` on the device seeded 0:
-the reference's shapes, dtypes and scales, not its values.  The other
-families raise through ``registry.get`` (ROADMAP A.10c).
+the reference's shapes, dtypes and scales, not its values.  The
+recurrent and encoder-decoder families raise through ``registry.get``
+(ROADMAP A.10c-2).
 """
 from __future__ import annotations
 

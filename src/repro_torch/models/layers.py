@@ -1,5 +1,6 @@
-"""Shared model building blocks of the dense family (pure functions over
-parameter dicts), the port of ``repro/models/layers.py``'s dense subset.
+"""Shared model building blocks (pure functions over parameter dicts), the
+port of ``repro/models/layers.py``: the dense family's attention and MLP,
+the routed MoE layer and DeepSeek's multi-head latent attention (MLA).
 
 Conventions (the reference's)
 -----------------------------
@@ -19,9 +20,25 @@ plain version on a CPU one) on one layer's (B, Hkv, T, D) slice of the
 cache, which is laid out (L, B, Hkv, T, D) so that the slice is the
 contiguous block the kernel reads.  Prefill and forward attention are
 plain matmuls and a masked softmax, as the reference computes them.
+MLA's decode has no TPU kernel: it stays the reference's f32 einsums
+with ``wk_b`` absorbed into the query (its 512 + 64 key width and 128
+heads on one latent lie outside ``decode_attention``'s range anyway).
+
+The MoE layer casts where the reference casts, whatever the
+activations' dtype: tokens into the dispatch, the SwiGLU product and
+the combine weights are bf16 (``layers.py:399``, ``:410``, ``:415``).
+Its dense (G, Tg, E, C) dispatch and combine tensors are replaced by
+the slot each (token, k) pair lands in: the dispatch copies each kept
+pair's token into its slot and the combine gathers each pair's expert
+output back.  A token's k experts are distinct and each (expert, slot)
+holds at most one token, so every value is the same and only the
+combine's sum over k is re-associated.  The sharding hints
+(``constrain``, ``wload``, ``TWO_HOP_DISPATCH``) are no-ops without a
+mesh and are left out.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -238,3 +255,223 @@ def mlp(p, x, cfg):
     else:
         hmid = F.gelu(hmid.float(), approximate="tanh").to(hmid.dtype)
     return x + hmid @ p["w_out"]
+
+
+# ---------------------------------------------------------------------- moe
+MOE_GROUP = 2048             # GShard dispatch group size (the reference's)
+MOE_CF = 1.25                # expert capacity factor
+
+
+def _expert_stack(gen, e: int, rows: int, cols: int, scale: float):
+    """(e, rows, cols) bf16 drawn one expert at a time, so no more than one
+    expert's f32 draw is held (deepseek-v3's stack is 15 GB in f32)."""
+    w = torch.empty((e, rows, cols), dtype=DTYPE, device=gen.device)
+    for i in range(e):
+        w[i] = (torch.randn((rows, cols), generator=gen, device=gen.device)
+                * scale).to(DTYPE)
+    return w
+
+
+def moe_init(gen, cfg) -> Dict:
+    d, e, ff = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    p = dict(router=dense_init(gen, d, e, dtype=torch.float32, scale=0.02),
+             w_in=_expert_stack(gen, e, d, ff, (1 / d) ** 0.5),
+             w_gate=_expert_stack(gen, e, d, ff, (1 / d) ** 0.5),
+             w_out=_expert_stack(gen, e, ff, d, (1 / ff) ** 0.5),
+             norm=norm_init(d, with_bias=cfg.norm_bias, device=gen.device))
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_init(gen, cfg,
+                               d_ff=cfg.moe_d_ff * cfg.n_shared_experts)
+    return p
+
+
+def moe_capacity(k: int, group: int, e: int, capacity_factor: float) -> int:
+    """C = ceil(k * group / E * cf), in the reference's float order."""
+    return int(math.ceil(k * group / e * capacity_factor))
+
+
+def moe_route(probs, k: int, cap: int):
+    """Top-k routing of (G, Tg, E) router probabilities.
+
+    Returns (gate (G, Tg, k) renormalised, idx (G, Tg, k) the experts,
+    pos (G, Tg, k) each pair's place in its expert's capacity, keep).
+    ``jax.lax.top_k`` puts the lower index first on a tie; a stable
+    descending sort does the same.  ``pos`` counts the earlier pairs
+    sent to the same expert in token-major, k-minor order (the
+    reference's cumsum); a pair at or past ``cap`` is dropped."""
+    e = probs.shape[-1]
+    idx = torch.sort(probs, dim=-1, descending=True, stable=True).indices
+    idx = idx[..., :k]
+    gate = torch.gather(probs, -1, idx)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    with torch.no_grad():
+        ng, g_sz = idx.shape[:2]
+        flat = idx.reshape(ng, 1, g_sz * k)
+        # (G, E, Tg*k): the scan runs along the contiguous last axis
+        hot = (flat == torch.arange(e, device=idx.device)[:, None])
+        before = torch.cumsum(hot.to(torch.int32), dim=-1) - 1
+        pos = torch.gather(before, 1, flat).reshape(ng, g_sz, k).long()
+    return gate, idx, pos, pos < cap
+
+
+def _emm(a, w):
+    """(E, N, i) @ (E, i, o) in the two operands' promoted dtype (jnp's
+    einsum promotes a bf16 and an f32 operand to f32)."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return torch.bmm(a.to(dt), w.to(dt))
+
+
+def moe(p, x, cfg, group_size: int = 0, capacity_factor: float = 0.0):
+    """Top-k routed MoE, GShard-style grouped capacity dispatch: tokens in
+    groups of ``group_size``; in each group every expert takes at most
+    C = ceil(k * group / E * cf) (token, k) pairs, the rest dropped.
+    Returns (out, aux_loss), aux the switch-style load-balance loss."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    group_size = group_size or MOE_GROUP
+    capacity_factor = capacity_factor or MOE_CF
+    xn = apply_norm(p["norm"], x)
+    t_total = b * s
+    g_sz = min(group_size, t_total)
+    ng = t_total // g_sz
+    xg = xn.reshape(ng, g_sz, d)
+
+    logits = xg.float() @ p["router"].float()                 # (G, Tg, E)
+    probs = torch.softmax(logits, dim=-1)
+    cap = moe_capacity(k, g_sz, e, capacity_factor)
+    gate, idx, pos, keep = moe_route(probs, k, cap)
+
+    # aux load-balance loss (switch-style)
+    # the one-hot by comparison: ``F.one_hot``'s range check is a host
+    # sync on the card
+    onehot = idx[..., None] == torch.arange(e, device=x.device)
+    density = torch.mean(onehot.float().sum(2), dim=(0, 1))
+    aux = torch.sum(density * torch.mean(probs, dim=(0, 1))) * e
+
+    # slots laid out (E, G, C): expert e's capacity buffers of every group
+    # are one (G * C, d) operand of its matmuls; a dropped pair goes to
+    # the spare row past the end, which is cut off
+    n_slots = e * ng * cap
+    with torch.no_grad():
+        gi = torch.arange(ng, device=x.device)[:, None, None]
+        slot = torch.where(keep, (idx * ng + gi) * cap + pos,
+                           n_slots).reshape(-1)
+    # dispatch: each (token, k) pair's token rounded to bf16
+    # (``xg.astype(DTYPE)``) and copied into its slot.  The copies run in
+    # f32, so that the backward sums a token's k slots in f32 (the sum
+    # over k of ``expand``'s backward) and rounds once, as the
+    # reference's bf16 dispatch product does
+    xb = xg.reshape(t_total, 1, d).to(DTYPE).float()
+    pairs = xb.expand(t_total, k, d).reshape(t_total * k, d)
+    xe = pairs.new_zeros((n_slots + 1, d)).index_copy(0, slot, pairs)
+    xe = xe[:n_slots].to(DTYPE).reshape(e, ng * cap, d)
+    hin = _emm(xe, p["w_in"])
+    hg = _emm(xe, p["w_gate"])
+    hmid = F.silu(hg.float()).to(DTYPE) * hin
+    oe = _emm(hmid, p["w_out"])                               # (E, G*C, d)
+    # combine: the kept pairs' outputs weighted by their bf16 gates (a
+    # dropped pair reads the zero row past the end)
+    ob = torch.cat([oe.reshape(n_slots, d), oe.new_zeros((1, d))])
+    w = gate.to(DTYPE)
+    w = w.to(torch.promote_types(w.dtype, oe.dtype))
+    picked = ob.index_select(0, slot).reshape(ng, g_sz, k, d)
+    out = torch.einsum("gtk,gtkd->gtd", w, picked)
+    out = out.reshape(b, s, d)
+    if "shared" in p:
+        out = out + (mlp(p["shared"], x, cfg) - x)
+    return x + out, aux
+
+
+# ---------------------------------------------------------------------- mla
+def mla_init(gen, cfg) -> Dict:
+    """DeepSeek-V3 multi-head latent attention."""
+    d, h = cfg.d_model, cfg.n_heads
+    dq, dc = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dev = gen.device
+    return dict(
+        wq_a=dense_init(gen, d, dq),
+        q_norm=norm_init(dq, device=dev),
+        wq_b=dense_init(gen, dq, h * (dn + dr)),
+        wkv_a=dense_init(gen, d, dc + dr),
+        kv_norm=norm_init(dc, device=dev),
+        wk_b=dense_init(gen, dc, h * dn),
+        wv_b=dense_init(gen, dc, h * dv),
+        wo=dense_init(gen, h * dv, d),
+        norm=norm_init(d, with_bias=cfg.norm_bias, device=dev),
+    )
+
+
+def mla_attention(p, x, cfg, positions=None, q_chunk: int = 0):
+    """MLA over a full sequence.  Returns (out, (c_kv (B, S, dc), k_rope
+    (B, S, dr))): the latent cache.  As in the reference, the cached
+    k_rope is the projection before RoPE, where decode caches it after."""
+    b, s, _ = x.shape
+    q_chunk = q_chunk or DEFAULT_Q_CHUNK
+    h = cfg.n_heads
+    dn, dr, dv, dc = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                      cfg.kv_lora_rank)
+    xn = apply_norm(p["norm"], x)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q = apply_norm(p["q_norm"], xn @ p["wq_a"]) @ p["wq_b"]
+    q = q.reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kv = xn @ p["wkv_a"]                                  # (B, S, dc+dr)
+    c_kv = apply_norm(p["kv_norm"], kv[..., :dc])
+    k_rope = apply_rope(kv[..., dc:], positions, cfg.rope_theta)
+    k_nope = (c_kv @ p["wk_b"]).reshape(b, s, h, dn)
+    v = (c_kv @ p["wv_b"]).reshape(b, s, h, dv)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
+                  dim=-1)
+    qq = torch.cat([q_nope, q_rope], dim=-1)
+
+    def mask_fn(off, sq):
+        return causal_mask(off, sq, s, cfg.swa_window, x.device)
+    chunk = q_chunk if s > (q_chunk * 2) else 0
+    out = _attention_scores(qq, k, v, mask_fn, q_chunk=chunk)
+    out = out.reshape(b, s, h * dv) @ p["wo"]
+    return x + out, (c_kv, kv[..., dc:])
+
+
+def mla_decode(p, x, cache, pos: int, cfg):
+    """One-token MLA decode against the latent cache, dict(c=(B, T, dc),
+    kr=(B, T, dr)): one layer's slices of the (L, B, T, r) cache, written
+    in place at slot ``min(pos, T - 1)``.  ``wk_b`` is absorbed into the
+    query (scores against the latent itself) and ``wv_b`` applied after
+    the context, all in f32.  Returns (out, cache)."""
+    b = x.shape[0]
+    h = cfg.n_heads
+    dn, dr, dv, dc = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                      cfg.kv_lora_rank)
+    t = cache["c"].shape[1]
+    xn = apply_norm(p["norm"], x)
+    q = apply_norm(p["q_norm"], xn @ p["wq_a"]) @ p["wq_b"]
+    q = q.reshape(b, 1, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    pp = torch.full((b, 1), pos, device=x.device)
+    q_rope = apply_rope(q_rope, pp, cfg.rope_theta)
+
+    kv = xn @ p["wkv_a"]
+    c_new = apply_norm(p["kv_norm"], kv[..., :dc])
+    kr_new = apply_rope(kv[..., dc:], pp, cfg.rope_theta)
+    slot = min(pos, t - 1)
+    cache["c"][:, slot] = c_new[:, 0].to(cache["c"].dtype)
+    cache["kr"][:, slot] = kr_new[:, 0].to(cache["kr"].dtype)
+    cc, ckr = cache["c"].float(), cache["kr"].float()
+    wkb = p["wk_b"].reshape(dc, h, dn).float()
+    q_eff = torch.einsum("bhn,chn->bhc", q_nope[:, 0].float(), wkb)
+    scale = (dn + dr) ** -0.5
+    scores = (torch.einsum("bhc,btc->bht", q_eff, cc)
+              + torch.einsum("bhr,btr->bht", q_rope[:, 0].float(), ckr)) \
+        * scale
+    valid = torch.arange(t, device=x.device)[None, None, :] <= pos
+    scores = torch.where(valid, scores, MASKED)
+    pr = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bht,btc->bhc", pr, cc)                # (B, h, dc)
+    wvb = p["wv_b"].reshape(dc, h, dv).float()
+    out = torch.einsum("bhc,chv->bhv", ctx, wvb)
+    out = out.reshape(b, 1, h * dv).to(x.dtype) @ p["wo"]
+    return x + out, cache

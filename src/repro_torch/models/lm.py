@@ -1,7 +1,11 @@
-"""Decoder-only LM assembly: the dense family of ``repro/models/lm.py``.
+"""Decoder-only LM assembly: the port of ``repro/models/lm.py``'s dense and
+MoE families.
 
-  dense - GQA/SWA attention + MLP  (starcoder2, deepseek-7b, h2o-danube,
-                                    the pixtral backbone)
+  dense   - GQA/SWA attention + MLP      (starcoder2, deepseek-7b,
+                                          h2o-danube, the pixtral backbone)
+  moe     - attention + top-k routed MoE (granite-moe)
+  mla_moe - MLA attention, leading dense layers, MoE with a shared
+            expert, and the MTP head     (deepseek-v3)
 
 The family protocol (the reference's, with the port's generator and
 device):
@@ -14,10 +18,12 @@ device):
 Parameters carry the reference's keys, with the layers stacked on a
 leading L axis, so that ``convert.lm_params_from_numpy`` carries them
 across without a rename; the layers run one at a time in a Python loop.
-The cache is dict(k, v), each (L, B, Hkv, T, D): one layer's slice is
-the contiguous (B, Hkv, T, D) block ``ops.decode_attention`` reads
-(the reference keeps (L, B, T, Hkv, D); ``convert.lm_cache_from_numpy``
-transposes).  Decode updates the cache in place and returns it.
+The dense and moe caches are dict(k, v), each (L, B, Hkv, T, D): one
+layer's slice is the contiguous (B, Hkv, T, D) block
+``ops.decode_attention`` reads (the reference keeps (L, B, T, Hkv, D);
+``convert.lm_cache_from_numpy`` transposes).  The mla_moe cache is the
+reference's latent one, dict(dc, dkr, mc, mkr) of (L, B, T, r) (no
+kernel reads it).  Decode updates the cache in place and returns it.
 Prefill and decode run under ``torch.inference_mode()``; forward does
 not, so that training can take its gradient.
 
@@ -42,7 +48,9 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import device as device_mod
 from .layers import (DTYPE, apply_norm, attention, attention_decode,
-                     attn_init, embed_init, mlp, mlp_init, norm_init)
+                     attn_init, dense_init, embed_init, mla_attention,
+                     mla_decode, mla_init, mlp, mlp_init, moe, moe_init,
+                     norm_init)
 
 
 # ------------------------------------------------------------------ shared
@@ -88,8 +96,11 @@ def _base_init(cfg, gen):
 def _stack(layer_fn, n: int):
     """``layer_fn()``'s dict of tensors, drawn ``n`` times and stacked on
     a leading axis; each draw is written into the stack as it is made,
-    so no more than one layer's draws are held beside it."""
+    so no more than one layer's draws are held beside it (a stack of one
+    is the draw itself, viewed with the axis added)."""
     first = layer_fn()
+    if n == 1:
+        return _tree_map(lambda t: t[None], first)
 
     def alloc(t):
         if isinstance(t, dict):
@@ -110,6 +121,12 @@ def _stack(layer_fn, n: int):
     for i in range(1, n):
         put(out, layer_fn(), i)
     return out
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def layer(stack, i: int):
@@ -137,6 +154,22 @@ def unstack(stack, n: int) -> list:
     return [pick(cut, i) for i in range(n)]
 
 
+def _check_generator(gen, device, who: str) -> None:
+    dev = device_mod.resolve(device)
+    if gen.device.type != dev.type:
+        raise ValueError(f"{who}: a generator on {gen.device} cannot draw "
+                         f"parameters on {dev}")
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, under ``checkpoint`` when grad is enabled (the
+    reference's ``jax.checkpoint(..., policy=nothing_saveable)``)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 # ======================================================================
 # dense
 # ======================================================================
@@ -145,10 +178,7 @@ def dense_init_params(cfg, gen, device=None):
     ``"cpu"`` is asked for), drawn from ``gen``, a ``torch.Generator``
     on that device.  Layer by layer on the device: a full-width stack
     is never drawn in f32 at once."""
-    dev = device_mod.resolve(device)
-    if gen.device.type != dev.type:
-        raise ValueError(f"dense_init_params: a generator on {gen.device} "
-                         f"cannot draw parameters on {dev}")
+    _check_generator(gen, device, "dense_init_params")
     with torch.no_grad():
         p = _base_init(cfg, gen)
         p["layers"] = _stack(lambda: dict(attn=attn_init(gen, cfg),
@@ -172,13 +202,8 @@ def dense_forward(params, batch, cfg):
     (the reference's remat)."""
     x = _embed_in(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    remat = torch.is_grad_enabled()
     for lp in unstack(params["layers"], cfg.n_layers):
-        if remat:
-            x = checkpoint(_block_out, lp, x, cfg, positions,
-                           use_reentrant=False, preserve_rng_state=False)
-        else:
-            x = _block_out(lp, x, cfg, positions)
+        x = _remat(_block_out, lp, x, cfg, positions)
     return _head(params, x, cfg), 0.0
 
 
@@ -223,9 +248,206 @@ def dense_init_cache(cfg, batch, cache_len, device=None):
                 v=torch.zeros(shape, dtype=DTYPE, device=dev))
 
 
+# ======================================================================
+# moe (dense attention + routed MoE mlp)
+# ======================================================================
+def moe_init_params(cfg, gen, device=None):
+    _check_generator(gen, device, "moe_init_params")
+    with torch.no_grad():
+        p = _base_init(cfg, gen)
+        p["layers"] = _stack(lambda: dict(attn=attn_init(gen, cfg),
+                                          moe=moe_init(gen, cfg)),
+                             cfg.n_layers)
+    return p
+
+
+def _moe_block(lp, x, cfg, positions):
+    x, kv = attention(lp["attn"], x, cfg, positions)
+    x, aux = moe(lp["moe"], x, cfg)
+    return x, aux, kv
+
+
+def _moe_block_out(lp, x, cfg, positions):
+    return _moe_block(lp, x, cfg, positions)[:2]
+
+
+def moe_forward(params, batch, cfg):
+    """(logits, aux), aux the layers' load-balance losses summed and
+    divided by ``n_layers``."""
+    x = _embed_in(params, batch, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux = 0.0
+    for lp in unstack(params["layers"], cfg.n_layers):
+        x, a = _remat(_moe_block_out, lp, x, cfg, positions)
+        aux = aux + a
+    return _head(params, x, cfg), aux / cfg.n_layers
+
+
+@torch.inference_mode()
+def moe_prefill(params, batch, cfg):
+    x = _embed_in(params, batch, cfg)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device)[None, :]
+    shape = (cfg.n_layers, b, cfg.n_kv, s, cfg.head_dim)
+    cache = dict(k=torch.empty(shape, dtype=x.dtype, device=x.device),
+                 v=torch.empty(shape, dtype=x.dtype, device=x.device))
+    for i in range(cfg.n_layers):
+        x, _, (k, v) = _moe_block(layer(params["layers"], i), x, cfg,
+                                  positions)
+        cache["k"][i] = k.transpose(1, 2)
+        cache["v"][i] = v.transpose(1, 2)
+    return _head(params, x[:, -1:], cfg), cache
+
+
+@torch.inference_mode()
+def moe_decode(params, cache, tokens, pos: int, cfg):
+    """One step; the batch's B tokens are routed as one group (the
+    reference's meaning: a slot's output depends on the others')."""
+    x = _embed_in(params, dict(tokens=tokens), cfg)
+    pos = int(pos)
+    for i in range(cfg.n_layers):
+        lp = layer(params["layers"], i)
+        x, _ = attention_decode(lp["attn"], x,
+                                dict(k=cache["k"][i], v=cache["v"][i]),
+                                pos, cfg)
+        x, _ = moe(lp["moe"], x, cfg)
+    return _head(params, x, cfg)[:, 0], cache
+
+
+moe_init_cache = dense_init_cache
+
+
+# ======================================================================
+# mla_moe (deepseek-v3: MLA attention, leading dense layers, MoE + MTP)
+# ======================================================================
+def _mla_dense_layer(gen, cfg):
+    return dict(attn=mla_init(gen, cfg), mlp=mlp_init(gen, cfg))
+
+
+def mla_moe_init_params(cfg, gen, device=None):
+    """``dense_layers`` (the first ``n_dense_layers``), ``moe_layers`` (the
+    rest) and, with ``cfg.mtp``, the MTP head (``proj``, one dense
+    ``block``, ``norm``).  A full-width expert stack is drawn expert by
+    expert into bf16 (``layers.moe_init``)."""
+    _check_generator(gen, device, "mla_moe_init_params")
+    with torch.no_grad():
+        p = _base_init(cfg, gen)
+        p["dense_layers"] = _stack(lambda: _mla_dense_layer(gen, cfg),
+                                   cfg.n_dense_layers)
+        p["moe_layers"] = _stack(lambda: dict(attn=mla_init(gen, cfg),
+                                              moe=moe_init(gen, cfg)),
+                                 cfg.n_layers - cfg.n_dense_layers)
+        if cfg.mtp:
+            p["mtp"] = dict(proj=dense_init(gen, 2 * cfg.d_model,
+                                            cfg.d_model),
+                            block=_mla_dense_layer(gen, cfg),
+                            norm=norm_init(cfg.d_model,
+                                           with_bias=cfg.norm_bias,
+                                           device=gen.device))
+    return p
+
+
+def _mla_dense_block(lp, x, cfg, positions):
+    x, _ = mla_attention(lp["attn"], x, cfg, positions)
+    return mlp(lp["mlp"], x, cfg)
+
+
+def _mla_moe_block(lp, x, cfg, positions):
+    x, _ = mla_attention(lp["attn"], x, cfg, positions)
+    return moe(lp["moe"], x, cfg)
+
+
+def mla_moe_forward(params, batch, cfg):
+    """(logits, aux), or ((logits, mtp_logits), aux) when ``cfg.mtp`` is
+    set and the batch has tokens: the MTP head predicts token t + 2 from
+    the last hidden state at t and the embedding of token t + 1.  aux is
+    divided by the number of MoE layers."""
+    x = _embed_in(params, batch, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    for lp in unstack(params["dense_layers"], cfg.n_dense_layers):
+        x = _remat(_mla_dense_block, lp, x, cfg, positions)
+    aux = 0.0
+    for lp in unstack(params["moe_layers"], n_moe):
+        x, a = _remat(_mla_moe_block, lp, x, cfg, positions)
+        aux = aux + a
+    logits = _head(params, x, cfg)
+    aux = aux / max(n_moe, 1)
+    if cfg.mtp and isinstance(batch, dict) and "tokens" in batch:
+        mtp = params["mtp"]
+        emb_next = params["tok_emb"][torch.roll(batch["tokens"], -1, 1)]
+        xn = apply_norm(mtp["norm"], x)
+        h = torch.cat([xn, emb_next], dim=-1) @ mtp["proj"]
+        h, _ = mla_attention(mtp["block"]["attn"], h, cfg, positions)
+        h = mlp(mtp["block"]["mlp"], h, cfg)
+        return (logits, _head(params, h, cfg)), aux
+    return logits, aux
+
+
+@torch.inference_mode()
+def mla_moe_prefill(params, batch, cfg):
+    x = _embed_in(params, batch, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    lat = dict(dc=[], dkr=[], mc=[], mkr=[])
+    for i in range(cfg.n_dense_layers):
+        lp = layer(params["dense_layers"], i)
+        x, (c, kr) = mla_attention(lp["attn"], x, cfg, positions)
+        x = mlp(lp["mlp"], x, cfg)
+        lat["dc"].append(c)
+        lat["dkr"].append(kr)
+    for i in range(cfg.n_layers - cfg.n_dense_layers):
+        lp = layer(params["moe_layers"], i)
+        x, (c, kr) = mla_attention(lp["attn"], x, cfg, positions)
+        x, _ = moe(lp["moe"], x, cfg)
+        lat["mc"].append(c)
+        lat["mkr"].append(kr)
+    cache = {k: torch.stack(v) for k, v in lat.items()}
+    return _head(params, x[:, -1:], cfg), cache
+
+
+@torch.inference_mode()
+def mla_moe_decode(params, cache, tokens, pos: int, cfg):
+    x = _embed_in(params, dict(tokens=tokens), cfg)
+    pos = int(pos)
+    for i in range(cfg.n_dense_layers):
+        lp = layer(params["dense_layers"], i)
+        x, _ = mla_decode(lp["attn"], x, dict(c=cache["dc"][i],
+                                              kr=cache["dkr"][i]), pos, cfg)
+        x = mlp(lp["mlp"], x, cfg)
+    for i in range(cfg.n_layers - cfg.n_dense_layers):
+        lp = layer(params["moe_layers"], i)
+        x, _ = mla_decode(lp["attn"], x, dict(c=cache["mc"][i],
+                                              kr=cache["mkr"][i]), pos, cfg)
+        x, _ = moe(lp["moe"], x, cfg)
+    return _head(params, x, cfg)[:, 0], cache
+
+
+def mla_moe_init_cache(cfg, batch, cache_len, device=None):
+    """Zeros, (L, B, T, r) bf16: the latent ``dc`` / ``mc`` (r =
+    ``kv_lora_rank``) and the rope keys ``dkr`` / ``mkr`` (r =
+    ``qk_rope_dim``) of the dense and MoE layers."""
+    nd = cfg.n_dense_layers
+    nm = cfg.n_layers - nd
+    dev = device_mod.resolve(device)
+
+    def zeros(n, r):
+        return torch.zeros((n, batch, cache_len, r), dtype=DTYPE,
+                           device=dev)
+    return dict(dc=zeros(nd, cfg.kv_lora_rank),
+                dkr=zeros(nd, cfg.qk_rope_dim),
+                mc=zeros(nm, cfg.kv_lora_rank),
+                mkr=zeros(nm, cfg.qk_rope_dim))
+
+
 # ----------------------------------------------------------------- dispatch
 FAMILIES: Dict[str, Dict[str, Any]] = {
     "dense": dict(init=dense_init_params, forward=dense_forward,
                   prefill=dense_prefill, decode=dense_decode,
                   init_cache=dense_init_cache),
+    "moe": dict(init=moe_init_params, forward=moe_forward,
+                prefill=moe_prefill, decode=moe_decode,
+                init_cache=moe_init_cache),
+    "mla_moe": dict(init=mla_moe_init_params, forward=mla_moe_forward,
+                    prefill=mla_moe_prefill, decode=mla_moe_decode,
+                    init_cache=mla_moe_init_cache),
 }

@@ -3,7 +3,9 @@
 Cache *structure* is family-specific and owned by the model modules
 (``fam['init_cache']``); this module adds the serving-level concerns:
 capacity planning (bytes a device) and the growth of a prefill-built
-cache.  The dense family's cache is (L, B, Hkv, T, D): time on axis 3.
+cache.  The dense and moe caches' ``k`` / ``v`` are (L, B, Hkv, T, D),
+time on axis 3; MLA's latent ``dc`` / ``dkr`` / ``mc`` / ``mkr`` are
+(L, B, T, r), time on axis 2 (the reference's layout).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ class CachePlan:
     ring: bool
 
 
-TIME_AXIS = 3
+TIME_AXIS = dict(k=3, v=3, dc=2, dkr=2, mc=2, mkr=2)
 
 
 def pad_cache(cfg, cache, extra: int):
@@ -31,10 +33,10 @@ def pad_cache(cfg, cache, extra: int):
     if not isinstance(cache, dict) or cfg.swa_window:
         return cache
     out = dict(cache)
-    for key in ("k", "v"):
+    for key, axis in TIME_AXIS.items():
         if key in out:
             leaf = out[key]
-            pad = [0, 0] * (leaf.dim() - 1 - TIME_AXIS) + [0, extra]
+            pad = [0, 0] * (leaf.dim() - 1 - axis) + [0, extra]
             out[key] = F.pad(leaf, pad)
     return out
 

@@ -16,10 +16,13 @@ The update is in place: it writes the new parameters and moments into
 the tensors it was given (under ``torch.no_grad()``) and returns them.
 The reference's per-leaf update makes about six f32 temporaries the size
 of a leaf; on starcoder2-3b's MLP stack (30 x 3,072 x 12,288) each is
-4.5 GB, more than a full-width step can spare beside 38 GB of
-parameters, gradients and moments.  So a stacked leaf (``ndim >= 3``) is
-updated one layer slice at a time, which bounds the temporaries to one
-slice's.  A caller that must keep the old state copies it first.
+4.5 GB, and one layer of deepseek-v3's expert stack (256 x 7,168 x
+2,048) is 15 GB in f32.  So a leaf with ``ndim >= 3`` is updated as its
+(rows, cols) matrices over all leading axes, in runs of at most
+``SLICE_ELEMS`` elements (``matrix_runs``), which bounds the temporaries
+to one run's.  That is exact: AdamW is elementwise, Adafactor factors
+over the last two axes, and its clip's RMS is summed run by run.  A
+caller that must keep the old state copies it first.
 """
 from __future__ import annotations
 
@@ -55,12 +58,42 @@ def tree_leaves(tree) -> list:
     return list(flatten(tree).values())
 
 
+SLICE_ELEMS = 1 << 26    # a run's elements: ~256 MB of each f32 temporary
+
+
+def matrix_runs(shape) -> list:
+    """The runs a leaf of ``shape`` is updated in: for ``ndim >= 3``,
+    slices of its matrices over all leading axes flattened into one, each
+    run at most ``SLICE_ELEMS`` elements (at least one matrix); else one
+    ``None`` (the leaf whole)."""
+    if len(shape) < 3:
+        return [None]
+    n = 1
+    for a in shape[:-2]:
+        n *= a
+    per = max(1, SLICE_ELEMS // max(shape[-2] * shape[-1], 1))
+    return [slice(i, min(i + per, n)) for i in range(0, n, per)]
+
+
+def flat_run(t, trailing: int, run):
+    """``t``'s leading axes flattened into one, keeping its last
+    ``trailing``, and cut to ``run`` (``t`` itself for ``None``): a view,
+    so an in-place update reaches ``t``."""
+    if run is None:
+        return t
+    return t.view((-1,) + tuple(t.shape[t.dim() - trailing:]))[run]
+
+
 def _slices(*ts):
-    """Matching pieces of ``ts``: one layer slice at a time where the
-    first is a stacked matrix (``ndim >= 3``), else the tensors whole."""
-    if ts[0].dim() >= 3:
-        return [tuple(t[i] for t in ts) for i in range(ts[0].shape[0])]
-    return [ts]
+    """Matching runs of ``ts`` (``matrix_runs`` of the first's shape);
+    the first, read only, may be a non-contiguous gradient (flattened by
+    a copy)."""
+    runs = matrix_runs(ts[0].shape)
+    if runs == [None]:
+        return [ts]
+    first = ts[0] if ts[0].is_contiguous() else ts[0].contiguous()
+    return [tuple(flat_run(t, 2, r) for t in (first,) + ts[1:])
+            for r in runs]
 
 
 def _step_f32(step) -> torch.Tensor:
@@ -163,11 +196,14 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
                 u = u / torch.clamp(rms / clip_threshold, min=1.0)
                 p.copy_(p.float() - lr_t * u)
                 return
-            # a stacked leaf, a layer at a time; the clip's RMS is over
-            # the whole leaf, so a first pass moves the factors and sums
-            # u^2, and a second makes each slice's u again from them
-            pieces = [(g[i], {k: x[i] for k, x in s.items()}, p[i])
-                      for i in range(p.shape[0])]
+            # a stacked leaf, a run of matrices at a time; the clip's RMS
+            # is over the whole leaf, so a first pass moves the factors
+            # and sums u^2, and a second makes each run's u again from
+            # them
+            g = g if g.is_contiguous() else g.contiguous()
+            pieces = [(flat_run(g, 2, r),
+                       {k: flat_run(x, 1, r) for k, x in s.items()},
+                       flat_run(p, 2, r)) for r in matrix_runs(p.shape)]
             usq = torch.zeros((), dtype=torch.float32, device=p.device)
             for gs, ss, _ in pieces:
                 u = moved(gs, ss)

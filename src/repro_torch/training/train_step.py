@@ -26,7 +26,7 @@ from typing import Any, Callable
 import torch
 
 from ..models.lm import lm_loss
-from .optimizer import Optimizer, tree_leaves, tree_map
+from .optimizer import Optimizer, flat_run, matrix_runs, tree_leaves, tree_map
 
 Tree = Any
 
@@ -46,12 +46,13 @@ class TrainState:
 
 
 def _sum_sq(x) -> torch.Tensor:
-    """sum(x^2) in f32; a stacked leaf one layer slice at a time, so the
-    f32 temporaries stay one slice's."""
-    pieces = x.unbind(0) if x.dim() >= 3 else (x,)
+    """sum(x^2) in f32; a leaf with ``ndim >= 3`` a run of matrices at a
+    time (``optimizer.matrix_runs``), so the f32 temporaries stay one
+    run's."""
+    x = x if x.is_contiguous() else x.contiguous()
     out = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in pieces:
-        out += torch.sum(torch.square(p.float()))
+    for r in matrix_runs(x.shape):
+        out += torch.sum(torch.square(flat_run(x, 2, r).float()))
     return out
 
 

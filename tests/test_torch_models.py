@@ -41,7 +41,8 @@ from repro_torch.serving.kvcache import pad_cache  # noqa: E402
 
 DENSE = ["starcoder2-3b", "starcoder2-15b", "deepseek-7b", "h2o-danube-3-4b",
          "pixtral-12b"]
-NON_DENSE = [a for a in registry.ARCHS if a not in DENSE]
+NON_DENSE = [a for a, c in registry.ARCHS.items()
+             if c.family not in registry.PORTED_FAMILIES]
 F32_TOL = 1e-4
 BF16_TOL = 5e-2
 

@@ -1,7 +1,8 @@
 """The port's serving stack (``repro_torch.serving``, ``launch.serve``)
 against the JAX reference's, on the CPU.
 
-The reduced configs of the five dense archs; parameters drawn by the
+The reduced configs of the five dense archs and the two MoE ones
+(granite-moe, deepseek-v3); parameters drawn by the
 reference's ``fam["init"]``, cast to f32 in the test and carried across
 with ``convert.lm_params_from_numpy``, so that greedy tokens can be
 held exactly equal (in bf16 the two round differently: see
@@ -36,6 +37,7 @@ from repro_torch.serving import decode, kvcache, scheduler  # noqa: E402
 
 DENSE = ["starcoder2-3b", "starcoder2-15b", "deepseek-7b", "h2o-danube-3-4b",
          "pixtral-12b"]
+SERVED = DENSE + ["granite-moe-1b-a400m", "deepseek-v3-671b"]
 F32_TOL = 1e-4
 
 
@@ -59,7 +61,7 @@ def _f32_pair(arch):
 
 # ----------------------------------------------------------------- kvcache
 @pytest.mark.parametrize("smoke", [True, False], ids=["reduced", "full"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_plan_cache_bytes_equal_reference(arch, smoke):
     """Sized from shapes alone (the meta device): no memory, at full
     width too; a ring cache never grows past its window."""
@@ -71,11 +73,11 @@ def test_plan_cache_bytes_equal_reference(arch, smoke):
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_pad_cache_matches_reference(arch):
-    """The prefill cache grown by 3 zero slots on the time axis (axis 3
-    of the port's layout, 2 of the reference's); a sliding-window arch's
-    stays as it is."""
+    """The prefill cache grown by 3 zero slots on the time axis (k / v:
+    axis 3 of the port's layout, 2 of the reference's; MLA's latent
+    leaves: axis 2 in both); a sliding-window arch's stays as it is."""
     jcfg, jfam, jp, cfg, fam, params = _f32_pair(arch)
     toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 5)).astype(
         np.int32)
@@ -83,9 +85,14 @@ def test_pad_cache_matches_reference(arch):
     _, tc = fam["prefill"](params, dict(tokens=torch.from_numpy(toks)), cfg)
     jc, got = jkvcache.pad_cache(jcfg, jc, 3), kvcache.pad_cache(cfg, tc, 3)
     t = 5 if cfg.swa_window else 8
-    assert got["k"].shape == (cfg.n_layers, 2, cfg.n_kv, t, cfg.head_dim)
+    assert sorted(got) == sorted(jc)
+    for key, leaf in got.items():
+        assert leaf.shape[kvcache.TIME_AXIS[key]] == t, key
+    if "k" in got:
+        assert got["k"].shape == (cfg.n_layers, 2, cfg.n_kv, t,
+                                  cfg.head_dim)
     back = convert.lm_cache_to_numpy(got)
-    for key in ("k", "v"):
+    for key in got:
         np.testing.assert_allclose(back[key], np.asarray(jc[key]),
                                    rtol=F32_TOL, atol=F32_TOL)
         assert not back[key][:, :, 5:].any()
@@ -112,7 +119,7 @@ def test_sample_logits_greedy_masks_the_vocab_padding(dtype):
     assert hot.shape == (6,) and int(hot.max()) < 500
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_generate_matches_reference(arch):
     """Prefill, padding, then greedy decode steps: the same tokens."""
     jcfg, jfam, jp, cfg, fam, params = _f32_pair(arch)
@@ -161,7 +168,7 @@ def _requests(cfg, max_len):
     return reqs
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_scheduler_matches_reference(arch):
     """Three slots over a 20-position cache (h2o-danube's is its
     8-slot ring): the same requests complete in the same order with the
@@ -174,7 +181,9 @@ def test_scheduler_matches_reference(arch):
                                 jsched.cache)
     sched = scheduler.ServeScheduler(cfg, fam, params, batch_slots=slots,
                                      max_len=max_len)
-    assert sched.cache["k"].shape[3] == (8 if cfg.swa_window else max_len)
+    if "k" in sched.cache:
+        assert sched.cache["k"].shape[3] == (8 if cfg.swa_window
+                                             else max_len)
     sched.cache = {k: v.float() for k, v in sched.cache.items()}
     for s in (jsched, sched):
         mod = jscheduler if s is jsched else scheduler

@@ -643,5 +643,5 @@ def test_train_entry_points_refuse():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--smoke", "--steps", "1"])
     with pytest.raises(NotImplementedError, match="A.10c"):
-        train.main(["--arch", "granite-moe-1b-a400m", "--smoke"],
+        train.main(["--arch", "xlstm-1.3b", "--smoke"],
                    device="cpu")
