@@ -6,11 +6,15 @@ The two packages share no arrays: data passes between them as numpy.
 numpy (``jax.device_get``) into the port's tensors, and
 ``engine_state_to_numpy`` goes back, so one mid-run state -- warm P$
 included -- can be stepped by both engines.  ``lm_params_from_numpy`` /
-``lm_cache_from_numpy`` carry an LM's parameters and KV cache across
-(and ``*_to_numpy`` back): the same keys, a dense or moe cache's time
-and head axes swapped between the reference's (L, B, T, Hkv, D) and the
-port's (L, B, Hkv, T, D); MLA's latent leaves (L, B, T, r) keep their
-layout.  ``train_state_from_numpy`` / ``train_state_to_numpy``
+``lm_cache_from_numpy`` carry an LM's parameters and cache across (and
+``*_to_numpy`` back), any tree of dicts and tuples: the same keys, and
+the time and head axes swapped between the reference's (L, B, T, Hkv,
+D) and the port's (L, B, Hkv, T, D) on the attention K / V leaves only
+(keyed ``k`` / ``v``: the dense, moe and encdec self-attention caches,
+hybrid's ``shared``).  Every other leaf keeps its layout: MLA's latent
+(L, B, T, r), whisper's cross ``ck`` / ``cv``, and the recurrent states
+(hybrid's ssm (L, B, H, P, N) and conv, xlstm's tuples), which have no
+time axis.  ``train_state_from_numpy`` / ``train_state_to_numpy``
 carry a training state (parameters, the optimizer's f32 moments in the
 parameters' structure -- AdamW's ``mu`` / ``nu``, Adafactor's ``vr`` /
 ``vc`` / ``v`` -- and the step), so both packages can start from one.
@@ -99,25 +103,47 @@ def lm_params_to_numpy(params) -> dict:
     return _tree(_numpy_from_tensor, params)
 
 
+KV_KEYS = ("k", "v")       # attention K / V leaves: time and heads swap
+
+
 def _swap_heads(t):
-    """Time and head axes swapped on a leaf with a head axis, (L, B, T,
-    Hkv, D) <-> (L, B, Hkv, T, D); a latent (L, B, T, r) leaf as it is."""
-    return t.transpose(2, 3).contiguous() if t.dim() == 5 else t
+    """Time and head axes swapped, (L, B, T, Hkv, D) <-> (L, B, Hkv, T,
+    D)."""
+    return t.transpose(2, 3).contiguous()
 
 
-def lm_cache_from_numpy(np_cache, device) -> dict:
-    """A reference KV cache as the port's tensors on ``device``: dict(k, v)
-    of (L, B, T, Hkv, D) as contiguous (L, B, Hkv, T, D); MLA's
-    dict(dc, dkr, mc, mkr) of (L, B, T, r) as they are."""
+def _is_kv(t, key) -> bool:
+    return key in KV_KEYS and t.dim() == 5
+
+
+def _cache_tree(fn, tree, key=None):
+    """``fn(leaf, key)`` over a cache of nested dicts and tuples, ``key``
+    the name of the dict entry a leaf sits in (None in a tuple)."""
+    if isinstance(tree, dict):
+        return {k: _cache_tree(fn, v, k) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_cache_tree(fn, v) for v in tree)
+    return fn(tree, key)
+
+
+def lm_cache_from_numpy(np_cache, device):
+    """A reference cache (a tree of numpy arrays) as the port's tensors on
+    ``device``: K / V leaves (L, B, T, Hkv, D) as contiguous (L, B, Hkv,
+    T, D), the others as they are."""
     dev = torch.device(device)
-    return {k: _swap_heads(_tensor_from_numpy(v, dev))
-            for k, v in np_cache.items()}
+
+    def one(a, key):
+        t = _tensor_from_numpy(a, dev)
+        return _swap_heads(t) if _is_kv(t, key) else t
+    return _cache_tree(one, np_cache)
 
 
-def lm_cache_to_numpy(cache) -> dict:
-    """A port KV cache in the reference's layout as numpy arrays (bf16 as
-    f32)."""
-    return {k: _numpy_from_tensor(_swap_heads(v)) for k, v in cache.items()}
+def lm_cache_to_numpy(cache):
+    """A port cache in the reference's layout as numpy arrays (bf16 as
+    f32), a dict or tuple where the cache has one."""
+    def one(t, key):
+        return _numpy_from_tensor(_swap_heads(t) if _is_kv(t, key) else t)
+    return _cache_tree(one, cache)
 
 
 def _field(state, name):

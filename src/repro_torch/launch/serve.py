@@ -5,8 +5,7 @@
       --smoke --requests 6 --slots 2 --max-new 8
 
 Runs on the CUDA card; ``main(argv, device="cpu")`` runs it on the CPU.
-Serves the dense and MoE archs; the recurrent and encoder-decoder
-families raise through ``registry.get`` (ROADMAP A.10c-2).
+Serves every registered arch.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """End-to-end training launcher, the port of ``repro/launch/train.py``.
 
-Trains a registered dense or MoE arch (reduced or custom-scaled config)
-on the synthetic LM stream, with checkpointing and the fault-tolerant
+Trains any registered arch (reduced or custom-scaled config) on the
+synthetic LM stream, with checkpointing and the fault-tolerant
 loop under ``--ckpt-dir``; ``mla_moe`` (deepseek-v3) with Adafactor,
 the others with AdamW.
 
@@ -10,9 +10,7 @@ the others with AdamW.
 
 Runs on the CUDA card; ``main(argv, device="cpu")`` runs it on the CPU.
 Parameters are drawn from a ``torch.Generator`` on the device seeded 0:
-the reference's shapes, dtypes and scales, not its values.  The
-recurrent and encoder-decoder families raise through ``registry.get``
-(ROADMAP A.10c-2).
+the reference's shapes, dtypes and scales, not its values.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """Shared model building blocks (pure functions over parameter dicts), the
 port of ``repro/models/layers.py``: the dense family's attention and MLP,
-the routed MoE layer and DeepSeek's multi-head latent attention (MLA).
+whisper's cross-attention, the routed MoE layer and DeepSeek's
+multi-head latent attention (MLA).
 
 Conventions (the reference's)
 -----------------------------
@@ -168,6 +169,16 @@ def causal_mask(q_off: int, s_q: int, t: int, window: int = 0, device=None):
     return m
 
 
+def _mm(a, w):
+    """``a @ w`` in the two operands' promoted dtype: whisper's encoder
+    takes bf16 frames (``encdec._encode``), which jnp's matmul promotes
+    against f32 copies of the weights."""
+    if a.dtype != w.dtype:
+        dt = torch.promote_types(a.dtype, w.dtype)
+        a, w = a.to(dt), w.to(dt)
+    return a @ w
+
+
 def attention(p, x, cfg, positions=None, q_chunk: int = 0,
               bidirectional: bool = False):
     """Self-attention over a full sequence (training / prefill).
@@ -178,9 +189,9 @@ def attention(p, x, cfg, positions=None, q_chunk: int = 0,
     q_chunk = q_chunk or DEFAULT_Q_CHUNK
     h, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     xn = apply_norm(p["norm"], x)
-    q = (xn @ p["wq"]).reshape(b, s, h, hd)
-    k = (xn @ p["wk"]).reshape(b, s, hkv, hd)
-    v = (xn @ p["wv"]).reshape(b, s, hkv, hd)
+    q = _mm(xn, p["wq"]).reshape(b, s, h, hd)
+    k = _mm(xn, p["wk"]).reshape(b, s, hkv, hd)
+    v = _mm(xn, p["wv"]).reshape(b, s, hkv, hd)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     if cfg.rope:
@@ -196,6 +207,23 @@ def attention(p, x, cfg, positions=None, q_chunk: int = 0,
     out = _attention_scores(q, k, v, mask_fn, q_chunk=chunk)
     out = out.reshape(b, s, h * hd) @ p["wo"]
     return x + out, (k, v)
+
+
+def cross_attention(p, x, enc_kv, cfg):
+    """Decoder cross-attention to precomputed encoder (k, v), each (B, T,
+    Hkv, D): the query and output projections around the reference's
+    plain full-mask attention (no kernel)."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    k, v = enc_kv
+    xn = apply_norm(p["norm"], x)
+    q = _mm(xn, p["wq"]).reshape(b, s, h, hd)
+    t = k.shape[1]
+
+    def mask_fn(off, sq):
+        return torch.ones((sq, t), dtype=torch.bool, device=x.device)
+    out = _attention_scores(q, k, v, mask_fn, q_chunk=0)
+    return x + _mm(out.reshape(b, s, h * hd), p["wo"])
 
 
 def decode_lengths(pos: int, t: int, ring: bool) -> int:

@@ -1,11 +1,15 @@
-"""Decoder-only LM assembly: the port of ``repro/models/lm.py``'s dense and
-MoE families.
+"""Decoder-only LM assembly: the port of ``repro/models/lm.py``.
 
   dense   - GQA/SWA attention + MLP      (starcoder2, deepseek-7b,
                                           h2o-danube, the pixtral backbone)
   moe     - attention + top-k routed MoE (granite-moe)
   mla_moe - MLA attention, leading dense layers, MoE with a shared
             expert, and the MTP head     (deepseek-v3)
+  xlstm   - groups of mLSTMs and one sLSTM (xlstm-1.3b)
+  hybrid  - Mamba2 + one shared attention block every k layers
+                                         (zamba2-1.2b)
+
+(whisper's encoder-decoder family is ``encdec.py``.)
 
 The family protocol (the reference's, with the port's generator and
 device):
@@ -23,7 +27,12 @@ layer's slice is the contiguous (B, Hkv, T, D) block
 ``ops.decode_attention`` reads (the reference keeps (L, B, T, Hkv, D);
 ``convert.lm_cache_from_numpy`` transposes).  The mla_moe cache is the
 reference's latent one, dict(dc, dkr, mc, mkr) of (L, B, T, r) (no
-kernel reads it).  Decode updates the cache in place and returns it.
+kernel reads it).  The hybrid cache is dict(ssm (L, B, H, P, N) f32,
+conv (L, B, CONV_W - 1, di), shared=dict(k, v)), the shared block's
+k / v (n_shared, B, Hkv, T, D) as the dense cache's; the xlstm cache is
+the reference's tuple ((C, n, m), (h, c, n, m)) of f32 states, the
+mLSTMs' (G, M, B, ...), the sLSTMs' (G, B, ...).  Decode updates the
+cache in place and returns it.
 Prefill and decode run under ``torch.inference_mode()``; forward does
 not, so that training can take its gradient.
 
@@ -47,6 +56,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import device as device_mod
+from . import ssm as ssm_mod
+from . import xlstm as xl_mod
 from .layers import (DTYPE, apply_norm, attention, attention_decode,
                      attn_init, dense_init, embed_init, mla_attention,
                      mla_decode, mla_init, mlp, mlp_init, moe, moe_init,
@@ -87,7 +98,7 @@ def _base_init(cfg, gen):
     p = dict(final_norm=norm_init(cfg.d_model, with_bias=cfg.norm_bias,
                                   device=gen.device),
              lm_head=embed_init(gen, cfg.vocab_pad, cfg.d_model))
-    # every family the port has keeps the token embedding (the
+    # every family of this module keeps the token embedding (the
     # reference's rule, ``lm.py:71-73``)
     p["tok_emb"] = embed_init(gen, cfg.vocab_pad, cfg.d_model)
     return p
@@ -439,6 +450,225 @@ def mla_moe_init_cache(cfg, batch, cache_len, device=None):
                 mkr=zeros(nm, cfg.qk_rope_dim))
 
 
+# ======================================================================
+# xlstm (groups of (slstm_every - 1) mLSTM + 1 sLSTM)
+# ======================================================================
+def xlstm_init_params(cfg, gen, device=None):
+    """``groups``: G = n_layers // xlstm_slstm_every groups, each a stack
+    of M = xlstm_slstm_every - 1 mLSTMs and one sLSTM, so the mLSTM
+    leaves are (G, M, ...) (6 x 7 and 6 sLSTMs at full width)."""
+    _check_generator(gen, device, "xlstm_init_params")
+    g = cfg.n_layers // cfg.xlstm_slstm_every
+    m_per = cfg.xlstm_slstm_every - 1
+    with torch.no_grad():
+        p = _base_init(cfg, gen)
+        p["groups"] = _stack(lambda: dict(
+            mlstm=_stack(lambda: xl_mod.mlstm_init(gen, cfg), m_per),
+            slstm=xl_mod.slstm_init(gen, cfg)), g)
+    return p
+
+
+def _stack_states(states):
+    """A list of equal state tuples as one tuple of stacked tensors."""
+    return tuple(torch.stack(z) for z in zip(*states))
+
+
+def _xlstm_group(gp, x, cfg, keep: bool = True):
+    """One group from the zero state.  Returns (x, (m_states, s_state)),
+    the mLSTMs' states stacked on M (None without ``keep``: training
+    needs only x)."""
+    m_states = []
+    for lp in unstack(gp["mlstm"], cfg.xlstm_slstm_every - 1):
+        x, st = xl_mod.mlstm_forward(lp, x, cfg)
+        if keep:
+            m_states.append(st)
+    x, s_state = xl_mod.slstm_forward(gp["slstm"], x, cfg)
+    if not keep:
+        return x, None
+    return x, (_stack_states(m_states), s_state)
+
+
+def _xlstm_group_out(gp, x, cfg):
+    return _xlstm_group(gp, x, cfg, keep=False)[0]
+
+
+def xlstm_forward(params, batch, cfg):
+    """(logits, 0.0); under grad each group runs under ``checkpoint``."""
+    x = _embed_in(params, batch, cfg)
+    g = cfg.n_layers // cfg.xlstm_slstm_every
+    for gp in unstack(params["groups"], g):
+        x = _remat(_xlstm_group_out, gp, x, cfg)
+    return _head(params, x, cfg), 0.0
+
+
+@torch.inference_mode()
+def xlstm_prefill(params, batch, cfg):
+    x = _embed_in(params, batch, cfg)
+    m_states, s_states = [], []
+    for i in range(cfg.n_layers // cfg.xlstm_slstm_every):
+        x, (ms, ss) = _xlstm_group(layer(params["groups"], i), x, cfg)
+        m_states.append(ms)
+        s_states.append(ss)
+    cache = (_stack_states(m_states), _stack_states(s_states))
+    return _head(params, x[:, -1:], cfg), cache
+
+
+@torch.inference_mode()
+def xlstm_decode(params, cache, tokens, pos: int, cfg):
+    """One step of every mLSTM's and sLSTM's recurrence, each state
+    written into its slice of ``cache`` (``pos`` is not read: the state
+    is O(1))."""
+    x = _embed_in(params, dict(tokens=tokens), cfg)
+    (mc, mn, mm), s_st = cache
+    m_per = cfg.xlstm_slstm_every - 1
+    for gi in range(cfg.n_layers // cfg.xlstm_slstm_every):
+        gp = layer(params["groups"], gi)
+        for mi in range(m_per):
+            x, _ = xl_mod.mlstm_decode(layer(gp["mlstm"], mi), x,
+                                       (mc[gi, mi], mn[gi, mi], mm[gi, mi]),
+                                       cfg)
+        mine = tuple(t[gi] for t in s_st)
+        x, new = xl_mod.slstm_decode(gp["slstm"], x, mine, cfg)
+        for t, n in zip(mine, new):
+            t.copy_(n)
+    return _head(params, x, cfg)[:, 0], cache
+
+
+def xlstm_init_cache(cfg, batch, cache_len, device=None):
+    """The O(1) state (``cache_len`` is not read): the mLSTMs' C (G, M,
+    B, H, P, P), n (G, M, B, H, P) and m (G, M, B, H), the sLSTMs' h, c,
+    n (G, B, H, P) and m (G, B, H); f32, m at -1e30."""
+    del cache_len
+    g = cfg.n_layers // cfg.xlstm_slstm_every
+    m_per = cfg.xlstm_slstm_every - 1
+    di = cfg.xlstm_proj * cfg.d_model
+    pp = di // cfg.n_heads
+    sp = cfg.d_model // cfg.n_heads
+    dev = device_mod.resolve(device)
+    f32 = dict(dtype=torch.float32, device=dev)
+    h = cfg.n_heads
+    m_states = (torch.zeros((g, m_per, batch, h, pp, pp), **f32),
+                torch.zeros((g, m_per, batch, h, pp), **f32),
+                torch.full((g, m_per, batch, h), xl_mod.NEG, **f32))
+    s_state = (torch.zeros((g, batch, h, sp), **f32),
+               torch.zeros((g, batch, h, sp), **f32),
+               torch.zeros((g, batch, h, sp), **f32),
+               torch.full((g, batch, h), xl_mod.NEG, **f32))
+    return (m_states, s_state)
+
+
+# ======================================================================
+# hybrid (zamba2: Mamba2 backbone + shared attention block every k layers)
+# ======================================================================
+def hybrid_init_params(cfg, gen, device=None):
+    """``mamba``: the L Mamba2 layers; ``shared``: the one attention + MLP
+    block applied after every ``hybrid_every``-th of them."""
+    _check_generator(gen, device, "hybrid_init_params")
+    with torch.no_grad():
+        p = _base_init(cfg, gen)
+        p["mamba"] = _stack(lambda: ssm_mod.ssd_init(gen, cfg), cfg.n_layers)
+        p["shared"] = dict(attn=attn_init(gen, cfg), mlp=mlp_init(gen, cfg))
+    return p
+
+
+def _n_shared(cfg):
+    return cfg.n_layers // cfg.hybrid_every
+
+
+def _applies_shared(cfg, idx: int) -> bool:
+    """The shared block follows layer ``idx`` (5, 11, ..., 35 of
+    zamba2's 38); its cache slice is ``idx // hybrid_every``."""
+    return idx % cfg.hybrid_every == cfg.hybrid_every - 1
+
+
+def _hybrid_block(lp, shared, x, cfg, positions, apply_shared: bool):
+    x, _ = ssm_mod.ssd_forward(lp, x, cfg)
+    if apply_shared:
+        x, _ = attention(shared["attn"], x, cfg, positions)
+        x = mlp(shared["mlp"], x, cfg)
+    return x
+
+
+def hybrid_forward(params, batch, cfg):
+    """(logits, 0.0); under grad each block (a Mamba2 layer and the
+    shared block after it) runs under ``checkpoint``."""
+    x = _embed_in(params, batch, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for idx, lp in enumerate(unstack(params["mamba"], cfg.n_layers)):
+        x = _remat(_hybrid_block, lp, params["shared"], x, cfg, positions,
+                   _applies_shared(cfg, idx))
+    return _head(params, x, cfg), 0.0
+
+
+@torch.inference_mode()
+def hybrid_prefill(params, batch, cfg):
+    x = _embed_in(params, batch, cfg)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device)[None, :]
+    shared = params["shared"]
+    t = s if not cfg.swa_window else min(s, cfg.swa_window)
+    shape = (_n_shared(cfg), b, cfg.n_kv, t, cfg.head_dim)
+    sh = dict(k=torch.zeros(shape, dtype=DTYPE, device=x.device),
+              v=torch.zeros(shape, dtype=DTYPE, device=x.device))
+    ssm_st, conv_st = [], []
+    for idx in range(cfg.n_layers):
+        x, (st, cv) = ssm_mod.ssd_forward(layer(params["mamba"], idx), x, cfg)
+        ssm_st.append(st)
+        conv_st.append(cv)
+        if _applies_shared(cfg, idx):
+            sidx = idx // cfg.hybrid_every
+            x, (k, v) = attention(shared["attn"], x, cfg, positions)
+            x = mlp(shared["mlp"], x, cfg)
+            sh["k"][sidx] = k[:, -t:].transpose(1, 2)
+            sh["v"][sidx] = v[:, -t:].transpose(1, 2)
+    cache = dict(ssm=torch.stack(ssm_st), conv=torch.stack(conv_st),
+                 shared=sh)
+    return _head(params, x[:, -1:], cfg), cache
+
+
+@torch.inference_mode()
+def hybrid_decode(params, cache, tokens, pos: int, cfg):
+    """One step: every Mamba2 layer's recurrence (its ssm / conv slices
+    written in place) and, after every ``hybrid_every``-th, the shared
+    block's decode attention (``ops.decode_attention``) on its slice of
+    ``shared``."""
+    x = _embed_in(params, dict(tokens=tokens), cfg)
+    shared, sh = params["shared"], cache["shared"]
+    t = sh["k"].shape[3]
+    ring = cfg.swa_window > 0 and t == cfg.swa_window
+    pos = int(pos)
+    for idx in range(cfg.n_layers):
+        s_ssm, s_conv = cache["ssm"][idx], cache["conv"][idx]
+        x, (n_ssm, n_conv) = ssm_mod.ssd_decode(
+            layer(params["mamba"], idx), x, (s_ssm, s_conv), cfg)
+        s_ssm.copy_(n_ssm)
+        s_conv.copy_(n_conv)
+        if _applies_shared(cfg, idx):
+            sidx = idx // cfg.hybrid_every
+            x, _ = attention_decode(shared["attn"], x,
+                                    dict(k=sh["k"][sidx], v=sh["v"][sidx]),
+                                    pos, cfg, ring=ring)
+            x = mlp(shared["mlp"], x, cfg)
+    return _head(params, x, cfg)[:, 0], cache
+
+
+def hybrid_init_cache(cfg, batch, cache_len, device=None):
+    """Zeros: ssm (L, B, H, P, N) f32, conv (L, B, CONV_W - 1, di) bf16,
+    shared k / v (n_shared, B, Hkv, T, D) bf16."""
+    di = cfg.ssm_expand * cfg.d_model
+    t = cache_len if not cfg.swa_window else min(cache_len, cfg.swa_window)
+    dev = device_mod.resolve(device)
+    kv = (_n_shared(cfg), batch, cfg.n_kv, t, cfg.head_dim)
+    return dict(
+        ssm=torch.zeros((cfg.n_layers, batch, cfg.ssm_heads,
+                         cfg.ssm_head_dim, cfg.ssm_state),
+                        dtype=torch.float32, device=dev),
+        conv=torch.zeros((cfg.n_layers, batch, ssm_mod.CONV_W - 1, di),
+                         dtype=DTYPE, device=dev),
+        shared=dict(k=torch.zeros(kv, dtype=DTYPE, device=dev),
+                    v=torch.zeros(kv, dtype=DTYPE, device=dev)))
+
+
 # ----------------------------------------------------------------- dispatch
 FAMILIES: Dict[str, Dict[str, Any]] = {
     "dense": dict(init=dense_init_params, forward=dense_forward,
@@ -450,4 +680,10 @@ FAMILIES: Dict[str, Dict[str, Any]] = {
     "mla_moe": dict(init=mla_moe_init_params, forward=mla_moe_forward,
                     prefill=mla_moe_prefill, decode=mla_moe_decode,
                     init_cache=mla_moe_init_cache),
+    "xlstm": dict(init=xlstm_init_params, forward=xlstm_forward,
+                  prefill=xlstm_prefill, decode=xlstm_decode,
+                  init_cache=xlstm_init_cache),
+    "hybrid": dict(init=hybrid_init_params, forward=hybrid_forward,
+                   prefill=hybrid_prefill, decode=hybrid_decode,
+                   init_cache=hybrid_init_cache),
 }

@@ -4,10 +4,8 @@
 A copy of ``repro/models/registry.py``'s ``ModelConfig``, ``ARCHS`` and
 ``reduced`` (the port imports nothing of the reference, whose package
 imports JAX); ``tests/test_torch_models.py`` holds the copy equal to
-the original field by field.  ``get_family`` / ``get`` resolve the
-families the port has: ``dense`` (ROADMAP A.10a), ``moe`` and
-``mla_moe`` (A.10c-1); the others raise ``NotImplementedError`` naming
-their ROADMAP item (A.10c-2).
+the original field by field.  ``get_family`` / ``get`` resolve every
+family: ``encdec`` from ``encdec.py``, the others from ``lm.py``.
 """
 from __future__ import annotations
 
@@ -224,14 +222,10 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     raise ValueError(cfg.family)
 
 
-PORTED_FAMILIES = ("dense", "moe", "mla_moe")
-
-
 def get_family(cfg: ModelConfig) -> Dict[str, Any]:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.arch}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP A.10c-2); the port serves {', '.join(PORTED_FAMILIES)}")
+    if cfg.family == "encdec":
+        from .encdec import ENCDEC_FAMILY
+        return ENCDEC_FAMILY
     from .lm import FAMILIES
     return FAMILIES[cfg.family]
 

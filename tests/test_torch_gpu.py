@@ -9,8 +9,11 @@ dense; with telemetry, the sanitizer and an observer, results and host
 syncs equal to the run without them), ``ops.decode_attention``
 through its kernel, a partitioned run that recovers from a chip loss
 without capturing a graph again, the dense train step on the card
-against the same step on the CPU, and the MoE families' decode and
-train steps (granite-moe, deepseek-v3) on the card against the CPU.
+against the same step on the CPU, the MoE families' decode and train
+steps (granite-moe, deepseek-v3) on the card against the CPU, and
+``decode_attention`` at G = 1, D = 64 with the recurrent and
+encoder-decoder families' decode steps (zamba2, whisper, xlstm) on the
+card against the CPU.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 decision is taken inside each test.  On a machine with a card:
@@ -1319,3 +1322,98 @@ def test_moe_scheduler_on_card_launches_once_a_layer_a_step():
         runs["cpu"], runs[str(dev)])
     assert done == cpu_done and len(done) == 4 and cpu_launches == 0
     assert steps == cpu_steps and launches == cfg.n_layers * steps
+
+
+# ---------------- the recurrent and encoder-decoder families (A.10c-2)
+RECURRENT_ARCHS = ["zamba2-1.2b", "whisper-tiny", "xlstm-1.3b"]
+# a decode step card vs CPU from one cache: the models tests' tolerances
+# (tests/test_torch_recurrent.py, tests/test_torch_encdec.py)
+RECURRENT_LM_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# (B, H = Hkv, T) at D 64, G 1: zamba2's shared block in chip_smoke.py's
+# served cache (8 slots of 256) and whisper's decoder self-attention
+# there (8 rows of a 4-token prompt and 32 tokens)
+G1_SHAPES = {"zamba2-1.2b": (8, 32, 256), "whisper-tiny": (8, 6, 36)}
+
+
+def _tree_to(tree, device, dtype=None):
+    """A cache of dicts and tuples of tensors on ``device`` (floating
+    leaves in ``dtype`` when given)."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tree_to(v, device, dtype) for v in tree)
+    return tree.to(device, dtype if dtype and tree.is_floating_point()
+                   else None)
+
+
+@pytest.mark.parametrize("lengths", ["full", "ragged"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", list(G1_SHAPES))
+def test_decode_attention_at_g1_d64_matches_plain_on_card(arch, dtype,
+                                                          lengths):
+    """``ops.decode_attention`` at the head geometry zamba2 and whisper
+    decode at, G = 1 and D = 64, at their served shapes: every position
+    attended, or a length per row from the seed (1, T and between);
+    rtol / atol 1e-4 in f32, 2e-2 in bf16."""
+    dev = _card()
+    b, h, t = G1_SHAPES[arch]
+    rng = np.random.default_rng(31)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(dev, dt) for shape in [(b, h, 64), (b, h, t, 64),
+                                          (b, h, t, 64)])
+    lens = np.full(b, t, np.int32)
+    if lengths == "ragged":
+        lens = rng.integers(1, t + 1, b).astype(np.int32)
+        lens[:2] = [1, t]
+    lens = torch.from_numpy(lens).to(dev)
+    launches = da.decode_attention.launches
+    got = ops.decode_attention(q, k, v, lens)
+    assert da.decode_attention.launches == launches + 1
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), da.plain(q, k, v, lens).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_decode_step_on_card_matches_cpu(arch, dtype):
+    """A reduced decode step of each family on the card against the same
+    step on the CPU, from one seeded cache (bf16: each leaf in its own
+    dtype, the recurrent states f32), twice: logits and the cache within
+    ``RECURRENT_LM_TOL``; ``decode_attention`` launched once a shared
+    block (zamba2) or a decoder layer (whisper) a step, never on
+    xlstm's."""
+    from repro_torch.models import registry
+    dev = _card()
+    cfg, fam = registry.get(arch, smoke=True)
+    dt = getattr(torch, dtype)
+    drawn = fam["init"](cfg, torch.Generator().manual_seed(0), "cpu")
+    params = _tree_to(drawn, "cpu", torch.float32) if dtype == "float32" \
+        else drawn
+    gen = torch.Generator().manual_seed(1)
+
+    def fill(tree):
+        if isinstance(tree, dict):
+            return {k: fill(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(fill(v) for v in tree)
+        return torch.randn(tree.shape, generator=gen).to(
+            torch.float32 if dtype == "float32" else tree.dtype)
+    cache = fill(fam["init_cache"](cfg, 3, 24, "cpu"))
+    card_params, card_cache = _tree_to(params, dev), _tree_to(cache, dev)
+    per_step = (cfg.n_layers // cfg.hybrid_every if cfg.family == "hybrid"
+                else cfg.dec_layers if cfg.family == "encdec" else 0)
+    tol = RECURRENT_LM_TOL[dtype]
+    for pos in (5, 6):
+        toks = torch.randint(0, cfg.vocab, (3, 1), generator=gen)
+        want, cache = fam["decode"](params, cache, toks, pos, cfg)
+        ops.reset_launches()
+        got, card_cache = fam["decode"](card_params, card_cache,
+                                        toks.to(dev), pos, cfg)
+        torch.cuda.synchronize()
+        assert da.decode_attention.launches == per_step
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   rtol=tol, atol=tol)
+        torch.testing.assert_close(_tree_to(card_cache, "cpu"), cache,
+                                   rtol=tol, atol=tol)

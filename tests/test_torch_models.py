@@ -41,8 +41,6 @@ from repro_torch.serving.kvcache import pad_cache  # noqa: E402
 
 DENSE = ["starcoder2-3b", "starcoder2-15b", "deepseek-7b", "h2o-danube-3-4b",
          "pixtral-12b"]
-NON_DENSE = [a for a, c in registry.ARCHS.items()
-             if c.family not in registry.PORTED_FAMILIES]
 F32_TOL = 1e-4
 BF16_TOL = 5e-2
 
@@ -115,11 +113,21 @@ def test_registry_copy_equals_reference(arch):
     assert registry.VOCAB_ALIGN == jreg.VOCAB_ALIGN
 
 
-@pytest.mark.parametrize("arch", NON_DENSE)
-def test_non_dense_family_is_refused(arch):
+@pytest.mark.parametrize("arch", list(jreg.ARCHS))
+def test_every_arch_resolves_to_the_reference_family(arch):
+    """``registry.get`` resolves every arch of the pool, full and reduced,
+    to the family whose functions carry the reference's names (encdec
+    from ``encdec.py``, the others from ``lm.py``)."""
     for smoke in (False, True):
-        with pytest.raises(NotImplementedError, match="A.10c"):
-            registry.get(arch, smoke=smoke)
+        jcfg, jfam = jreg.get(arch, smoke=smoke)
+        cfg, fam = registry.get(arch, smoke=smoke)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+        assert sorted(fam) == sorted(jfam) == [
+            "decode", "forward", "init", "init_cache", "prefill"]
+        for name in fam:
+            assert fam[name].__name__ == jfam[name].__name__, name
+            assert fam[name].__module__.startswith("repro_torch.models.")
+        assert fam is registry.get_family(cfg)
 
 
 def test_dense_archs_resolve_to_the_dense_family():
@@ -412,6 +420,77 @@ def test_input_embeds_prefill_matches_reference():
 
 
 # ---------------------------------------------------------------- convert
+def _fill(shapes, rng):
+    """Seeded values in the shapes and dtypes of a reference tree of
+    ``ShapeDtypeStruct`` (``jax.eval_shape``: no compile)."""
+    return jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(
+        s.dtype), shapes)
+
+
+def _old_rule(np_cache):
+    """The conversion before the recurrent families: every 5-d leaf of a
+    flat dict transposed on axes 2 and 3."""
+    return {k: np.swapaxes(v, 2, 3) if v.ndim == 5 else v
+            for k, v in np_cache.items()}
+
+
+def _np_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _np_leaves(v, f"{path}/{k}")
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _np_leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+@pytest.mark.parametrize("arch", list(jreg.ARCHS))
+def test_convert_round_trips_every_family(arch):
+    """Every family's parameters and cache through ``convert`` and back,
+    bit for bit, from seeded values in the reference's shapes and dtypes:
+    the parameters land in the port's own ``init``'s shapes and dtypes,
+    the cache in the port's ``init_cache``'s.  Only attention K / V
+    leaves swap time and heads: the dense, moe and mla_moe caches cross
+    as before the recurrent families (``_old_rule``), and no recurrent
+    state (hybrid's ssm / conv, xlstm's tuples) nor whisper's cross
+    ``ck`` / ``cv`` is transposed."""
+    jcfg, jfam = jreg.get(arch, smoke=True)
+    cfg, fam = registry.get(arch, smoke=True)
+    rng = np.random.default_rng(21)
+    np_params = _fill(jax.eval_shape(lambda: jfam["init"](
+        jcfg, jax.random.PRNGKey(0))), rng)
+    params = convert.lm_params_from_numpy(np_params, "cpu")
+    own = fam["init"](cfg, torch.Generator().manual_seed(0), "cpu")
+    assert sorted((n, tuple(t.shape), str(t.dtype))
+                  for n, t in _leaves(params)) == sorted(
+        (n, tuple(t.shape), str(t.dtype)) for n, t in _leaves(own))
+    back = dict(_np_leaves(convert.lm_params_to_numpy(params)))
+    for n, w in _np_leaves(np_params):
+        assert np.array_equal(back[n], w.astype(np.float32)), n
+    np_cache = _fill(jax.eval_shape(lambda: jfam["init_cache"](jcfg, 2, 5)),
+                     rng)
+    cache = convert.lm_cache_from_numpy(np_cache, "cpu")
+    mine = fam["init_cache"](cfg, 2, 5, "cpu")
+    assert sorted((n, tuple(t.shape), str(t.dtype))
+                  for n, t in _np_leaves(cache)) == sorted(
+        (n, tuple(t.shape), str(t.dtype)) for n, t in _np_leaves(mine))
+    kv = {"/k", "/v", "/shared/k", "/shared/v"}
+    for (n, w), (_, t) in zip(_np_leaves(np_cache), _np_leaves(cache)):
+        assert t.is_contiguous(), n
+        want = np.swapaxes(w, 2, 3) if n in kv else w
+        assert np.array_equal(t.float().numpy(), want.astype(np.float32)), n
+    if cfg.family in ("dense", "moe", "mla_moe"):
+        old = _old_rule(np_cache)
+        assert all(np.array_equal(cache[k].float().numpy(),
+                                  old[k].astype(np.float32)) for k in old)
+    back = convert.lm_cache_to_numpy(cache)
+    assert type(back) is type(np_cache)
+    back = dict(_np_leaves(back))
+    for n, w in _np_leaves(np_cache):
+        assert np.array_equal(back[n], w.astype(np.float32)), n
+
+
 def test_lm_params_and_cache_cross_bit_for_bit():
     """bf16 parameters keep their 16 bits through ``lm_params_from_numpy``
     (and come back as the f32 that holds each exactly); the cache's time

@@ -2,13 +2,16 @@
 against the JAX reference's, on the CPU.
 
 The reduced configs of the five dense archs and the two MoE ones
-(granite-moe, deepseek-v3); parameters drawn by the
+(granite-moe, deepseek-v3; the recurrent and encoder-decoder families'
+serving is in ``tests/test_torch_recurrent.py`` and
+``tests/test_torch_encdec.py``); parameters drawn by the
 reference's ``fam["init"]``, cast to f32 in the test and carried across
 with ``convert.lm_params_from_numpy``, so that greedy tokens can be
 held exactly equal (in bf16 the two round differently: see
 ``tests/test_torch_models.py``).  The reference's scheduler gets the
 f32 copies by assignment (``sched.params``, ``sched.cache``).  Cache
-plans are compared in bytes, full-width configs included.
+plans are compared in bytes for every arch, full-width configs
+included.
 
 Every new module is imported by its own name (the reference's dead-code
 gate walks ``src/``).
@@ -61,10 +64,11 @@ def _f32_pair(arch):
 
 # ----------------------------------------------------------------- kvcache
 @pytest.mark.parametrize("smoke", [True, False], ids=["reduced", "full"])
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", list(registry.ARCHS))
 def test_plan_cache_bytes_equal_reference(arch, smoke):
     """Sized from shapes alone (the meta device): no memory, at full
-    width too; a ring cache never grows past its window."""
+    width too; a ring cache never grows past its window; every leaf of
+    a nested cache counted (hybrid's ``shared``, xlstm's tuples)."""
     jcfg, jfam = jreg.get(arch, smoke=smoke)
     cfg, fam = registry.get(arch, smoke=smoke)
     for batch, length, devices in ((4, 128, 4), (8, 32768, 1)):

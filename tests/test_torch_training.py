@@ -642,6 +642,3 @@ def test_train_entry_points_refuse():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--smoke", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="A.10c"):
-        train.main(["--arch", "xlstm-1.3b", "--smoke"],
-                   device="cpu")
