@@ -291,7 +291,27 @@ on past a failure:
     reduced three card vs CPU: a decode step in f32 and bf16
     (``SERVE_LOGIT_TOL``), 2 AdamW steps in f32 (phase 17 (e)'s
     ``MOE_TRAIN_RTOL`` / ``MOE_UPDATE_RTOL``);
-19. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
+19. the proxy-region collectives and the GPipe pipeline (ROADMAP
+    A.10d-1; ``repro_torch.core`` ``collectives``, ``pipeline``) on a
+    1 x 1 ("pod", "data") grid over a one-rank NCCL group, so that
+    ``proxy_psum`` runs its reduce-scatter -> all-reduce -> all-gather
+    with real NCCL calls on device tensors (one rank moves no byte across
+    a wire: the ms time the port's ops and NCCL's one-rank kernels): (a)
+    granite-moe-1b-a400m at full width, one ``value_and_grad`` on 8 x
+    1,024 tokens, its gradient tree through ``proxy_psum_tree`` and
+    ``flat_psum`` (each bitwise its input) and ``compressed_proxy_psum``
+    (within half a block scale and the reference's bound), ms each over
+    the tree, the tree's bytes and ``proxy_sync_bytes`` for them at region
+    16 x cross 2 (a model); (b) ``proxy_embedding_grad`` at granite's
+    embedding width (vocab padded to a multiple of 8, d 1,024) on (a)'s
+    8,192 ids, within 1e-5 of the column max of a float64 ``np.add.at``;
+    (c) ``two_hop_all_to_all`` / ``one_hop_all_to_all`` on granite's
+    dispatch volume (8,192 tokens x top-k 8 x d 1,024 bf16), bitwise;
+    (d) ``run_pipeline`` at one stage of starcoder2-3b's 30 blocks, bf16,
+    4 microbatches of 2 x 1,024 tokens' embeddings, against the whole
+    batch through the same blocks within ``PIPE_RMS_TOL``; ms a
+    microbatch;
+20. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
     the last line, ``{"ok": true, "device": {...}}``.
 
 Every app run prints its supersteps, wall seconds, ms per superstep,
@@ -304,7 +324,7 @@ of live records in runs of neighbours and repeated in their slice, and
 the atomics a fold would leave.
 
 Each main-path run (phases 5-8, 6b, 9b, the RMAT-22 runs of 10,
-10b and 11, 15's serving runs, 17's and 18's) sets every
+10b and 11, 15's serving runs, 17's, 18's and 19's) sets every
 kernel's launch count to 0 just before it and reads the counts just
 after; a kernel on the path that did not launch (at least once per
 superstep, on the engine's paths) fails the run.  The JSON line counts
@@ -322,7 +342,8 @@ counts in (a) plus the kernels the profiler sees in (b)), and phase
 (d) under ``train_moe`` (none), and phase 18's serving runs under
 ``serve_hybrid``, ``serve_encdec`` and ``serve_xlstm`` (none) and its
 training under ``train_hybrid``, ``train_encdec`` and ``train_xlstm``
-(none).  A graph replay counts the launches
+(none), and phase 19's (a)-(c) under ``collectives`` and (d) under
+``pipeline`` (none).  A graph replay counts the launches
 captured in it, so on the chunked loop the counts include the idle rows
 of a chunk (after the run drained, or after a flush the device
 scheduled), which are printed as the surplus.
@@ -4615,6 +4636,281 @@ def recurrent_phase(dev, smi) -> tuple:
     return dict(reads, seconds=took, part_seconds=part_s), paths
 
 
+# ------------------------- 19. collectives and the pipeline (ROADMAP A.10d-1)
+COLL_ARCH = "granite-moe-1b-a400m"
+COLL_BATCH, COLL_SEQ = 8, 1024
+COLL_MODEL_LAYOUT = (16, 2)   # region (data) 16, cross (pod) 2: the
+#                               reference's multi-pod mesh
+#                               (src/repro/launch/mesh.py:18)
+COLL_ITERS = 5                # timed calls of each collective (time_cuda)
+PIPE_ARCH = "starcoder2-3b"
+PIPE_M, PIPE_MB, PIPE_SEQ = 4, 2, 1024
+# The pipeline's bf16 output against the same blocks over the whole
+# batch, as rms(diff) / rms(whole): cuBLAS may pick another algorithm at
+# batch 2 than at 8, which rounds the bf16 GEMMs otherwise.  Set before
+# the first card call from the CPU at reduced width (starcoder2-3b's 30
+# blocks at d 256, 8 x 128 tokens): batch 2 against 8 equal bitwise there,
+# the bf16 run 0.0120 from the same blocks in f32; two bf16 runs each that
+# far from the f32 one stand at most twice as far apart.
+PIPE_RMS_TOL = 0.025
+
+
+def _tree_bytes(leaves) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def compressed_bounds(c, g, block: int = 256) -> dict:
+    """``compressed_proxy_psum``'s result ``c`` of ``g`` on one rank
+    against (1) half its block's scale, plus the output dtype's rounding
+    of the dequantized value (half an ulp: ``eps / 2`` of it), and (2)
+    the reference's own bound (tests/test_pipeline_compression.py:59-62:
+    2 scales of max |x| / 127, 2% of max |x|).  Returns the largest
+    excess over (1) and the error against (2)."""
+    from repro_torch.core import collectives as coll
+    gf = g.float().reshape(-1)
+    _, scale = coll._quantize_int8(g, block)
+    per = scale.repeat_interleave(block)[:gf.numel()]
+    err = (c.float().reshape(-1) - gf).abs()
+    half_ulp = torch.finfo(c.dtype).eps / 2
+    tol = 0.5 * per + half_ulp * (gf.abs() + 0.5 * per)
+    gmax = float(gf.abs().max())
+    emax = float(err.max())
+    return dict(over_half_scale=float((err - tol).max()), err=emax,
+                ref_ok=(emax <= 2 * gmax / 127.0 + 1e-5
+                        and (emax < 0.02 * gmax if gmax else emax == 0)))
+
+
+def grad_sync_readings(dev, smi, grid) -> tuple:
+    """(a) granite-moe's gradient tree of one ``value_and_grad`` through
+    ``proxy_psum_tree``, ``flat_psum`` and ``compressed_proxy_psum``."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch.train import batch_source
+    from repro_torch.models import registry
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_step import make_loss_fn, value_and_grad
+    cfg, fam = registry.get(COLL_ARCH)
+    t0 = time.perf_counter()
+    params = fam["init"](cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = to_device(batch_source(cfg, COLL_SEQ, COLL_BATCH)[1](0), dev)
+    loss, grads = value_and_grad(make_loss_fn(cfg, fam), params, batch)
+    del params
+    leaves = tree_leaves(grads)
+    require(math.isfinite(float(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in leaves),
+        "(a) a loss or gradient is not finite")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    nbytes = _tree_bytes(leaves)
+
+    proxy = tree_leaves(coll.proxy_psum_tree(grads, "data", "pod",
+                                             grid=grid))
+    require(all(torch.equal(a, b) for a, b in zip(proxy, leaves)),
+            "(a) proxy_psum_tree on one rank is not its input")
+    flat = [coll.flat_psum(g, ("pod", "data"), grid=grid) for g in leaves]
+    require(all(torch.equal(a, b) for a, b in zip(flat, leaves)),
+            "(a) flat_psum on one rank is not its input")
+    del proxy, flat
+    worst = dict(over_half_scale=-math.inf, err=0.0)
+    for g in leaves:
+        b = compressed_bounds(
+            coll.compressed_proxy_psum(g, "data", "pod", grid=grid), g)
+        require(b["over_half_scale"] <= 0 and b["ref_ok"],
+                f"(a) compressed_proxy_psum on a {tuple(g.shape)} "
+                f"{g.dtype} leaf: {b}")
+        worst = {k: max(worst[k], b[k]) for k in worst}
+    read = dict(
+        arch=COLL_ARCH, loss=float(loss), leaves=len(leaves),
+        tree_bytes=nbytes, setup_s=setup_s,
+        proxy_psum_tree_ms=time_cuda(lambda: coll.proxy_psum_tree(
+            grads, "data", "pod", grid=grid), [()], COLL_ITERS),
+        flat_psum_ms=time_cuda(lambda: [coll.flat_psum(
+            g, ("pod", "data"), grid=grid) for g in leaves], [()], COLL_ITERS),
+        compressed_ms=time_cuda(lambda: [coll.compressed_proxy_psum(
+            g, "data", "pod", grid=grid) for g in leaves], [()], COLL_ITERS),
+        compressed_worst=worst,
+        model_bytes=coll.proxy_sync_bytes(nbytes, *COLL_MODEL_LAYOUT))
+    m = read["model_bytes"]
+    print(f"  (a) {COLL_ARCH} gradient tree of one value_and_grad on "
+          f"{COLL_BATCH} x {COLL_SEQ} tokens (loss {read['loss']:.4f}; "
+          f"{len(leaves)} leaves, {nbytes / 1e9:.3f} GB; set-up "
+          f"{setup_s:.1f} s) [{smi}]")
+    print(f"      proxy_psum_tree {read['proxy_psum_tree_ms']:.3f} ms, "
+          f"flat_psum {read['flat_psum_ms']:.3f} ms, compressed_proxy_psum "
+          f"{read['compressed_ms']:.3f} ms over the tree (one rank: the "
+          f"port's ops and NCCL's one-rank kernels, no wire); the first two "
+          f"equal their input bitwise, the compressed within half a block "
+          f"scale (worst margin {worst['over_half_scale']:.3e}, max err "
+          f"{worst['err']:.3e}) and the reference's bound")
+    print(f"      modelled wire bytes a device for these bytes at region "
+          f"{COLL_MODEL_LAYOUT[0]} x cross {COLL_MODEL_LAYOUT[1]} "
+          f"(proxy_sync_bytes, a model, not measured): intra "
+          f"{m['proxy_intra'] / 1e9:.3f} GB, cross "
+          f"{m['proxy_cross'] / 1e9:.3f} GB, flat all-reduce {m['flat'] / 1e9:.3f} GB, cross reduction "
+          f"{m['cross_reduction']:.1f}x")
+    return read, cfg, batch["tokens"]
+
+
+def embedding_grad_reading(dev, smi, grid, cfg, tokens) -> dict:
+    """(b) ``proxy_embedding_grad`` at granite's embedding width on (a)'s
+    token ids, against a float64 ``np.add.at`` on the host."""
+    from repro_torch.core import collectives as coll
+    vocab_pad = -(-cfg.vocab // 8) * 8
+    ids = tokens.reshape(-1)
+    g_host = np.random.default_rng(SEED).standard_normal(
+        (ids.numel(), cfg.d_model)).astype(np.float32)
+    g = torch.from_numpy(g_host).to(dev)
+    got = coll.proxy_embedding_grad(ids, g, vocab_pad, "data", "pod",
+                                    grid=grid)
+    want = np.zeros((vocab_pad, cfg.d_model), np.float64)
+    np.add.at(want, ids.cpu().numpy(), g_host)
+    err = np.abs(got.cpu().numpy() - want)
+    col = np.abs(want).max(0)
+    worst = float((err / np.maximum(col, 1e-30)).max())
+    require(tuple(got.shape) == want.shape and worst <= 1e-5,
+            f"(b) proxy_embedding_grad: {worst:.3e} of the column max")
+    ms = time_cuda(lambda: coll.proxy_embedding_grad(
+        ids, g, vocab_pad, "data", "pod", grid=grid), [()], COLL_ITERS)
+    print(f"  (b) proxy_embedding_grad, vocab {cfg.vocab} padded to "
+          f"{vocab_pad}, d {cfg.d_model}, {ids.numel()} ids of (a)'s batch "
+          f"({len(np.unique(ids.cpu().numpy()))} distinct), seeded f32 "
+          f"grads: {ms:.3f} ms; within {worst:.2e} of the column max of a "
+          f"float64 np.add.at (gate 1e-5) [{smi}]")
+    return dict(ms=ms, vocab_pad=vocab_pad, rel_err=worst)
+
+
+def dispatch_reading(dev, smi, grid, cfg) -> dict:
+    """(c) ``two_hop_all_to_all`` / ``one_hop_all_to_all`` on granite's
+    dispatch volume, (1, 1, m, d) bf16."""
+    from repro_torch.core import collectives as coll
+    m = COLL_BATCH * COLL_SEQ * cfg.top_k
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((1, 1, m, cfg.d_model), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    two = coll.two_hop_all_to_all(x, "data", "pod", grid=grid)
+    one = coll.one_hop_all_to_all(x, "data", "pod", grid=grid)
+    require(torch.equal(two, x) and torch.equal(one, x)
+            and torch.equal(two, one),
+            "(c) the all-to-alls on one rank are not their input")
+    read = dict(
+        bytes=x.numel() * x.element_size(),
+        two_hop_ms=time_cuda(lambda: coll.two_hop_all_to_all(
+            x, "data", "pod", grid=grid), [()], COLL_ITERS),
+        one_hop_ms=time_cuda(lambda: coll.one_hop_all_to_all(
+            x, "data", "pod", grid=grid), [()], COLL_ITERS))
+    print(f"  (c) MoE dispatch {COLL_BATCH * COLL_SEQ} tokens x top-k "
+          f"{cfg.top_k} x d {cfg.d_model} bf16 ({read['bytes'] / 1e6:.1f} "
+          f"MB): two_hop {read['two_hop_ms']:.3f} ms, one_hop "
+          f"{read['one_hop_ms']:.3f} ms, both bitwise the input [{smi}]")
+    return read
+
+
+def pipeline_reading(dev, smi, group) -> dict:
+    """(d) ``run_pipeline`` with one stage: starcoder2-3b's blocks over
+    ``PIPE_M`` microbatches against the same blocks over the whole
+    batch."""
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.models import lm, registry
+    cfg, fam = registry.get(PIPE_ARCH)
+    t0 = time.perf_counter()
+    params = fam["init"](cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    stack = params["layers"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab, (PIPE_M * PIPE_MB, PIPE_SEQ),
+                           generator=gen, device=dev)
+    emb = params["tok_emb"][tokens]
+    del params
+    positions = torch.arange(PIPE_SEQ, device=dev)[None, :]
+
+    def stage_fn(p, x):
+        for i in range(cfg.n_layers):
+            x = lm._dense_block(lm.layer(p, i), x, cfg, positions)[0]
+        return x
+
+    x_mb = emb.reshape((PIPE_M, PIPE_MB) + tuple(emb.shape[1:]))
+    require(pipe.pipeline_bubble_fraction(1, PIPE_M) == 0,
+            "(d) the bubble fraction at one stage is not 0")
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        outs = pipe.run_pipeline(stage_fn, stack, x_mb, group, 1)
+        whole = stage_fn(stack, emb)
+        got = outs.reshape(whole.shape).float()
+        want = whole.float()
+        rms = float((got - want).pow(2).mean().sqrt()
+                    / want.pow(2).mean().sqrt())
+        max_err = float((got - want).abs().max())
+        require(bool(torch.isfinite(got).all()) and rms <= PIPE_RMS_TOL,
+                f"(d) the pipeline vs the whole batch: rms {rms:.4f} > "
+                f"{PIPE_RMS_TOL}")
+        del got, want, outs, whole
+        pipe_ms = time_cuda(lambda: pipe.run_pipeline(
+            stage_fn, stack, x_mb, group, 1), [()], 1)
+        whole_ms = time_cuda(lambda: stage_fn(stack, emb), [()], 1)
+    read = dict(arch=PIPE_ARCH, layers=cfg.n_layers, setup_s=setup_s,
+                ms_per_microbatch=pipe_ms / PIPE_M, whole_batch_ms=whole_ms,
+                rms_rel=rms, max_abs_err=max_err)
+    print(f"  (d) run_pipeline, 1 stage of {PIPE_ARCH}'s {cfg.n_layers} "
+          f"blocks (d {cfg.d_model}), bf16, {PIPE_M} microbatches of "
+          f"{PIPE_MB} x {PIPE_SEQ} tokens' embeddings: "
+          f"{read['ms_per_microbatch']:.2f} ms a microbatch (the whole batch "
+          f"of {PIPE_M * PIPE_MB} through the same blocks {whole_ms:.2f} ms);"
+          f" against it rms {rms:.2e} of its rms (gate {PIPE_RMS_TOL}), max "
+          f"|err| {max_err:.3e}; bubble fraction 0; set-up {setup_s:.1f} s "
+          f"[{smi}]")
+    return read
+
+
+def collectives_phase(dev, smi) -> dict:
+    """ROADMAP A.10d-1 on the card: (a)-(d) above on a 1 x 1 ("pod",
+    "data") grid over a one-rank NCCL group.  Returns the launch counts
+    by path: ``collectives`` ((a)-(c)) and ``pipeline`` ((d))."""
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.core import collectives as coll
+    from repro_torch.kernels import ops
+    print(f"== 19. collectives and the pipeline on one NCCL rank at full "
+          f"width (repro_torch.core collectives, pipeline; a 1 x 1 grid: "
+          f"proxy_psum runs RS -> AR -> AG; one rank moves no byte across a "
+          f"wire) [{smi}]")
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths, reads = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/store", rank=0,
+            world_size=1,
+            timeout=datetime.timedelta(seconds=RANKS_TIMEOUT_S))
+        try:
+            grid = coll.make_grid((1, 1), ("pod", "data"))
+            ops.reset_launches()
+            reads["a"], cfg, tokens = grad_sync_readings(dev, smi, grid)
+            gc.collect()
+            torch.cuda.empty_cache()
+            reads["b"] = embedding_grad_reading(dev, smi, grid, cfg, tokens)
+            reads["c"] = dispatch_reading(dev, smi, grid, cfg)
+            paths["collectives"] = ops.launch_counts()
+            gc.collect()
+            torch.cuda.empty_cache()
+            ops.reset_launches()
+            reads["d"] = pipeline_reading(dev, smi, grid.group("pod"))
+            paths["pipeline"] = ops.launch_counts()
+        finally:
+            dist.destroy_process_group()
+    for path, counts in paths.items():
+        require(sum(counts.values()) == 0,
+                f"{path}: a kernel launched {json.dumps(counts)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t_phase
+    print(f"    launches {json.dumps(paths)}")
+    print(f"  collectives readings {json.dumps(reads)}")
+    print(f"  collectives phase {took:.1f} s")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4659,6 +4955,7 @@ def main() -> int:
     decode_row["serve_hybrid"], decode_row["serve_encdec"] = (rec["a"],
                                                               rec["b"])
     decode_row["shapes"] += [rec["a"]["after"], rec["b"]["after"]]
+    by_path.update(collectives_phase(dev, c["smi"]))
     for row in rows:
         row["launches_by_path"] = {p: n[row["name"]]
                                    for p, n in by_path.items()}
@@ -4666,7 +4963,7 @@ def main() -> int:
         require(row["launches"] > 0,
                 f"{row['name']} never launched on a main path")
 
-    print(f"== 19. done in {time.perf_counter() - t_start:.1f} s")
+    print(f"== 20. done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(c["smi"])
     print(json.dumps({"ok": True, "device": {

@@ -28,21 +28,16 @@ through the host.
 from __future__ import annotations
 
 import dataclasses
-import datetime
 import warnings
 from typing import Any, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-# the timeout of every group the mesh makes (a stuck collective raises)
-GROUP_TIMEOUT = datetime.timedelta(seconds=300)
-# the backend that carries each device type's tensors
-_CARRIER = {"cuda": "nccl", "cpu": "gloo"}
-
-# the fixed-length all-gather: newer torch names it all_gather_single
-_all_gather_single = getattr(dist, "all_gather_single", None) \
-    or dist.all_gather_into_tensor
+# the groups' timeout, the backend rule and the fixed-length all-gather
+# are the collectives'
+from ..core.collectives import (GROUP_TIMEOUT, _all_gather_single,
+                                check_carrier)
 
 
 class LeftMesh(Exception):
@@ -57,15 +52,6 @@ def largest_dividing_devices(num_chips: int, device_count: int) -> int:
     while num_chips % ndev:
         ndev -= 1
     return ndev
-
-
-def _group_backends(group) -> dict:
-    """{device type: backend name} of ``group`` ("gloo", or
-    "cpu:gloo,cuda:nccl" for a group with a backend per device)."""
-    name = str(dist.get_backend(group)).lower()
-    if ":" not in name:
-        return {"cpu": name, "cuda": name}
-    return dict(part.split(":") for part in name.split(","))
 
 
 def new_group(ranks: Sequence[int]):
@@ -162,7 +148,7 @@ class ExecMesh:
         if group is None:
             # a placement only: it runs nothing across ranks
             return cls(num_chips, ndev)
-        _check_carrier(group, device)
+        check_carrier(group, device)
         ranks = dist.get_process_group_ranks(group)
         if ndev < size:
             group = new_group(ranks[:ndev])
@@ -243,17 +229,3 @@ class ExecMesh:
         ``device``, which the group's backend carries)."""
         if self.group is not None:
             self.psum(torch.zeros((1,), device=device))
-
-
-def _check_carrier(group, device) -> None:
-    """Refuse a group whose backend does not carry ``device``'s tensors
-    (gloo with CUDA tensors, NCCL with CPU tensors)."""
-    if device is None:
-        return
-    kind = torch.device(device).type
-    got = _group_backends(group).get(kind)
-    want = _CARRIER.get(kind)
-    if got != want:
-        raise ValueError(
-            f"a {got} process group cannot carry the engine's {kind} "
-            f"tensors (a {kind} engine needs a {want} group)")

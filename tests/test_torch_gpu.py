@@ -13,7 +13,8 @@ against the same step on the CPU, the MoE families' decode and train
 steps (granite-moe, deepseek-v3) on the card against the CPU, and
 ``decode_attention`` at G = 1, D = 64 with the recurrent and
 encoder-decoder families' decode steps (zamba2, whisper, xlstm) on the
-card against the CPU.
+card against the CPU, and the proxy-region collectives and the pipeline
+on a one-rank NCCL group against a one-rank gloo group on the CPU.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 decision is taken inside each test.  On a machine with a card:
@@ -974,6 +975,60 @@ def test_ranks_one_nccl_rank_compacted_double_buffered(nccl_group):
         got = fn(*args, backend="shard_map", group=nccl_group,
                  run_chunk=chunk, **kw)
         _same_run(got, want, "spmv")
+
+
+# ------------------------------------- collectives and pipeline, A.10d-1
+def test_collectives_one_nccl_rank_equal_gloo(nccl_group):
+    """On a 1 x 1 grid over the one-rank NCCL group (``proxy_psum`` takes
+    its reduce-scatter -> all-reduce -> all-gather path), ``proxy_psum``,
+    ``compressed_proxy_psum`` (shards of 1 and 3 blocks, the pad) and
+    ``two_hop_all_to_all`` on CUDA tensors equal, bitwise, the same calls
+    on a 1 x 1 grid of gloo groups with CPU tensors; ``run_pipeline`` at
+    one stage (``tanh(x @ w)``, f32 GEMMs on two devices) within 1e-5.
+    A gloo group handed CUDA tensors raises ``ValueError``."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.core import pipeline as pipe
+    import torch.distributed as dist
+    dev = _card()
+    on_card = coll.make_grid((1, 1), ("pod", "data"))
+    gloo = dist.new_group([0], backend="gloo", timeout=coll.GROUP_TIMEOUT)
+    on_cpu = coll.Grid(on_card.shape, on_card.names, on_card.coords,
+                       {k: gloo for k in on_card.groups})
+    rng = np.random.default_rng(0)
+    xs = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+          for s in ((16, 8), (40, 33), (64,))]
+    a2a = torch.from_numpy(rng.standard_normal((1, 1, 6, 5)).astype(
+        np.float32))
+    calls = [lambda x, g: coll.proxy_psum(x, "data", "pod", grid=g),
+             lambda x, g: coll.compressed_proxy_psum(x, "data", "pod",
+                                                     grid=g)]
+    for x in xs:
+        for call in calls:
+            got = call(x.to(dev), on_card)
+            assert got.device.type == "cuda"
+            assert torch.equal(got.cpu(), call(x, on_cpu))
+    got = coll.two_hop_all_to_all(a2a.to(dev), "data", "pod", grid=on_card)
+    assert torch.equal(got.cpu(), coll.two_hop_all_to_all(
+        a2a, "data", "pod", grid=on_cpu))
+    assert torch.equal(got.cpu(), a2a)
+    w = torch.from_numpy(rng.standard_normal((16, 16)).astype(np.float32)
+                         * 0.2)
+    x_mb = torch.from_numpy(rng.standard_normal((6, 2, 3, 16)).astype(
+        np.float32))
+
+    def stage_fn(wi, xi):
+        return torch.tanh(xi @ wi)
+    got = pipe.run_pipeline(stage_fn, w.to(dev), x_mb.to(dev),
+                            on_card.group("pod"), 1)
+    want = pipe.run_pipeline(stage_fn, w, x_mb, on_cpu.group("pod"), 1)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="gloo process group cannot carry "
+                                         "cuda"):
+        coll.proxy_psum(xs[0].to(dev), "data", "pod", grid=on_cpu)
+    with pytest.raises(ValueError, match="gloo process group cannot carry "
+                                         "cuda"):
+        pipe.run_pipeline(stage_fn, w.to(dev), x_mb.to(dev),
+                          on_cpu.group("pod"), 1)
 
 
 def test_product_sweep_on_card_equals_cpu(tmp_path):
