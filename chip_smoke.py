@@ -71,8 +71,8 @@ on past a failure:
    all four also on the per-step loop against the chunked one (BFS and
    SpMV with the ``EngineIds`` tap, timed beside the chunked run by
    ``LoopClock``: cut from phases 5 and 6's RMAT-22 by the time limit;
-   PageRank's per-step runs at one epoch against a chunked run at one
-   epoch, cut from three by the time limit);
+   PageRank's per-step runs at one epoch on RMAT-14 against a chunked
+   run there, cut from three epochs at RMAT-18 by the time limit);
    BFS and PageRank with ``compaction=3`` on both loops against the
    dense chunked run (window overflows printed), and on the chunked loop
    with ``torch`` against ``kernels``; PageRank against its oracle;
@@ -126,10 +126,9 @@ on past a failure:
    double buffer, below with it); at RMAT-18, Table-II, BFS and
    SpMV (cascade cut at the chip boundary) with both on,
    ``compaction=2``, below their synchronous dense runs in ``time_s``
-   and equal to them otherwise, on the torch backend chunked and on
-   the per-step loop; at RMAT-14 (cut from RMAT-18 by the time limit)
-   both on the torch backend's per-step loop against the kernels'
-   chunked run
+   and equal to them otherwise, and on the torch backend chunked; at
+   RMAT-14 (cut from RMAT-18 by the time limit) both on the per-step
+   loop, on each backend, against the kernels' chunked run
    (counters, trace, supersteps, ``time_s`` exact; BFS values bitwise,
    SpMV within rtol 1e-4 / atol 1e-5, and against scipy); 20 profiled
    graph replays of BFS RMAT-18 on 4 chips synchronous, double-buffered
@@ -167,9 +166,10 @@ on past a failure:
     exchange's all-gather and the stats' all-gather run (captured in the
     CUDA graphs on the chunked loop), chunked, equal to phase 10's
     in-process run (values bitwise; counters, trace, supersteps,
-    ``time_s``) with phase 10's host syncs; 10b's RMAT-18 BFS on the
-    per-step loop (two NCCL calls from the host a superstep, so RMAT-18),
-    equal to 10b's synchronous run, at least two all-gathers a superstep;
+    ``time_s``) with phase 10's host syncs; BFS on 4 chips at RMAT-14 on
+    the per-step loop (two NCCL calls from the host a superstep, so
+    RMAT-14: cut from RMAT-18 by the time limit), equal to an in-process
+    chunked run there, at least two all-gathers a superstep;
     ms a superstep, peak memory and graphs captured beside phase 10's;
     20 profiled replays of BFS RMAT-18 on the group beside phase 10's
     (device entries and busy ms; the all-gathers captured, none issued
@@ -275,8 +275,9 @@ on past a failure:
     decode_attention calls within ``DECODE_TOL`` of the plain version),
     then decode_attention at one shared layer of the served cache (B 8,
     Hkv 32, T 256, D 64, G 1) against its plain version and SDPA, then
-    zamba2 through ``launch.train.main`` (AdamW, 8 x 1,024 tokens, 4
-    steps; finite losses and grad norms, peak below ``TRAIN_PEAK_GIB``,
+    zamba2 through ``launch.train.main`` (AdamW, 8 x 1,024 tokens, 2
+    steps, cut from 4 by the time limit; finite losses and grad norms,
+    peak below ``TRAIN_PEAK_GIB``,
     ms a step by CUDA events and 6NT's share of the bf16 peak); (b)
     whisper-tiny through ``generate`` (B 8, 1,500 frames, a 4-token
     decoder prompt, 32 tokens; decode_attention 4 launches a step at B
@@ -287,7 +288,8 @@ on past a failure:
     (c) xlstm-1.3b through ``ServeScheduler`` as in (a) and through
     ``generate`` (B 4, a 256-token prompt, 16 tokens; the decode
     state's bytes), no kernel launched, then trained (8 x 256 tokens,
-    seq cut from 1,024 for the sLSTM time loop, 4 steps); (d) the
+    seq cut from 1,024 for the sLSTM time loop, 2 steps, cut from 4 by
+    the time limit); (d) the
     reduced three card vs CPU: a decode step in f32 and bf16
     (``SERVE_LOGIT_TOL``), 2 AdamW steps in f32 (phase 17 (e)'s
     ``MOE_TRAIN_RTOL`` / ``MOE_UPDATE_RTOL``);
@@ -311,7 +313,18 @@ on past a failure:
     4 microbatches of 2 x 1,024 tokens' embeddings, against the whole
     batch through the same blocks within ``PIPE_RMS_TOL``; ms a
     microbatch;
-20. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
+20. the sharded train step (ROADMAP A.10d-2; ``repro_torch.launch``
+    ``shardings``, ``mesh``, ``make_train_step(shardings=)``,
+    ``DataPipeline(mesh=)``) on a 1 x 1 ("data", "model") grid over a
+    one-rank NCCL group: granite-moe-1b-a400m at full width, AdamW, its
+    state placed by the rules (``fsdp=True``), 8 x 1,024-token batches
+    through ``DataPipeline(mesh=)``, 2 sharded steps in turns with 2
+    plain steps from the same state on the same batches: losses, grad
+    norms and every parameter and moment bitwise equal (one rank's
+    gathers and sums are copies); ms a step each way (CUDA events), the
+    step's parameter gathers and ``proxy_psum_tree`` inside it (CUDA
+    events), peak memory each way; no kernel launched;
+21. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
     the last line, ``{"ok": true, "device": {...}}``.
 
 Every app run prints its supersteps, wall seconds, ms per superstep,
@@ -324,7 +337,7 @@ of live records in runs of neighbours and repeated in their slice, and
 the atomics a fold would leave.
 
 Each main-path run (phases 5-8, 6b, 9b, the RMAT-22 runs of 10,
-10b and 11, 15's serving runs, 17's, 18's and 19's) sets every
+10b and 11, 15's serving runs, 17's, 18's, 19's and 20's) sets every
 kernel's launch count to 0 just before it and reads the counts just
 after; a kernel on the path that did not launch (at least once per
 superstep, on the engine's paths) fails the run.  The JSON line counts
@@ -342,8 +355,9 @@ counts in (a) plus the kernels the profiler sees in (b)), and phase
 (d) under ``train_moe`` (none), and phase 18's serving runs under
 ``serve_hybrid``, ``serve_encdec`` and ``serve_xlstm`` (none) and its
 training under ``train_hybrid``, ``train_encdec`` and ``train_xlstm``
-(none), and phase 19's (a)-(c) under ``collectives`` and (d) under
-``pipeline`` (none).  A graph replay counts the launches
+(none), phase 19's (a)-(c) under ``collectives`` and (d) under
+``pipeline`` (none), and phase 20's sharded steps under
+``sharded_train`` (none).  A graph replay counts the launches
 captured in it, so on the chunked loop the counts include the idle rows
 of a chunk (after the run drained, or after a flush the device
 scheduled), which are printed as the surplus.
@@ -376,6 +390,7 @@ AGREE_SCALE = 18               # backend agreement and PageRank
 SPMV_KERNEL_SCALE = 14         # ops.spmv: ELL-padded BCSR densifies RMAT
 PAGERANK_EPOCHS = 3
 PAGERANK_LOOP_EPOCHS = 1       # PageRank's per-step runs (the time limit)
+PAGERANK_LOOP_SCALE = 14       # and their graph (the time limit)
 
 ADD_RTOL, ADD_ATOL = 1e-5, 1e-6   # f32 re-association of atomic adds
 SPMV_RTOL, SPMV_ATOL = 1e-4, 1e-4     # tests/test_kernels.py (spmv_bcsr)
@@ -1786,15 +1801,19 @@ def agreement_phase(dev, wl) -> None:
                 dev, name, runs[0], fn, args,
                 dict(kw, oq_cap=OQ_CAP, backend="kernels"),
                 *(tol or (None, None))))
-        # PageRank's per-step runs at one epoch, against a chunked run at
-        # one epoch (cut from three by the time limit)
-        loop_kw, loop_base = kw, runs[0]
+        # PageRank's per-step runs at one epoch on RMAT-14, against a
+        # chunked run there (cut from three epochs, then from RMAT-18, by
+        # the time limit)
+        loop_args, loop_kw, loop_base = args, kw, runs[0]
         if name == "pagerank":
+            loop_args = (wl[PAGERANK_LOOP_SCALE], grid)
             loop_kw = dict(kw, epochs=PAGERANK_LOOP_EPOCHS)
-            loop_base = app_run(dev, f"{name} {PAGERANK_LOOP_EPOCHS} epoch",
-                                fn, *args, oq_cap=OQ_CAP, **loop_kw)[0]
+            loop_base = app_run(
+                dev, f"{name} RMAT-{PAGERANK_LOOP_SCALE} "
+                f"{PAGERANK_LOOP_EPOCHS} epoch", fn, *loop_args,
+                oq_cap=OQ_CAP, **loop_kw)[0]
         if name in ("histo", "pagerank"):
-            per_step = app_run(dev, name, fn, *args, oq_cap=OQ_CAP,
+            per_step = app_run(dev, name, fn, *loop_args, oq_cap=OQ_CAP,
                                run_chunk=0, **loop_kw)[0]
             same_run(loop_base, per_step, f"{name} chunked vs per-step loop",
                      *(tol or (None, None)))
@@ -1807,7 +1826,8 @@ def agreement_phase(dev, wl) -> None:
                                    (EngineConfig.run_chunk, "kernels"),
                                    (EngineConfig.run_chunk, "torch")):
                 before = counter_values("engine.window_overflows")
-                comp = app_run(dev, f"{name} compacted", fn, *args,
+                comp = app_run(dev, f"{name} compacted", fn,
+                               *(loop_args if chunk == 0 else args),
                                oq_cap=OQ_CAP, run_chunk=chunk,
                                compaction=COMPACTION, backend=backend,
                                **(loop_kw if chunk == 0 else kw))[0]
@@ -2270,7 +2290,7 @@ def overlap_phase(dev, wl) -> dict:
                 chips=PART_CHIPS, oq_cap=OQ_CAP)
     print(f"  RMAT-{AGREE_SCALE}, Table-II, {PART_CHIPS} chips, "
           f"double_buffer and compaction={OVERLAP_AGREE_COMPACTION}: both "
-          f"backends chunked, the per-step loop on kernels")
+          f"backends chunked")
     bfs_px = apps.table2_proxy(grid, "bfs")
     bfs_sync, _, bfs_read = app_run(
         dev, f"bfs {PART_CHIPS} chips synchronous dense", apps.bfs, g18,
@@ -2308,19 +2328,18 @@ def overlap_phase(dev, wl) -> dict:
         ratio = reprice_ratio(aargs[0], grid, base)
         require(abs(ratio - 1.0) < REPRICE_TOL,
                 f"{label}: reprice ratio {ratio!r}")
-        # the torch backend on the chunked loop, the per-step loop on the
-        # kernels (the torch backend's per-step run at RMAT-14, below)
-        for backend, chunk in (("torch", 16), ("kernels", 0)):
-            other = app_run(dev, label, afn, *aargs, proxy=px,
-                            backend=backend, run_chunk=chunk, **both)[0]
-            same_run(base, other, f"{label} kernels chunked vs {backend} "
-                     f"run_chunk={chunk}", *tol)
+        # the torch backend on the chunked loop (the per-step loop, on
+        # both backends, at RMAT-14 below)
+        other = app_run(dev, label, afn, *aargs, proxy=px, backend="torch",
+                        **both)[0]
+        same_run(base, other, f"{label} kernels chunked vs torch chunked",
+                 *tol)
         if name == "spmv":
             check_spmv(g18, x, base.values, f"SpMV {PART_CHIPS} chips both y")
     print(f"  RMAT-{AGREE_SCALE} runs {time.perf_counter() - t0:.1f} s")
 
-    # the torch backend on the per-step loop with both options, against
-    # the kernels' chunked run, at RMAT-14 (cut from RMAT-18 by the time
+    # the per-step loop with both options, on both backends, against the
+    # kernels' chunked run, at RMAT-14 (cut from RMAT-18 by the time
     # limit)
     t0 = time.perf_counter()
     scale = OVERLAP_TORCH_STEP_SCALE
@@ -2328,8 +2347,8 @@ def overlap_phase(dev, wl) -> dict:
     roots = int(np.argmax(gs.out_degree()))
     xs = np.random.default_rng(SEED).random(gs.n_cols).astype(np.float32)
     print(f"  RMAT-{scale}, Table-II, {PART_CHIPS} chips, double_buffer and "
-          f"compaction={OVERLAP_AGREE_COMPACTION}: torch on the per-step "
-          f"loop against kernels chunked")
+          f"compaction={OVERLAP_AGREE_COMPACTION}: the per-step loop on "
+          f"both backends against kernels chunked")
     for name, afn, aargs, px, tol in (
             ("bfs", apps.bfs, (gs, roots, grid), bfs_px, (None, None)),
             ("spmv", apps.spmv, (gs, xs, grid),
@@ -2341,10 +2360,11 @@ def overlap_phase(dev, wl) -> dict:
             check_bfs(gs, roots, base)
         else:
             check_spmv(gs, xs, base.values, f"SpMV RMAT-{scale} both y")
-        other = app_run(dev, label, afn, *aargs, proxy=px, backend="torch",
-                        run_chunk=0, **both)[0]
-        same_run(base, other, f"{label} kernels chunked vs torch "
-                 f"run_chunk=0", *tol)
+        for backend in ("kernels", "torch"):
+            other = app_run(dev, label, afn, *aargs, proxy=px,
+                            backend=backend, run_chunk=0, **both)[0]
+            same_run(base, other, f"{label} kernels chunked vs {backend} "
+                     f"run_chunk=0", *tol)
     print(f"  RMAT-{scale} runs {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -2666,6 +2686,7 @@ def fault_phase(dev, wl) -> dict:
 
 # ---------------------------------------------------------- 12. ranks
 RANKS_TIMEOUT_S = 300           # the group's: a stuck collective raises
+RANKS_STEP_SCALE = 14           # the per-step run's graph (the time limit)
 
 
 class GatherCount:
@@ -2692,8 +2713,9 @@ class GatherCount:
 def ranks_phase(dev, wl) -> dict:
     """ROADMAP A.5c on the card: phase 10's RMAT-22 BFS on 4 chips through
     a one-rank NCCL group on the chunked loop, equal to phase 10's
-    in-process run, and 10b's RMAT-18 BFS on the per-step loop, equal to
-    10b's synchronous run; profiled replays at RMAT-18 beside phase 10's;
+    in-process run, and BFS at RMAT-14 on the per-step loop, equal to
+    an in-process run there; profiled replays at RMAT-18 beside phase
+    10's;
     SpMV RMAT-18 with both options equal to phase 10b's run.  Returns the
     two BFS runs' launches, summed."""
     import datetime
@@ -2708,10 +2730,16 @@ def ranks_phase(dev, wl) -> dict:
     g18 = wl[AGREE_SCALE]
     root18 = int(np.argmax(g18.out_degree()))
     # the per-step loop makes two NCCL calls from the host a superstep
-    # (~19 ms a superstep at RMAT-22): it runs at RMAT-18
+    # (~19 ms a superstep at RMAT-22): it runs at RMAT-14 (cut from
+    # RMAT-18 by the time limit), beside an in-process run there
+    g14 = wl[RANKS_STEP_SCALE]
+    root14 = int(np.argmax(g14.out_degree()))
+    small = app_run(dev, f"bfs RMAT-{RANKS_STEP_SCALE} {PART_CHIPS} chips "
+                    f"in-process", fn, g14, root14, grid, chips=PART_CHIPS,
+                    **kw)
     runs = ((SCALE, None, args, wl["partition"]["bfs"], "phase 10"),
-            (AGREE_SCALE, 0, (g18, root18, grid),
-             wl["partition"][f"bfs RMAT-{AGREE_SCALE}"], "phase 10b"))
+            (RANKS_STEP_SCALE, 0, (g14, root14, grid), (small[0], small[2]),
+             f"RMAT-{RANKS_STEP_SCALE}"))
     launches, readings = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group(
@@ -4362,17 +4390,18 @@ XLSTM_SERVE = dict(HYBRID_SERVE, arch="xlstm-1.3b",
 WHISPER_GEN = dict(arch="whisper-tiny", batch=8, frames=1500, prompt=4,
                    tokens=32)
 XLSTM_GEN = dict(arch="xlstm-1.3b", batch=4, prompt=256, tokens=16)
-# training: the launcher's AdamW, 4 steps; gates finite losses and grad
-# norms and the peak.  whisper: 1,500 frames (max_source_positions) and
-# the launcher's 448 decoder tokens.  xlstm: seq cut 1,024 -> 256 (its
-# six sLSTMs run a Python loop over the positions, ~20 launches each, in
-# the forward, the remat's second forward and the backward)
+# training: the launcher's AdamW, 4 steps (zamba2 and xlstm cut to 2 by
+# the time limit: one timed after the first); gates finite losses and
+# grad norms and the peak.  whisper: 1,500 frames (max_source_positions)
+# and the launcher's 448 decoder tokens.  xlstm: seq cut 1,024 -> 256
+# (its six sLSTMs run a Python loop over the positions, ~20 launches
+# each, in the forward, the remat's second forward and the backward)
 RECURRENT_TRAIN = (
-    dict(arch="zamba2-1.2b", steps=4, batch=8, seq=1024, lr=1e-4,
+    dict(arch="zamba2-1.2b", steps=2, batch=8, seq=1024, lr=1e-4,
          descend=False),
     dict(arch="whisper-tiny", steps=4, batch=8, seq=1500, lr=1e-4,
          descend=False),
-    dict(arch="xlstm-1.3b", steps=4, batch=8, seq=256, lr=1e-4,
+    dict(arch="xlstm-1.3b", steps=2, batch=8, seq=256, lr=1e-4,
          published_seq=1024, descend=False))
 # (d): phase 17 (e)'s check over the reduced configs of the three
 RECURRENT_SMALL = dict(archs=("zamba2-1.2b", "whisper-tiny", "xlstm-1.3b"),
@@ -4911,6 +4940,302 @@ def collectives_phase(dev, smi) -> dict:
     return paths
 
 
+# ------------------------- 20. the sharded train step (ROADMAP A.10d-2)
+# phase 17's width, batch and lr; one step each way before the 2 timed
+# and compared (the first step of each holds the allocator's growth and,
+# in the sharded step, NCCL's first use of a group)
+SHARD = dict(arch="granite-moe-1b-a400m", warm=1, steps=2, batch=8,
+             seq=1024, lr=1e-4, fsdp=True)
+
+
+class EventSpans:
+    """While entered, ``module.name`` is wrapped so that each call is
+    bracketed by a pair of CUDA events; ``ms()`` sums the spans since the
+    last ``clear()`` (after a synchronise)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.spans = module, name, []
+
+    def __enter__(self):
+        self.fn = fn = getattr(self.module, self.name)
+
+        def timed(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            self.spans.append((a, b))
+            return out
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+    def clear(self):
+        self.spans = []
+
+    def ms(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.spans)
+
+
+class HostCalls:
+    """While entered, counts the collective calls the host issues
+    (``torch.distributed.all_reduce`` and the tiled all-gather, all the
+    sharded step makes) and sums their host seconds."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+        from repro_torch.core import collectives as coll
+        self.n, self.s, self._saved = 0, 0.0, []
+        for mod, name in ((dist, "all_reduce"),
+                          (coll, "_all_gather_single")):
+            fn = getattr(mod, name)
+            self._saved.append((mod, name, fn))
+            setattr(mod, name, self._timed(fn))
+        return self
+
+    def _timed(self, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.n += 1
+            self.s += time.perf_counter() - t0
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def step_profile(fn, st, batch) -> tuple:
+    """One step ``fn(st, batch)`` under ``torch.profiler`` (device
+    activity only: tracing the host's ops too took ~15 s of the phase on
+    an H100 80GB HBM3's host) with the host's collective calls counted
+    and timed (``HostCalls``):
+    (the new state, dict of the step's wall ms, device busy ms, the NCCL
+    kernels' device ms, the collective calls and their host ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with HostCalls() as calls, \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        st, _ = fn(st, batch)
+        torch.cuda.synchronize()
+    out = dict(wall_ms=(time.perf_counter() - t0) * 1e3, device_busy_ms=0.0,
+               nccl_device_ms=0.0, collectives=calls.n,
+               collective_host_ms=calls.s * 1e3)
+    for e in prof.key_averages():
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            ms = getattr(e, "self_device_time_total", 0.0) / 1e3
+            out["device_busy_ms"] += ms
+            if "nccl" in e.key.lower():
+                out["nccl_device_ms"] += ms
+    return st, out
+
+
+def sharded_train_readings(dev, smi, grid) -> tuple:
+    """Phase 20's steps: the plain step and the sharded step in turns
+    from one state on the same batches; returns (readings, launches of
+    the six kernels in the sharded steps)."""
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.data import DataPipeline
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.kernels import ops
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.train import batch_source, make_optimizer
+    from repro_torch.models import registry
+    from repro_torch.training import Shardings, TrainState, make_train_step
+    from repro_torch.training import train_step as ts_mod
+    t = SHARD
+    cfg, fam = registry.get(t["arch"])
+    t0 = time.perf_counter()
+    opt = make_optimizer(cfg, t["lr"], 1)
+    plain = TrainState.create(fam["init"](
+        cfg, torch.Generator(device=dev).manual_seed(0), dev), opt)
+    specs = sh.train_state_specs(plain, grid, fsdp=t["fsdp"])
+    state = sh.place(plain, specs, grid, dev)
+    n_sharded = sum(any(e is not None for e in s) for s in specs.values())
+    step = make_train_step(cfg, fam, opt)
+    sharded = make_train_step(cfg, fam, opt,
+                              shardings=Shardings(grid, specs))
+    # the blocks come through the pipeline before the steps: its worker
+    # thread's batch_at (~0.8 s of Python a batch) beside the host-bound
+    # step slows the step (+1.08 s a step on an H100 80GB HBM3's host;
+    # PERF.md)
+    n = t["warm"] + t["steps"]
+    src, _ = batch_source(cfg, t["seq"], t["batch"])
+    pipe = DataPipeline(src, device=dev, prefetch=n, mesh=grid,
+                        batch_axes=sh.batch_axes(grid))
+    try:
+        blocks = [next(pipe) for _ in range(n)]
+    finally:
+        pipe.close()
+    hosts = [src.batch_at(i) for i in range(n)]
+    for i, (block, host) in enumerate(zip(blocks, hosts)):
+        require(all(torch.equal(block[k].cpu(), torch.from_numpy(host[k]))
+                    for k in host),
+                f"sharded train: DataPipeline(mesh=) block {i} is not the "
+                f"batch (a 1 x 1 grid's block is whole)")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    runs = dict(plain=dict(ms=[], wall_ms=[], peak_gib=[], step_gib=[],
+                           metrics=[]),
+                sharded=dict(ms=[], wall_ms=[], peak_gib=[], step_gib=[],
+                             metrics=[], gather_ms=[], psum_ms=[]))
+    launches = {}
+
+    def timed(which, fn, st, batch):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        w0 = time.perf_counter()
+        a.record()
+        st, m = fn(st, batch)
+        b.record()
+        torch.cuda.synchronize()
+        r = runs[which]
+        r["wall_ms"].append((time.perf_counter() - w0) * 1e3)
+        r["ms"].append(a.elapsed_time(b))
+        peak = torch.cuda.max_memory_allocated()
+        r["peak_gib"].append(peak / 2**30)
+        r["step_gib"].append((peak - before) / 2**30)
+        r["metrics"].append(m)
+        return st
+
+    with EventSpans(sh, "gather_leaf") as gathers, \
+            EventSpans(ts_mod, "proxy_psum_tree") as psums:
+        for host, block in zip(hosts, blocks):
+            plain = timed("plain", step, plain, to_device(host, dev))
+            gathers.clear()
+            psums.clear()
+            ops.reset_launches()
+            state = timed("sharded", sharded, state, block)
+            for k, c in ops.launch_counts().items():
+                launches[k] = launches.get(k, 0) + c
+            runs["sharded"]["gather_ms"].append(gathers.ms())
+            runs["sharded"]["psum_ms"].append(psums.ms())
+            runs["sharded"]["gathers"] = len(gathers.spans)
+    worst, unequal = 0.0, []
+    for k, want in flatten(plain).items():
+        got = sh.gather_leaf(flatten(state)[k], specs[k], grid)
+        if not torch.equal(got, want):
+            unequal.append(k)
+            worst = max(worst, float((got.double() - want.double())
+                                     .abs().max()))
+        del got
+    metrics = {w: [{k: float(v) for k, v in m.items()}
+                   for m in runs[w].pop("metrics")] for w in runs}
+    for r in runs.values():
+        r["steady_ms"] = sum(r["ms"][t["warm"]:]) / t["steps"]
+    equal_metrics = metrics["plain"] == metrics["sharded"]
+    require(equal_metrics and not unequal,
+            f"sharded train: not bitwise the plain step (metrics "
+            f"{json.dumps(metrics)}; {len(unequal)} leaves differ, first "
+            f"{unequal[:3]}, max |diff| {worst:.3e})")
+    require(all(math.isfinite(m["loss"]) for m in metrics["plain"]),
+            "sharded train: a loss is not finite")
+    # one more step each way under the profiler (after the comparison):
+    # where the sharded step's extra time goes, device or host
+    plain, runs["plain"]["profile"] = step_profile(
+        step, plain, to_device(hosts[-1], dev))
+    state, runs["sharded"]["profile"] = step_profile(sharded, state,
+                                                     blocks[-1])
+    tokens = t["batch"] * t["seq"]
+    leaves = len(flatten(plain))
+    read = dict(arch=t["arch"], grid=list(grid.shape), names=list(grid.names),
+                fsdp=t["fsdp"], optimizer=opt.name, tokens=tokens,
+                leaves=leaves, sharded_leaves=n_sharded, setup_s=setup_s,
+                param_bytes=sum(v.numel() * v.element_size()
+                                for v in flatten(plain.params).values()),
+                metrics=metrics["plain"], **runs)
+    del state, plain, blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    p, q = runs["plain"], runs["sharded"]
+    print(f"  {t['arch']} (L {cfg.n_layers}, d {cfg.d_model}, {cfg.n_experts}"
+          f" experts top-{cfg.top_k}; {read['param_bytes'] / 1e9:.3f} GB of "
+          f"parameters), {opt.name} lr {t['lr']}, {t['batch']} x {t['seq']} "
+          f"tokens, specs fsdp={t['fsdp']} on a {tuple(grid.shape)} "
+          f"{grid.names} grid ({n_sharded} of {leaves} state leaves named "
+          f"an axis), batches through DataPipeline(mesh=); set-up "
+          f"{setup_s:.1f} s [{smi}]")
+    print(f"      {n} steps each way in turns (the first a warm-up): "
+          f"losses "
+          f"{[round(m['loss'], 4) for m in metrics['plain']]}, grad norms "
+          f"{[round(m['grad_norm'], 4) for m in metrics['plain']]}; sharded "
+          f"bitwise the plain step (losses, grad norms, all {leaves} "
+          f"parameter and moment leaves)")
+    print(f"      plain {p['steady_ms']:.2f} ms a step after the warm-up, "
+          f"sharded {q['steady_ms']:.2f} (+{q['steady_ms'] - p['steady_ms']:.2f}"
+          f"); plain {[round(x, 2) for x in p['ms']]} ms (CUDA events; host "
+          f"wall {[round(x, 2) for x in p['wall_ms']]}), sharded "
+          f"{[round(x, 2) for x in q['ms']]} "
+          f"({[round(x, 2) for x in q['wall_ms']]}); inside the sharded "
+          f"step the {q['gathers']} parameter gathers "
+          f"{[round(x, 3) for x in q['gather_ms']]} ms and proxy_psum_tree "
+          f"{[round(x, 3) for x in q['psum_ms']]} ms")
+    print(f"      peak {[round(x, 2) for x in p['peak_gib']]} GiB plain, "
+          f"{[round(x, 2) for x in q['peak_gib']]} sharded (both states "
+          f"resident); above the memory held before the step "
+          f"{[round(x, 2) for x in p['step_gib']]} / "
+          f"{[round(x, 2) for x in q['step_gib']]} GiB; launches "
+          f"{json.dumps(launches)}")
+    a, b = p["profile"], q["profile"]
+    print(f"      one step each way under the profiler: wall "
+          f"{a['wall_ms']:.1f} / {b['wall_ms']:.1f} ms, device busy "
+          f"{a['device_busy_ms']:.1f} / {b['device_busy_ms']:.1f} (NCCL "
+          f"kernels {a['nccl_device_ms']:.2f} / {b['nccl_device_ms']:.2f}), "
+          f"host collective calls {a['collectives']} / {b['collectives']} "
+          f"({a['collective_host_ms']:.1f} / {b['collective_host_ms']:.1f} "
+          f"ms of host time; plain / sharded)")
+    return read, launches
+
+
+def sharded_train_phase(dev, smi) -> dict:
+    """ROADMAP A.10d-2 on the card: granite-moe at full width, its state
+    placed by the rules on a 1 x 1 ("data", "model") grid over a one-rank
+    NCCL group, two sharded steps in turns with two plain steps from the
+    same state on the same batches.  Returns the launch counts of path
+    ``sharded_train``."""
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.core import collectives as coll
+    print(f"== 20. the sharded train step on one NCCL rank at full width "
+          f"(repro_torch.launch shardings, mesh; training make_train_step("
+          f"shardings=); one rank's gathers and sums are device copies) "
+          f"[{smi}]")
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/store", rank=0,
+            world_size=1,
+            timeout=datetime.timedelta(seconds=RANKS_TIMEOUT_S))
+        try:
+            grid = coll.make_grid((1, 1), ("data", "model"))
+            for axes in grid.groups:            # each group's first use
+                coll.all_gather(torch.zeros(1, device=dev), axes, grid=grid)
+            read, launches = sharded_train_readings(dev, smi, grid)
+        finally:
+            dist.destroy_process_group()
+    require(sum(launches.values()) == 0,
+            f"sharded_train: a kernel launched {json.dumps(launches)}")
+    took = time.perf_counter() - t_phase
+    print(f"    launches {json.dumps(dict(sharded_train=launches))}")
+    print(f"  sharded train readings {json.dumps(read)}")
+    print(f"  sharded train phase {took:.1f} s")
+    return dict(sharded_train=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4956,6 +5281,7 @@ def main() -> int:
                                                               rec["b"])
     decode_row["shapes"] += [rec["a"]["after"], rec["b"]["after"]]
     by_path.update(collectives_phase(dev, c["smi"]))
+    by_path.update(sharded_train_phase(dev, c["smi"]))
     for row in rows:
         row["launches_by_path"] = {p: n[row["name"]]
                                    for p, n in by_path.items()}
@@ -4963,7 +5289,7 @@ def main() -> int:
         require(row["launches"] > 0,
                 f"{row['name']} never launched on a main path")
 
-    print(f"== 20. done in {time.perf_counter() - t_start:.1f} s")
+    print(f"== 21. done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(c["smi"])
     print(json.dumps({"ok": True, "device": {

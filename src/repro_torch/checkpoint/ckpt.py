@@ -121,19 +121,21 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
-def _unflatten(template, leaves: dict, prefix: str = ""):
+def unflatten(template, leaves: dict, prefix: str = ""):
+    """The structure of ``template`` with the leaves of ``leaves`` (keyed
+    as ``flatten`` keys them)."""
     if template is None:
         return None
     if _is_node(template):
         return dataclasses.replace(template, **{
-            f.name: _unflatten(getattr(template, f.name), leaves,
+            f.name: unflatten(getattr(template, f.name), leaves,
                                f"{prefix}.{f.name}")
             for f in dataclasses.fields(template)})
     if isinstance(template, dict):
-        return {k: _unflatten(v, leaves, f"{prefix}[{k!r}]")
+        return {k: unflatten(v, leaves, f"{prefix}[{k!r}]")
                 for k, v in template.items()}
     if isinstance(template, (list, tuple)):
-        return type(template)(_unflatten(v, leaves, f"{prefix}[{i}]")
+        return type(template)(unflatten(v, leaves, f"{prefix}[{i}]")
                               for i, v in enumerate(template))
     return leaves[prefix]
 
@@ -255,9 +257,9 @@ def restore_checkpoint(directory: str, template: Tree,
     Leaves come back as tensors of the logical dtype the manifest names,
     on the CPU, or on the device ``placement(key, shape)`` returns (None:
     the CPU): the device that wrote the checkpoint does not matter
-    (elastic restart); a ``(device, rows)`` pair keeps the leaf's
-    ``rows`` only (one rank's block).  The newest step when ``step`` is
-    None."""
+    (elastic restart); a ``(device, index)`` pair keeps the leaf's
+    ``index`` only (one rank's block: rows, or a tuple of slices, one a
+    dim).  The newest step when ``step`` is None."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -283,13 +285,14 @@ def restore_checkpoint(directory: str, template: Tree,
                                  f"template {want}")
             if placement is not None:
                 dev = placement(key, tuple(arr.shape))
-                if isinstance(dev, tuple):      # (device, rows): a block
-                    dev, rows = dev
-                    arr = arr[rows]
+                if isinstance(dev, tuple):      # (device, index): a block
+                    dev, index = dev
+                    arr = arr[index].clone(
+                        memory_format=torch.contiguous_format)
                 if dev is not None:
                     arr = arr.to(dev)
             out[key] = arr
     finally:
         for npz in shards.values():
             npz.close()
-    return _unflatten(template, out)
+    return unflatten(template, out)

@@ -17,7 +17,8 @@ hybrid's ``shared``).  Every other leaf keeps its layout: MLA's latent
 time axis.  ``train_state_from_numpy`` / ``train_state_to_numpy``
 carry a training state (parameters, the optimizer's f32 moments in the
 parameters' structure -- AdamW's ``mu`` / ``nu``, Adafactor's ``vr`` /
-``vc`` / ``v`` -- and the step), so both packages can start from one.
+``vc`` / ``v`` -- and the step), so both packages can start from one;
+on a grid, the state goes straight into this rank's blocks.
 """
 from __future__ import annotations
 
@@ -150,19 +151,26 @@ def _field(state, name):
     return state[name] if isinstance(state, dict) else getattr(state, name)
 
 
-def train_state_from_numpy(np_state, device):
+def train_state_from_numpy(np_state, device, grid=None, specs=None):
     """A training state as numpy (a dict, or any object, with
     ``params``, ``opt_state`` and ``step``: the reference's
     ``TrainState`` after ``jax.device_get``) as the port's
     ``TrainState`` on ``device``: each leaf keeps its dtype, the step a
-    0-d int32 tensor."""
+    0-d int32 tensor.  With ``grid`` and ``specs`` (by key string,
+    ``launch.shardings.train_state_specs``) each leaf is cut to this
+    rank's block on the host, and only the block goes to ``device``."""
     from .training.train_step import TrainState
     dev = torch.device(device)
-    return TrainState(
-        params=lm_params_from_numpy(_field(np_state, "params"), dev),
-        opt_state=lm_params_from_numpy(_field(np_state, "opt_state"), dev),
+    host = dev if grid is None else torch.device("cpu")
+    state = TrainState(
+        params=lm_params_from_numpy(_field(np_state, "params"), host),
+        opt_state=lm_params_from_numpy(_field(np_state, "opt_state"), host),
         step=torch.tensor(int(np.asarray(_field(np_state, "step"))),
-                          dtype=torch.int32, device=dev))
+                          dtype=torch.int32, device=host))
+    if grid is None:
+        return state
+    from .launch.shardings import place
+    return place(state, specs, grid, dev)
 
 
 def train_state_to_numpy(state) -> dict:

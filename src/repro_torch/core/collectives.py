@@ -374,6 +374,12 @@ def compressed_proxy_psum(x, region_axis: str, cross_axis: Optional[str],
 # --------------------------------------------------------------------------
 # off-chip record exchange (the distributed tile-grid runtime's boundary leg)
 # --------------------------------------------------------------------------
+def all_gather(x, axes, *, grid: Grid):
+    """``x`` of every rank along ``axes`` (a name or names), concatenated
+    along dim 0 in the group's row-major order of those axes."""
+    return _all_gather(x, grid.group(axes))
+
+
 def gather_records(parts, axis: str, *, grid: Grid):
     """Exchange compact off-chip record buffers across ``axis``.
 

@@ -1,31 +1,49 @@
-"""Host -> device data pipeline with background prefetch, the port of
-``repro/data/pipeline.py`` (one device; placement over a mesh waits for
-ROADMAP A.10d).
+"""Host -> device data pipeline: sharded placement + background prefetch,
+the port of ``repro/data/pipeline.py``.
 
-A single background thread keeps ``prefetch`` batches in flight, each
-already on the device, so host generation overlaps device compute (the
-standard input-pipeline overlap).  On the card each array is copied
-from pinned host memory with ``non_blocking=True``.
+A batch is laid out over a grid's batch axes: each rank keeps its own
+block of every leaf along dim 0 (``shard_batch``, the counterpart of a
+``NamedSharding`` over ``P(batch_axes)``).  A single background thread
+keeps ``prefetch`` batches in flight, each already on the device, so
+host generation overlaps device compute (the standard input-pipeline
+overlap).  On the card each array is copied from pinned host memory
+with ``non_blocking=True``.
 """
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, Optional
+from typing import Iterator
 
 import numpy as np
 import torch
 
 from .. import device as device_mod
 
-_MESH = ("sharding a batch over a mesh is not ported yet (ROADMAP A.10d); "
-         "the port's pipeline places it on one device")
 
-
-def shard_batch(batch: dict, mesh, batch_axes=("data",)):
-    """Place a host batch onto the mesh, sharded over batch_axes (not
-    ported yet)."""
-    raise NotImplementedError(_MESH)
+def shard_batch(batch: dict, grid, batch_axes=("data",), device=None):
+    """This rank's block of a host batch over ``batch_axes`` (those the
+    grid has): each leaf's rows ``r * B / n`` to ``(r + 1) * B / n``,
+    ``n`` the axes' size and ``r`` this rank's row-major index along
+    them, on ``device``; a 0-d leaf whole.  A leading dim the axes do
+    not divide raises ``ValueError``."""
+    axes = tuple(a for a in batch_axes if a in grid.names)
+    sizes = dict(zip(grid.names, grid.shape))
+    at = dict(zip(grid.names, grid.coords))
+    r, n = 0, 1
+    for a in axes:
+        r, n = r * sizes[a] + at[a], n * sizes[a]
+    out = {}
+    for k, v in batch.items():
+        v = np.asarray(v)
+        if v.ndim >= 1:
+            if v.shape[0] % n:
+                raise ValueError(f"batch leaf {k!r}: {v.shape[0]} rows do "
+                                 f"not divide over {axes} ({n} blocks)")
+            b = v.shape[0] // n
+            v = v[r * b:(r + 1) * b]
+        out[k] = v
+    return to_device(out, device_mod.resolve(device))
 
 
 def to_device(batch: dict, device) -> dict:
@@ -43,12 +61,16 @@ def to_device(batch: dict, device) -> dict:
 
 
 class DataPipeline:
+    """``source.batch_at(step)`` from ``start_step`` on, on ``device``;
+    with ``mesh`` (a grid), this rank's block of each over
+    ``batch_axes`` (``shard_batch``)."""
+
     def __init__(self, source, device=None, prefetch: int = 2,
-                 start_step: int = 0, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
+                 start_step: int = 0, mesh=None, batch_axes=("data",)):
         self.source = source
         self.device = device_mod.resolve(device)
+        self.mesh = mesh
+        self.batch_axes = batch_axes
         self.step = start_step
         self._q: queue.Queue = queue.Queue(maxsize=max(prefetch, 1))
         self._stop = threading.Event()
@@ -58,7 +80,12 @@ class DataPipeline:
     def _worker(self):
         step = self.step
         while not self._stop.is_set():
-            batch = to_device(self.source.batch_at(step), self.device)
+            batch = self.source.batch_at(step)
+            if self.mesh is not None:
+                batch = shard_batch(batch, self.mesh, self.batch_axes,
+                                    self.device)
+            else:
+                batch = to_device(batch, self.device)
             while not self._stop.is_set():
                 try:
                     self._q.put((step, batch), timeout=0.5)
@@ -76,4 +103,7 @@ class DataPipeline:
         return batch
 
     def close(self):
+        """Stop the worker and wait for it (it finishes the batch in
+        hand)."""
         self._stop.set()
+        self._thread.join()

@@ -36,15 +36,28 @@ holds at most one token, so every value is the same and only the
 combine's sum over k is re-associated.  The sharding hints
 (``constrain``, ``wload``, ``TWO_HOP_DISPATCH``) are no-ops without a
 mesh and are left out.
+
+The MoE layer is the one place where the batch couples: its dispatch
+groups are cut from the tokens of the *global* batch, and its aux loss
+is a product of means over all of them.  A sharded train step
+(``training/train_step.py``) sets the batch grid for its duration
+(``batch_grid``, the counterpart of the reference's launcher-set
+``BATCH_AXES``); each rank then routes its own tokens with the global
+group's size and capacity, starts each expert's capacity count where
+the earlier ranks of its group left off, and sums the aux loss's
+statistics over the batch ranks.  Without a grid nothing changes.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..core.collectives import all_gather
 from ..kernels import ops
 
 DTYPE = torch.bfloat16
@@ -288,6 +301,55 @@ def mlp(p, x, cfg):
 # ---------------------------------------------------------------------- moe
 MOE_GROUP = 2048             # GShard dispatch group size (the reference's)
 MOE_CF = 1.25                # expert capacity factor
+# (grid, batch axes) of the sharded train step running, else None
+BATCH_GRID = None
+
+
+@contextlib.contextmanager
+def batch_grid(grid, axes):
+    """The MoE layer's batch grid for the ``with`` block: this rank holds
+    its row-major block along ``axes`` of every batch the layer sees."""
+    global BATCH_GRID
+    prev, BATCH_GRID = BATCH_GRID, (grid, tuple(axes))
+    try:
+        yield
+    finally:
+        BATCH_GRID = prev
+
+
+def _batch_block():
+    """(grid, axes, n, r) of the batch grid: ``n`` blocks along the batch
+    axes, this rank's ``r`` (grid None, 1, 0 without one)."""
+    if BATCH_GRID is None:
+        return None, (), 1, 0
+    grid, axes = BATCH_GRID
+    sizes = dict(zip(grid.names, grid.shape))
+    at = dict(zip(grid.names, grid.coords))
+    r, n = 0, 1
+    for a in axes:
+        r, n = r * sizes[a] + at[a], n * sizes[a]
+    return grid, axes, n, r
+
+
+class _BatchSum(torch.autograd.Function):
+    """A sum over the batch ranks whose backward is the same sum of their
+    cotangents.  Every rank's loss holds the summed statistic, and the
+    step averages the ranks' gradients, so each rank's own terms must
+    carry the n ranks' cotangents: the mean of the ranks' gradients is
+    then the single-device one."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
 
 
 def _expert_stack(gen, e: int, rows: int, cols: int, scale: float):
@@ -359,22 +421,44 @@ def moe(p, x, cfg, group_size: int = 0, capacity_factor: float = 0.0):
     group_size = group_size or MOE_GROUP
     capacity_factor = capacity_factor or MOE_CF
     xn = apply_norm(p["norm"], x)
-    t_total = b * s
+    # under a batch grid, this rank's tokens are block r of n of the
+    # global batch's; groups are cut from the global batch
+    grid, axes, n, r = _batch_block()
+    t_loc = b * s
+    t_total = n * t_loc
     g_sz = min(group_size, t_total)
-    ng = t_total // g_sz
-    xg = xn.reshape(ng, g_sz, d)
+    # this rank's tokens in pieces of one group each: whole groups, or
+    # its whole block as a part of one group
+    piece = min(g_sz, t_loc)
+    if t_loc % piece or g_sz % piece:
+        raise ValueError(f"MoE groups of {g_sz} tokens straddle a rank's "
+                         f"{t_loc}: neither divides the other")
+    ng = t_loc // piece
+    xg = xn.reshape(ng, piece, d)
 
     logits = xg.float() @ p["router"].float()                 # (G, Tg, E)
     probs = torch.softmax(logits, dim=-1)
     cap = moe_capacity(k, g_sz, e, capacity_factor)
     gate, idx, pos, keep = moe_route(probs, k, cap)
 
-    # aux load-balance loss (switch-style)
+    # aux load-balance loss (switch-style): E * sum(density * mean prob),
+    # both means over every token of the global batch
     # the one-hot by comparison: ``F.one_hot``'s range check is a host
     # sync on the card
     onehot = idx[..., None] == torch.arange(e, device=x.device)
-    density = torch.mean(onehot.float().sum(2), dim=(0, 1))
-    aux = torch.sum(density * torch.mean(probs, dim=(0, 1))) * e
+    counts = onehot.sum(dim=(0, 1, 2))                 # (E,) pairs each
+    prob_sum = probs.sum(dim=(0, 1))
+    if grid is not None:
+        every = all_gather(counts[None], axes, grid=grid)    # (n, E)
+        counts = every.sum(0)
+        prob_sum = _BatchSum.apply(prob_sum, grid.group(axes))
+        if piece < g_sz:
+            # the group's earlier ranks fill each expert's capacity
+            # first: this rank's positions start past their pairs
+            first = r - r % (g_sz // piece)
+            offset = every[first:r].sum(0)
+            keep = (pos + offset[idx]) < cap
+    aux = torch.sum(counts.float() / t_total * (prob_sum / t_total)) * e
 
     # slots laid out (E, G, C): expert e's capacity buffers of every group
     # are one (G * C, d) operand of its matmuls; a dropped pair goes to
@@ -389,8 +473,8 @@ def moe(p, x, cfg, group_size: int = 0, capacity_factor: float = 0.0):
     # f32, so that the backward sums a token's k slots in f32 (the sum
     # over k of ``expand``'s backward) and rounds once, as the
     # reference's bf16 dispatch product does
-    xb = xg.reshape(t_total, 1, d).to(DTYPE).float()
-    pairs = xb.expand(t_total, k, d).reshape(t_total * k, d)
+    xb = xg.reshape(t_loc, 1, d).to(DTYPE).float()
+    pairs = xb.expand(t_loc, k, d).reshape(t_loc * k, d)
     xe = pairs.new_zeros((n_slots + 1, d)).index_copy(0, slot, pairs)
     xe = xe[:n_slots].to(DTYPE).reshape(e, ng * cap, d)
     hin = _emm(xe, p["w_in"])
@@ -402,7 +486,7 @@ def moe(p, x, cfg, group_size: int = 0, capacity_factor: float = 0.0):
     ob = torch.cat([oe.reshape(n_slots, d), oe.new_zeros((1, d))])
     w = gate.to(DTYPE)
     w = w.to(torch.promote_types(w.dtype, oe.dtype))
-    picked = ob.index_select(0, slot).reshape(ng, g_sz, k, d)
+    picked = ob.index_select(0, slot).reshape(ng, piece, k, d)
     out = torch.einsum("gtk,gtkd->gtd", w, picked)
     out = out.reshape(b, s, d)
     if "shared" in p:

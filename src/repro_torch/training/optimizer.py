@@ -41,6 +41,9 @@ class Optimizer:
     init: Callable[[Tree], Tree]
     update: Callable[..., tuple]
     name: str = "opt"
+    # each element's update reads only that element of the gradient,
+    # state and parameter (AdamW), so a block updates alone
+    elementwise: bool = False
 
 
 def tree_map(fn, *trees):
@@ -141,7 +144,8 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
         tree_map(one, grads, state["mu"], state["nu"], params)
         return params, state
 
-    return Optimizer(init=init, update=update, name="adamw")
+    return Optimizer(init=init, update=update, name="adamw",
+                     elementwise=True)
 
 
 # --------------------------------------------------------------- adafactor
@@ -190,6 +194,10 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
             return gf * torch.rsqrt(s["v"])
 
         def one(g, s, p):
+            # the factors' means and the clip's RMS sum in memory order:
+            # a contiguous gradient makes them the same for any layout
+            # autograd hands over (``lm_head``'s comes transposed)
+            g = g if g.is_contiguous() else g.contiguous()
             if p.dim() < 3:
                 u = moved(g, s)
                 rms = torch.sqrt(torch.mean(u * u))
@@ -200,7 +208,6 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
             # is over the whole leaf, so a first pass moves the factors
             # and sums u^2, and a second makes each run's u again from
             # them
-            g = g if g.is_contiguous() else g.contiguous()
             pieces = [(flat_run(g, 2, r),
                        {k: flat_run(x, 1, r) for k, x in s.items()},
                        flat_run(p, 2, r)) for r in matrix_runs(p.shape)]

@@ -1,6 +1,4 @@
-"""The training step, the port of ``repro/training/train_step.py``
-(single device; the sharded and manual-collective forms wait for ROADMAP
-A.10d).
+"""The training step, the port of ``repro/training/train_step.py``.
 
 ``make_train_step`` builds ``train_step(state, batch) -> (state,
 metrics)``:
@@ -17,14 +15,40 @@ parameters, so a failure raised there leaves ``state`` as it was and
 the clip scales the step's own gradients and the optimizer writes the
 new parameters and moments into ``state``'s tensors, and the returned
 state holds those same tensors with ``step + 1``.
+
+With ``shardings=`` the step is the counterpart of the reference's
+``jax.jit(step, in_shardings=(state, batch), out_shardings=(state,
+None))``: the state holds this rank's blocks of every leaf, laid out by
+``launch/shardings.py``'s rules over a grid, and the batch this rank's
+block along the grid's batch axes (``data.shard_batch``).  The step
+  (a) all-gathers each parameter over its spec's axes (the FSDP
+      gather, the intent of the reference's ``wload``),
+  (b) runs the loss and its gradient on this rank's batch block, with
+      the MoE layer's batch grid set (``models.layers.batch_grid``),
+  (c) averages the gradients (and the loss) over the batch axes with
+      ``core.collectives.proxy_psum_tree`` (region ``data``, cross
+      ``pod`` where the grid has it),
+  (d) clips by the global norm of the full averaged gradient, and
+  (e) updates this rank's blocks of the parameters and the optimizer
+      state only: an elementwise optimizer (AdamW) on the blocks; one
+      whose update couples elements (Adafactor's factored moments and
+      its clip over a whole leaf) on the full leaves, its state
+      gathered first, keeping the blocks.
+Compute is data-parallel over the batch axes and replicated over
+``model``; storage is sharded as the rules say.  Tensor-parallel compute
+over ``model`` is ROADMAP A.10e; microbatches under shardings A.10f.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
+from ..checkpoint.ckpt import flatten, unflatten
+from ..core.collectives import proxy_psum, proxy_psum_tree
+from ..launch import shardings as sh
+from ..models import layers
 from ..models.lm import lm_loss
 from .optimizer import Optimizer, flat_run, matrix_runs, tree_leaves, tree_map
 
@@ -105,18 +129,100 @@ def value_and_grad(loss_fn, params, batch):
     return loss.detach(), tree_map(lambda _: next(it), params)
 
 
+@dataclasses.dataclass(frozen=True)
+class Shardings:
+    """Where a ``TrainState`` lives: a grid (``core.collectives.Grid``)
+    and the spec of every leaf by its key string
+    (``launch.shardings.train_state_specs`` of the full state)."""
+
+    grid: Any
+    specs: dict
+
+
+def _sharded_train_step(loss_fn, optimizer: Optimizer, clip_norm: float,
+                        shardings: Shardings) -> Callable:
+    grid, specs = shardings.grid, shardings.specs
+    axes = sh.batch_axes(grid)
+    if [a for a in grid.names if a in axes] != list(axes):
+        raise ValueError(f"the batch axes {axes} must lie in the grid's "
+                         f"order {grid.names}")
+    n = grid.size(axes) if axes else 1
+    region = axes[-1] if axes else None
+    cross = axes[0] if len(axes) == 2 else None
+
+    def blocks_of(tree, prefix):
+        """{key: this rank's block} of a tree of full leaves (views)."""
+        return {k: t[sh.block_index(specs[prefix + k], t.shape, grid)]
+                for k, t in flatten(tree).items()}
+
+    def gathered(tree, prefix):
+        """({key: block}, {key: full leaf}) of a tree of blocks; a leaf
+        no axis cuts is its block itself."""
+        blocks = flatten(tree)
+        return blocks, {k: sh.gather_leaf(b, specs[prefix + k], grid)
+                        for k, b in blocks.items()}
+
+    @torch.no_grad()
+    def keep_blocks(blocks, full, prefix):
+        for k, b in blocks.items():
+            if full[k] is not b:
+                b.copy_(full[k][sh.block_index(specs[prefix + k],
+                                               full[k].shape, grid)])
+
+    def train_step(state: TrainState, batch):
+        pblocks, pfull = gathered(state.params, ".params")         # (a)
+        params = unflatten(state.params, pfull)
+        if axes:                                                    # (b)
+            with layers.batch_grid(grid, axes):
+                loss, grads = value_and_grad(loss_fn, params, batch)
+            grads = proxy_psum_tree(grads, region, cross, grid=grid)  # (c)
+            loss = proxy_psum(loss, region, cross, grid=grid) / n
+            for g in tree_leaves(grads):
+                g.div_(n)
+        else:
+            loss, grads = value_and_grad(loss_fn, params, batch)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm)        # (d)
+        if optimizer.elementwise:                                   # (e)
+            optimizer.update(unflatten(grads, blocks_of(grads, ".params")),
+                             state.opt_state, state.params, state.step)
+        else:
+            oblocks, ofull = gathered(state.opt_state, ".opt_state")
+            optimizer.update(grads, unflatten(state.opt_state, ofull),
+                             params, state.step)
+            keep_blocks(pblocks, pfull, ".params")
+            keep_blocks(oblocks, ofull, ".opt_state")
+        metrics = dict(loss=loss, grad_norm=gnorm,
+                       step=state.step.to(torch.float32))
+        return TrainState(params=state.params, opt_state=state.opt_state,
+                          step=state.step + 1), metrics
+
+    return train_step
+
+
 def make_train_step(cfg, fam, optimizer: Optimizer,
                     microbatches: int = 1,
                     clip_norm: float = 1.0,
-                    mtp_weight: float = 0.1) -> Callable:
+                    mtp_weight: float = 0.1,
+                    shardings: Optional[Shardings] = None) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
     batch leaves are (B, ...) tensors; with microbatches > 1 the leading
     axis is split (B = microbatches * micro_bs) and the gradients
     accumulate in f32, one microbatch after another, then are divided by
     the count.  Metrics are 0-d tensors: ``loss``, ``grad_norm`` (before
-    the clip) and ``step`` (f32)."""
+    the clip) and ``step`` (f32).  With ``shardings``, the sharded step
+    of the module's docstring: ``state`` holds this rank's blocks and
+    ``batch`` this rank's block of the global batch, whose mean loss the
+    metrics report."""
     loss_fn = make_loss_fn(cfg, fam, mtp_weight)
+    if shardings is not None:
+        if microbatches != 1:
+            # the reference splits the *global* batch's rows; a per-rank
+            # split holds other rows, and so other MoE groups
+            raise NotImplementedError(
+                "microbatches under shardings are not ported yet (ROADMAP "
+                "A.10f)")
+        return _sharded_train_step(loss_fn, optimizer, clip_norm, shardings)
 
     def train_step(state: TrainState, batch):
         params = state.params

@@ -1,8 +1,10 @@
 """The port's data path (``repro_torch.data``): ``zipf_tokens`` and
 ``SyntheticLM`` byte-equal to the reference's (``repro.data``), and
-``DataPipeline``'s order and device placement; a mesh raises (ROADMAP
-A.10d).  Every new module is imported by its own name (the reference's
-dead-code gate walks ``src/``)."""
+``DataPipeline``'s order and device placement; ``shard_batch`` and
+``DataPipeline(mesh=)`` give each grid position its row-major block
+(on ranks: ``tests/test_torch_sharded.py``).  Every new module is
+imported by its own name (the reference's dead-code gate walks
+``src/``)."""
 import numpy as np
 import pytest
 
@@ -79,12 +81,59 @@ def test_to_device_keeps_dtypes():
     assert np.array_equal(got["embeds"].numpy(), b["embeds"])
 
 
-def test_mesh_and_shard_batch_raise():
-    src = synthetic.SyntheticLM(vocab=64, seq_len=4, batch=2)
-    with pytest.raises(NotImplementedError, match="A.10d"):
-        data.DataPipeline(src, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A.10d"):
-        data.shard_batch(src.batch_at(0), object())
+GRIDS = [((2, 2), ("data", "model"), ("data",)),
+         ((2, 2, 2), ("pod", "data", "model"), ("pod", "data")),
+         ((4, 1), ("data", "model"), ("pod", "data"))]
+
+
+@pytest.mark.parametrize("shape,names,axes", GRIDS)
+def test_shard_batch_gives_each_position_its_block(shape, names, axes):
+    """Every grid position's block is rows ``r * B / n`` on, ``r`` its
+    row-major index along the batch axes the grid has; the blocks of
+    the positions that differ there tile the batch; a 0-d leaf stays
+    whole."""
+    from repro_torch.launch.shardings import MeshShape
+    src = synthetic.SyntheticLM(vocab=128, seq_len=6, batch=8)
+    host = dict(src.batch_at(1), scale=np.float32(2.0))
+    sizes = dict(zip(names, shape))
+    have = [a for a in axes if a in names]
+    n = int(np.prod([sizes[a] for a in have]))
+    for coords in np.ndindex(*shape):
+        at = dict(zip(names, coords))
+        r = 0
+        for a in have:
+            r = r * sizes[a] + at[a]
+        got = data.shard_batch(host, MeshShape(names, shape, coords), axes,
+                               device="cpu")
+        rows = slice(r * 8 // n, (r + 1) * 8 // n)
+        for k in ("tokens", "labels"):
+            assert got[k].dtype == torch.from_numpy(host[k]).dtype
+            np.testing.assert_array_equal(got[k].numpy(), host[k][rows])
+        assert float(got["scale"]) == 2.0
+
+
+def test_shard_batch_refuses_an_undividing_batch():
+    from repro_torch.launch.shardings import MeshShape
+    grid = MeshShape(("data", "model"), (2, 2), (1, 0))
+    with pytest.raises(ValueError, match="do not divide"):
+        data.shard_batch(dict(tokens=np.zeros((3, 4), np.int32)), grid,
+                         device="cpu")
+
+
+def test_pipeline_with_a_mesh_yields_the_blocks():
+    from repro_torch.launch.shardings import MeshShape
+    grid = MeshShape(("data", "model"), (2, 2), (1, 1))
+    src = synthetic.SyntheticLM(vocab=64, seq_len=4, batch=4)
+    pipe = data.DataPipeline(src, device="cpu", mesh=grid, start_step=5)
+    try:
+        for step in (5, 6):
+            got = next(pipe)
+            want = data.shard_batch(src.batch_at(step), grid, device="cpu")
+            assert sorted(got) == sorted(want)
+            for k in want:
+                assert torch.equal(got[k], want[k])
+    finally:
+        pipe.close()
 
 
 def test_pipeline_defaults_to_the_card():

@@ -13,8 +13,9 @@ against the same step on the CPU, the MoE families' decode and train
 steps (granite-moe, deepseek-v3) on the card against the CPU, and
 ``decode_attention`` at G = 1, D = 64 with the recurrent and
 encoder-decoder families' decode steps (zamba2, whisper, xlstm) on the
-card against the CPU, and the proxy-region collectives and the pipeline
-on a one-rank NCCL group against a one-rank gloo group on the CPU.
+card against the CPU, the proxy-region collectives and the pipeline
+on a one-rank NCCL group against a one-rank gloo group on the CPU, and
+the sharded train step on a one-rank NCCL grid against the plain step.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 decision is taken inside each test.  On a machine with a card:
@@ -1472,3 +1473,54 @@ def test_recurrent_decode_step_on_card_matches_cpu(arch, dtype):
                                    rtol=tol, atol=tol)
         torch.testing.assert_close(_tree_to(card_cache, "cpu"), cache,
                                    rtol=tol, atol=tol)
+
+
+# ------------------------------------------- the sharded step, A.10d-2
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_sharded_step_one_nccl_rank_equals_the_plain_step(nccl_group, arch):
+    """On a 1 x 1 ("data", "model") grid over the one-rank NCCL group, two
+    sharded steps (the state placed by the rules with ``fsdp=True``, the
+    batches through ``DataPipeline(mesh=)``) equal two plain steps from
+    the same bf16 state on the same batches, bitwise: losses, grad norms,
+    every parameter and moment (one rank's gathers and sums are copies;
+    granite with AdamW updates its blocks, deepseek-v3 with Adafactor
+    its gathered leaves).  No kernel of the six launches."""
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.core import collectives as coll
+    from repro_torch.data import DataPipeline
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models import registry
+    from repro_torch.training import Shardings, TrainState, make_train_step
+    dev = _card()
+    cfg, fam = registry.get(arch, smoke=True)
+    grid = coll.make_grid((1, 1), ("data", "model"))
+    opt = make_optimizer(cfg, MOE_LR, 1)
+    plain = TrainState.create(fam["init"](
+        cfg, torch.Generator(device=dev).manual_seed(0), dev), opt)
+    specs = sh.train_state_specs(plain, grid, fsdp=True)
+    state = sh.place(plain, specs, grid, dev)
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=64, batch=4)
+    step = make_train_step(cfg, fam, opt)
+    sharded = make_train_step(cfg, fam, opt,
+                              shardings=Shardings(grid, specs))
+    pipe = DataPipeline(src, device=dev, mesh=grid, batch_axes=("data",))
+    ops.reset_launches()
+    try:
+        for i in range(2):
+            host = src.batch_at(i)
+            plain, want = step(plain, to_device(host, dev))
+            block = next(pipe)
+            assert all(torch.equal(block[k].cpu(), torch.from_numpy(host[k]))
+                       for k in host)
+            state, got = sharded(state, block)
+            for k in ("loss", "grad_norm"):
+                assert torch.equal(got[k], want[k]), (i, k, got, want)
+    finally:
+        pipe.close()
+    assert sum(ops.launch_counts().values()) == 0
+    full = flatten(sh.gather(state, specs, grid))
+    for k, v in flatten(plain).items():
+        assert torch.equal(full[k], v), k
