@@ -45,8 +45,9 @@ on past a failure:
    each the active-tile share a superstep (mean, median, p90), the
    supersteps per reference rung and per window run, the window
    overflows, host syncs, ms a superstep (``LoopClock``), peak memory
-   and graphs captured beside the dense run's; at the rung each app
-   spends most supersteps in (BFS's first), from a state there: 20
+   and graphs captured beside the dense run's; at the rung BFS spends
+   most supersteps in (SpMV's and Histogram's are cut by the time
+   limit), from a state there: 20
    replays in that window against 20 dense replays from the same state
    (unprofiled, in turns), a ``torch.profiler`` window of 20 replays,
    and 20 eager supersteps split into ops with a full-length (T*C)
@@ -324,7 +325,28 @@ on past a failure:
     gathers and sums are copies); ms a step each way (CUDA events), the
     step's parameter gathers and ``proxy_psum_tree`` inside it (CUDA
     events), peak memory each way; no kernel launched;
-21. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
+21. the dry run (ROADMAP A.10d-3; ``repro_torch.launch`` ``shapes``,
+    ``opanalysis``, ``dryrun``; ``serving`` ``make_prefill`` /
+    ``make_serve_step(shardings=)``; ``ops.decode_attention`` a custom
+    op): (a) phase 15 (c)'s decode_32k cell (starcoder2-3b, B 8, a
+    32,768-position cache from the seed) through the sharded serve step
+    on a 1 x 1 ("data", "model") grid over a one-rank NCCL group, 4 steps
+    in turns with the plain step: tokens and logits bitwise, the kernel
+    launched once a layer a step; a sharded prefill of granite-moe (8 x
+    1,024) bitwise the plain prefill; (b) one real sharded serve step
+    and one real step of phase 20's sharded train state, counted by
+    ``opanalysis``, against the same cells' dry runs on a 1 x 1 ``fake``
+    grid on fake CUDA tensors: FLOPs, collectives and ops exactly equal,
+    the predicted peak within ``DRY_PEAK`` of
+    ``torch.cuda.max_memory_allocated()`` above the memory held before
+    the step; each step's ms, compute and memory terms and roofline
+    share printed; (c) ``python -m repro_torch.launch.dryrun`` on
+    starcoder2-3b decode_32k and granite-moe train_4k on the 16 x 16
+    grid, each in a subprocess started with the phase: status ok, memory
+    a rank and ``fits`` printed; (d) one layer's decode attention at
+    (a)'s shape through the custom op and through the kernel's wrapper
+    alone, in turns: host us and device ms a call;
+22. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
     the last line, ``{"ok": true, "device": {...}}``.
 
 Every app run prints its supersteps, wall seconds, ms per superstep,
@@ -337,7 +359,8 @@ of live records in runs of neighbours and repeated in their slice, and
 the atomics a fold would leave.
 
 Each main-path run (phases 5-8, 6b, 9b, the RMAT-22 runs of 10,
-10b and 11, 15's serving runs, 17's, 18's, 19's and 20's) sets every
+10b and 11, 15's serving runs, 17's, 18's, 19's, 20's and 21's) sets
+every
 kernel's launch count to 0 just before it and reads the counts just
 after; a kernel on the path that did not launch (at least once per
 superstep, on the engine's paths) fails the run.  The JSON line counts
@@ -356,8 +379,9 @@ counts in (a) plus the kernels the profiler sees in (b)), and phase
 ``serve_hybrid``, ``serve_encdec`` and ``serve_xlstm`` (none) and its
 training under ``train_hybrid``, ``train_encdec`` and ``train_xlstm``
 (none), phase 19's (a)-(c) under ``collectives`` and (d) under
-``pipeline`` (none), and phase 20's sharded steps under
-``sharded_train`` (none).  A graph replay counts the launches
+``pipeline`` (none), phase 20's sharded steps under
+``sharded_train`` (none) and phase 21's sharded serve steps under
+``serve_sharded``.  A graph replay counts the launches
 captured in it, so on the chunked loop the counts include the idle rows
 of a chunk (after the run drained, or after a flush the device
 scheduled), which are printed as the surplus.
@@ -371,6 +395,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1575,13 +1600,15 @@ def compaction_phase(dev, wl) -> dict:
             launches[k] = launches.get(k, 0) + v
         out[label] = readings
         print(f"  {label} compacted {time.perf_counter() - t0:.1f} s")
-    # a profiler window at the rung each app spends most supersteps in
-    # (BFS's first), from a state inside the longest stretch there
+    # a profiler window at the rung BFS spends most supersteps in, from a
+    # state inside the longest stretch there (SpMV's and Histogram's
+    # windows are cut by the time limit)
     t0 = time.perf_counter()
     for label in ("bfs", "spmv", "histo"):
-        out[label]["profile"] = profile_rung(dev, wl, label,
-                                             out[label].pop("rungs"))
-    print(f"  compaction profiles {time.perf_counter() - t0:.1f} s")
+        rungs = out[label].pop("rungs")
+        if label == "bfs":
+            out[label]["profile"] = profile_rung(dev, wl, label, rungs)
+    print(f"  compaction profile {time.perf_counter() - t0:.1f} s")
     print(f"  compaction readings {json.dumps(out)}")
     return launches
 
@@ -5038,10 +5065,11 @@ def step_profile(fn, st, batch) -> tuple:
     return st, out
 
 
-def sharded_train_readings(dev, smi, grid) -> tuple:
+def sharded_train_readings(dev, smi, grid, kept: dict) -> tuple:
     """Phase 20's steps: the plain step and the sharded step in turns
     from one state on the same batches; returns (readings, launches of
-    the six kernels in the sharded steps)."""
+    the six kernels in the sharded steps) and puts the sharded state,
+    its specs, the optimizer and the last batch block into ``kept``."""
     from repro_torch.checkpoint.ckpt import flatten
     from repro_torch.data import DataPipeline
     from repro_torch.data.pipeline import to_device
@@ -5155,6 +5183,9 @@ def sharded_train_readings(dev, smi, grid) -> tuple:
                 param_bytes=sum(v.numel() * v.element_size()
                                 for v in flatten(plain.params).values()),
                 metrics=metrics["plain"], **runs)
+    kept.update(state=state, specs=specs, optimizer=opt, block=blocks[-1],
+                arch=t["arch"], fsdp=t["fsdp"], batch=t["batch"],
+                seq=t["seq"])
     del state, plain, blocks
     gc.collect()
     torch.cuda.empty_cache()
@@ -5198,23 +5229,15 @@ def sharded_train_readings(dev, smi, grid) -> tuple:
     return read, launches
 
 
-def sharded_train_phase(dev, smi) -> dict:
-    """ROADMAP A.10d-2 on the card: granite-moe at full width, its state
-    placed by the rules on a 1 x 1 ("data", "model") grid over a one-rank
-    NCCL group, two sharded steps in turns with two plain steps from the
-    same state on the same batches.  Returns the launch counts of path
-    ``sharded_train``."""
+@contextlib.contextmanager
+def one_rank_nccl(dev):
+    """A 1 x 1 ("data", "model") grid over a one-rank NCCL group on a file
+    store in a temporary directory (the card holds one rank), each of its
+    groups used once; the group is destroyed on the way out."""
     import datetime
     import tempfile
     import torch.distributed as dist
     from repro_torch.core import collectives as coll
-    print(f"== 20. the sharded train step on one NCCL rank at full width "
-          f"(repro_torch.launch shardings, mesh; training make_train_step("
-          f"shardings=); one rank's gathers and sums are device copies) "
-          f"[{smi}]")
-    t_phase = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group(
             "nccl", init_method=f"file://{tmp}/store", rank=0,
@@ -5224,9 +5247,27 @@ def sharded_train_phase(dev, smi) -> dict:
             grid = coll.make_grid((1, 1), ("data", "model"))
             for axes in grid.groups:            # each group's first use
                 coll.all_gather(torch.zeros(1, device=dev), axes, grid=grid)
-            read, launches = sharded_train_readings(dev, smi, grid)
+            yield grid
         finally:
             dist.destroy_process_group()
+
+
+def sharded_train_phase(dev, smi, kept: dict) -> dict:
+    """ROADMAP A.10d-2 on the card: granite-moe at full width, its state
+    placed by the rules on a 1 x 1 ("data", "model") grid over a one-rank
+    NCCL group, two sharded steps in turns with two plain steps from the
+    same state on the same batches.  Returns the launch counts of path
+    ``sharded_train``; ``kept`` gets the sharded state, its specs, the
+    optimizer and a batch block (phase 21 counts a step of them)."""
+    print(f"== 20. the sharded train step on one NCCL rank at full width "
+          f"(repro_torch.launch shardings, mesh; training make_train_step("
+          f"shardings=); one rank's gathers and sums are device copies) "
+          f"[{smi}]")
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with one_rank_nccl(dev) as grid:
+        read, launches = sharded_train_readings(dev, smi, grid, kept)
     require(sum(launches.values()) == 0,
             f"sharded_train: a kernel launched {json.dumps(launches)}")
     took = time.perf_counter() - t_phase
@@ -5234,6 +5275,319 @@ def sharded_train_phase(dev, smi) -> dict:
     print(f"  sharded train readings {json.dumps(read)}")
     print(f"  sharded train phase {took:.1f} s")
     return dict(sharded_train=launches)
+
+
+# ------------------------------------------ 21. the dry run (ROADMAP A.10d-3)
+# (a): phase 15 (c)'s decode_32k cell through the sharded serve step on a
+# 1 x 1 grid in turns with the plain step, and a sharded prefill of
+# granite-moe; (b) their counts against the dry run's on a 1 x 1 fake grid;
+# (d) the custom op's dispatch against the kernel's wrapper alone
+DRY = dict(serve_arch="starcoder2-3b", batch=8, cache_len=32768, steps=4,
+           prefill_arch="granite-moe-1b-a400m", prefill_batch=8,
+           prefill_seq=1024, dispatch_calls=200)
+DRY_PEAK = (0.8, 1.25)          # predicted over measured peak, held
+DRY_GRID = ((1, 1), ("data", "model"))
+# (c): the CLI on the production 16 x 16 grid, each cell in a subprocess
+DRY_CLI = (("starcoder2-3b", "decode_32k"), ("granite-moe-1b-a400m",
+                                              "train_4k"))
+
+
+def start_cli_cells(out_dir: Path) -> list:
+    """(c): ``python -m repro_torch.launch.dryrun`` on each ``DRY_CLI``
+    cell on the ``single`` grid, in subprocesses started now (fake
+    tensors: they use the host's cores, not the card)."""
+    src = Path(__file__).resolve().parent / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    return [(arch, shape, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single", "--out", str(out_dir)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env))
+        for arch, shape in DRY_CLI]
+
+
+def timed_step(fn, *args) -> tuple:
+    """(output, device ms by CUDA events, peak bytes allocated above what
+    was allocated before the call)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn(*args)
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b), torch.cuda.max_memory_allocated() - before
+
+
+def counted(fn, *args) -> tuple:
+    """(output, ``opanalysis`` counts) of one call on real tensors."""
+    from repro_torch.launch import opanalysis
+    with opanalysis.StepCount() as count:
+        out = fn(*args)
+        torch.cuda.synchronize()
+    return out, count.summary()
+
+
+def sharded_serve_readings(dev, grid) -> tuple:
+    """(a) and (b)'s real serve step: (readings, launches of the sharded
+    serve steps)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models import registry
+    from repro_torch.serving.decode import make_prefill, make_serve_step
+    from repro_torch.training import Shardings
+    c = DRY
+    cfg, fam = registry.get(c["serve_arch"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    params = fam["init"](cfg, gen, dev)
+    cache = fam["init_cache"](cfg, c["batch"], c["cache_len"], dev)
+    for t in cache.values():
+        t.normal_(generator=gen)
+    tokens = torch.randint(0, cfg.vocab, (c["batch"], 1), generator=gen,
+                           device=dev, dtype=torch.int32)
+    pos = c["cache_len"] - 1
+    specs = sh.serve_specs(params, grid, batch=dict(tokens=tokens),
+                           cache=cache, fsdp=cfg.arch in dryrun.FSDP_ARCHS)
+    plain = make_serve_step(cfg, fam)
+    sharded = make_serve_step(cfg, fam, shardings=Shardings(grid, specs))
+    # a 1 x 1 grid's blocks are the whole leaves: both steps take the same
+    # tensors; every step writes the same token's K / V into the last
+    # slot, so every step sees the same inputs
+    args = (params, cache, tokens, pos)
+    for fn in (plain, sharded):
+        fn(*args)
+    ms = dict(plain=[], sharded=[])
+    outs, launches, unequal = {}, {}, []
+    for i in range(2 * c["steps"]):
+        kind = ("plain", "sharded", "sharded", "plain")[i % 4]
+        ops.reset_launches()
+        (nxt, logits, _), t, _ = timed_step(
+            plain if kind == "plain" else sharded, *args)
+        ms[kind].append(t)
+        outs[kind] = (nxt, logits)
+        if kind == "sharded":
+            for k, n in ops.launch_counts().items():
+                launches[k] = launches.get(k, 0) + n
+        if i % 2 and not all(torch.equal(x, y) for x, y in
+                             zip(outs["plain"], outs["sharded"])):
+            unequal.append(i)
+    require(not unequal, f"sharded serve: tokens or logits not bitwise the "
+                         f"plain step's at steps {unequal}")
+    require(launches["decode_attention"] == cfg.n_layers * c["steps"],
+            f"sharded serve: decode_attention launched "
+            f"{launches['decode_attention']} times in {c['steps']} steps of "
+            f"{cfg.n_layers} layers")
+    _, step_ms, peak = timed_step(sharded, *args)
+    _, counts = counted(sharded, *args)
+    read = dict(arch=cfg.arch, batch=c["batch"], cache_len=c["cache_len"],
+                ms=ms, step_ms=step_ms, measured_peak=peak, counts=counts,
+                cache_bytes=sum(t.numel() * t.element_size()
+                                for t in cache.values()))
+    del params, cache, args, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    # granite-moe's sharded prefill against the plain prefill
+    cfg, fam = registry.get(c["prefill_arch"])
+    params = fam["init"](cfg, gen, dev)
+    batch = dict(tokens=torch.randint(
+        0, cfg.vocab, (c["prefill_batch"], c["prefill_seq"]), generator=gen,
+        device=dev, dtype=torch.int32))
+    specs = sh.serve_specs(params, grid, batch=batch,
+                           fsdp=cfg.arch in dryrun.FSDP_ARCHS)
+    (want_l, want_c), plain_ms, _ = timed_step(make_prefill(cfg, fam),
+                                               params, batch)
+    (got_l, got_c), sharded_ms, _ = timed_step(
+        make_prefill(cfg, fam, shardings=Shardings(grid, specs)), params,
+        batch)
+    require(torch.equal(got_l, want_l)
+            and all(torch.equal(got_c[k], v) for k, v in want_c.items()),
+            "sharded prefill: logits or cache not bitwise the plain "
+            "prefill's")
+    read["prefill"] = dict(arch=cfg.arch, batch=c["prefill_batch"],
+                           seq=c["prefill_seq"], plain_ms=plain_ms,
+                           sharded_ms=sharded_ms)
+    del params, batch, want_c, got_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    return read, launches
+
+
+def counted_train_step(dev, grid, kept: dict) -> dict:
+    """(b)'s real train step: phase 20's sharded state and batch block
+    through the sharded step on this grid (a warm-up, a timed step, a
+    counted step)."""
+    from repro_torch.models import registry
+    from repro_torch.training import Shardings, make_train_step
+    cfg, fam = registry.get(kept["arch"])
+    step = make_train_step(cfg, fam, kept["optimizer"],
+                           shardings=Shardings(grid, kept["specs"]))
+    state, block = kept["state"], kept["block"]
+    state, _ = step(state, block)
+    (state, _), step_ms, peak = timed_step(step, state, block)
+    (state, _), counts = counted(step, state, block)
+    kept["state"] = state
+    return dict(arch=cfg.arch, batch=kept["batch"], seq=kept["seq"],
+                step_ms=step_ms, measured_peak=peak, counts=counts)
+
+
+def dispatch_cost(dev) -> dict:
+    """(d): ``ops.decode_attention`` (the custom op) and the kernel's
+    wrapper called directly at phase 15 (c)'s decode_32k shape (one
+    layer), ``dispatch_calls`` calls each, in turns, with grad enabled
+    and under ``inference_mode`` (the decode step's): host us a call (the
+    loop's wall before its synchronise) and device ms a call."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    c = DRY
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    q = torch.randn((c["batch"], 24, 128), generator=gen,
+                    device=dev).bfloat16()
+    k, v = (torch.randn((c["batch"], 2, c["cache_len"], 128), generator=gen,
+                        device=dev).bfloat16() for _ in range(2))
+    lengths = torch.full((c["batch"],), c["cache_len"], dtype=torch.int32,
+                         device=dev)
+    fns = dict(custom_op=ops.decode_attention, wrapper=da.decode_attention)
+    out = {f"{name} {mode}": dict(host_us=[], device_ms=[])
+           for mode in ("grad", "inference") for name in fns}
+    for mode in ("grad", "inference"):
+        for name in ("custom_op", "wrapper", "wrapper", "custom_op"):
+            fn, n = fns[name], c["dispatch_calls"]
+            with (torch.inference_mode() if mode == "inference"
+                  else contextlib.nullcontext()):
+                fn(q, k, v, lengths)
+                torch.cuda.synchronize()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                a.record()
+                for _ in range(n):
+                    fn(q, k, v, lengths)
+                b.record()
+                host = time.perf_counter() - t0
+                torch.cuda.synchronize()
+            read = out[f"{name} {mode}"]
+            read["host_us"].append(host / n * 1e6)
+            read["device_ms"].append(a.elapsed_time(b) / n)
+    return out
+
+
+def dry_checks(label, real: dict, fake: dict) -> dict:
+    """(b)'s gates and readings of one step: the real and fake counts
+    equal; the fake run's peak within ``DRY_PEAK`` of the measured."""
+    from repro_torch.launch import dryrun
+    c = real["counts"]
+    got = dict(flops=fake["cost"]["flops_per_device"],
+               collective_counts=fake["collectives"]["counts"],
+               ops=fake["ops"])
+    want = dict(flops=float(c["flops"]),
+                collective_counts=c["collective_counts"], ops=c["ops"])
+    require(got == want, f"dry run {label}: the fake run counted "
+                         f"{json.dumps(got)}, the real step {json.dumps(want)}")
+    predicted = fake["memory"]["temp_size_in_bytes"]
+    ratio = predicted / max(real["measured_peak"], 1)
+    terms = dryrun.roofline(c)
+    bound = max(("compute_s", "memory_s"), key=terms.get)
+    share = terms[bound] * 1e3 / real["step_ms"]
+    print(f"  (b) {label}: {real['step_ms']:.2f} ms a step (CUDA events); "
+          f"counted {c['flops']:.4g} FLOPs, {c['hbm_bytes']:.4g} HBM bytes, "
+          f"{c['ops']} ops, collectives {json.dumps(c['collective_counts'])}"
+          f" (the fake run's equal); compute {terms['compute_s'] * 1e3:.3f} "
+          f"ms, memory {terms['memory_s'] * 1e3:.3f} ms: {share:.1%} of "
+          f"the {bound[:-2]} bound; peak above the held memory predicted "
+          f"{predicted / 2**30:.3f} GiB, measured "
+          f"{real['measured_peak'] / 2**30:.3f} GiB ({ratio:.3f}x)")
+    require(DRY_PEAK[0] <= ratio <= DRY_PEAK[1],
+            f"dry run {label}: predicted peak {predicted} bytes is "
+            f"{ratio:.3f}x the measured {real['measured_peak']}")
+    return dict(terms_ms={k: v * 1e3 for k, v in terms.items()},
+                bound=bound, roofline_share=share, predicted_peak=predicted,
+                peak_ratio=ratio)
+
+
+def dryrun_phase(dev, smi, kept: dict) -> dict:
+    """ROADMAP A.10d-3 on the card: (a) the sharded serve step and
+    prefill on one NCCL rank, (b) real steps counted against their dry
+    runs, (c) the CLI on the production grid, (d) the custom op's
+    dispatch.  Returns the launch counts of path ``serve_sharded``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeCell
+    print(f"== 21. the dry run (repro_torch.launch shapes, opanalysis, "
+          f"dryrun; serving make_prefill / make_serve_step(shardings=); "
+          f"ops.decode_attention as a custom op) [{smi}]")
+    t_phase = time.perf_counter()
+    out_dir = Path(__file__).resolve().parent / dryrun.DEFAULT_OUT
+    cli = start_cli_cells(out_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with one_rank_nccl(dev) as grid:
+        serve, launches = sharded_serve_readings(dev, grid)
+        train = counted_train_step(dev, grid, kept)
+    opt, fsdp = kept["optimizer"], kept["fsdp"]
+    kept.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    c = serve
+    print(f"  (a) {c['arch']} decode_32k (B {c['batch']}, a "
+          f"{c['cache_len']}-position cache, {c['cache_bytes'] / 2**30:.2f} "
+          f"GiB) on a {DRY_GRID[0]} grid over one NCCL rank, "
+          f"{DRY['steps']} steps each way in turns: plain "
+          f"{[round(x, 3) for x in c['ms']['plain']]} ms, sharded "
+          f"{[round(x, 3) for x in c['ms']['sharded']]} ms (CUDA events); "
+          f"tokens and logits bitwise; decode_attention "
+          f"{launches['decode_attention']} launches; sharded prefill of "
+          f"{c['prefill']['arch']} ({c['prefill']['batch']} x "
+          f"{c['prefill']['seq']}) bitwise the plain prefill, "
+          f"{c['prefill']['sharded_ms']:.2f} / {c['prefill']['plain_ms']:.2f}"
+          f" ms")
+    grid = DRY_GRID
+    fake_serve = dryrun.run_cell(
+        c["arch"], ShapeCell("decode_32k_b8", "decode", c["cache_len"],
+                             c["batch"]),
+        "1x1", str(out_dir), device=dev, grid=grid)
+    fake_train = dryrun.run_cell(
+        train["arch"], ShapeCell(f"train_{train['batch']}x{train['seq']}",
+                                 "train", train["seq"], train["batch"]),
+        "1x1", str(out_dir), device=dev, grid=grid, fsdp=fsdp,
+        optimizer=opt)
+    serve["checks"] = dry_checks(f"{c['arch']} sharded serve step", serve,
+                                 fake_serve)
+    train["checks"] = dry_checks(f"{train['arch']} sharded train step",
+                                 train, fake_train)
+    serve["dispatch"] = dispatch_cost(dev)
+    print(f"  (d) one layer's decode attention at decode_32k B "
+          f"{DRY['batch']}, {DRY['dispatch_calls']} calls each way in "
+          f"turns, host us a call (device ms a call):")
+    for name, d in serve["dispatch"].items():
+        print(f"      {name:22s} {[round(x, 1) for x in d['host_us']]} "
+              f"({[round(x, 4) for x in d['device_ms']]})")
+    cells = []
+    for arch, shape, proc in cli:
+        stdout, stderr = proc.communicate(timeout=300)
+        require(proc.returncode == 0, f"dry run CLI {arch} {shape}: exit "
+                                      f"{proc.returncode}\n{stdout}{stderr}")
+        art = json.loads((out_dir / f"{arch}_{shape}_single.json")
+                         .read_text())
+        require(art["status"] == "ok", f"dry run CLI {arch} {shape}: "
+                                       f"{art['status']}")
+        cells.append(dict(arch=arch, shape=shape, fits=art["fits"],
+                          gib_per_rank=art["bytes_per_rank"] / 2**30,
+                          dominant=art["dominant"],
+                          useful=art["useful_flops_ratio"],
+                          trace_s=art["trace_s"]))
+        print(f"  (c) CLI {arch} {shape} single (256 ranks): status ok, "
+              f"{art['bytes_per_rank'] / 2**30:.2f} GiB a rank, fits "
+              f"{art['fits']}, dominant {art['dominant']}, useful FLOPs "
+              f"{art['useful_flops_ratio']:.4f}, traced in "
+              f"{art['trace_s']} s")
+    took = time.perf_counter() - t_phase
+    print(f"    launches {json.dumps(dict(serve_sharded=launches))}")
+    readings = dict(serve=serve, train=train, cli=cells)
+    print(f"  dry run readings {json.dumps(readings)}")
+    print(f"  dry run phase {took:.1f} s")
+    return dict(serve_sharded=launches)
+
 
 
 def main() -> int:
@@ -5281,7 +5635,9 @@ def main() -> int:
                                                               rec["b"])
     decode_row["shapes"] += [rec["a"]["after"], rec["b"]["after"]]
     by_path.update(collectives_phase(dev, c["smi"]))
-    by_path.update(sharded_train_phase(dev, c["smi"]))
+    kept = {}
+    by_path.update(sharded_train_phase(dev, c["smi"], kept))
+    by_path.update(dryrun_phase(dev, c["smi"], kept))
     for row in rows:
         row["launches_by_path"] = {p: n[row["name"]]
                                    for p, n in by_path.items()}
@@ -5289,7 +5645,7 @@ def main() -> int:
         require(row["launches"] > 0,
                 f"{row['name']} never launched on a main path")
 
-    print(f"== 21. done in {time.perf_counter() - t_start:.1f} s")
+    print(f"== 22. done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(c["smi"])
     print(json.dumps({"ok": True, "device": {

@@ -135,13 +135,14 @@ def _group_backends(group) -> dict:
 def check_carrier(group, device) -> None:
     """Refuse a group whose backend does not carry ``device``'s tensors
     (gloo with CUDA tensors, NCCL with CPU tensors); None checks
-    nothing."""
+    nothing.  The ``fake`` backend (``launch/dryrun.py``'s) carries any
+    device's tensors and moves nothing."""
     if device is None:
         return
     kind = torch.device(device).type
     got = _group_backends(group).get(kind)
     want = _CARRIER.get(kind)
-    if got != want:
+    if got != want and got != "fake":
         raise ValueError(f"a {got} process group cannot carry {kind} "
                          f"tensors (they need a {want} group)")
 

@@ -6,10 +6,17 @@ Nothing else decides the route, and nothing falls back.
 
 Each kernel wrapper counts its launches (``launches``); a CUDA graph's
 replays are added by the graph's owner (``add_launches``).
+
+``decode_attention``, the one kernel on the LM paths, is a custom op of
+the dispatcher (``repro_torch::decode_attention``): its CUDA and CPU
+bodies take the same route, and a fake tensor (``FakeTensorMode``, the
+dry run's) reaches its fake body, which computes nothing and launches
+nothing; its FLOPs are registered with ``torch.utils.flop_counter``.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import decode_attention as _da
 from . import deliver_fused as _df
@@ -17,6 +24,7 @@ from . import histogram_bin as _hb
 from . import relax_min as _rx
 from . import segment_combine as _sc
 from . import spmv_csr as _sp
+from .ref import decode_geometry
 
 bcsr_from_csr = _sp.bcsr_from_csr
 BCSR = _sp.BCSR
@@ -63,6 +71,36 @@ def deliver_fused(seg, val, mail_val, combine: str = "min"):
     return _df.plain(seg, val, mail_val, combine)
 
 
+# the custom op: declared once, its body by device (the dispatcher picks
+# the kernel for a CUDA tensor, the plain version for a CPU one), a fake
+# body for FakeTensorMode.  Declared with ``torch.library.Library``
+# rather than ``torch.library.custom_op``, whose Python autograd layer
+# cost ~45 us more a call than the wrapper on the card's host (PERF.md)
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("decode_attention(Tensor q, Tensor k, Tensor v, Tensor lengths, "
+            "float? scale, int block_s) -> Tensor")
+_LIB.impl("decode_attention",
+          lambda *args: _da.decode_attention(*args), "CUDA")
+_LIB.impl("decode_attention", lambda *args: _da.plain(*args), "CPU")
+
+
+@torch.library.register_fake("repro_torch::decode_attention", lib=_LIB)
+def _(q, k, v, lengths, scale, block_s):
+    b, h, _, _, d, _ = decode_geometry(q, k, v)
+    return q.new_empty((b, h, d))
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention)
+def decode_attention_flops(q_shape, k_shape, *args, out_shape=None,
+                           **kwargs) -> int:
+    """4 B H S D: Q.K^T and P.V over the whole (B, Hkv, S, D) cache."""
+    b, h, d = q_shape
+    return 4 * b * h * k_shape[2] * d
+
+
+_DECODE_ATTENTION = torch.ops.repro_torch.decode_attention.default
+
+
 def decode_attention(q, k, v, lengths, scale=None, block_s: int = 512):
     """One query token per (batch, head) against a KV cache: q (B, H, D),
     k and v (B, Hkv, S, D), lengths (B,) int32; each group of H / Hkv
@@ -70,10 +108,9 @@ def decode_attention(q, k, v, lengths, scale=None, block_s: int = 512):
     Pallas kernel's function: positions past a length are masked, and K
     and V count as zero-padded to a multiple of ``block_s`` (so a length
     <= 0 gives the mean of V over the padded length).  f32 inside;
-    returns (B, H, D) in q's dtype."""
-    if q.is_cuda:
-        return _da.decode_attention(q, k, v, lengths, scale, block_s)
-    return _da.plain(q, k, v, lengths, scale, block_s)
+    returns (B, H, D) in q's dtype.  One call of the custom op
+    ``repro_torch::decode_attention``."""
+    return _DECODE_ATTENTION(q, k, v, lengths, scale, block_s)
 
 
 def analysis_cases():

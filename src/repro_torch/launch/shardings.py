@@ -235,9 +235,31 @@ def train_state_specs(state, grid, fsdp: bool = True) -> dict:
     return out
 
 
+def serve_specs(params, grid, *, batch=None, cache=None,
+                fsdp: bool = True) -> dict:
+    """{key string: spec} of a served model's full leaves, the
+    ``in_shardings`` of the reference's prefill and serve steps:
+    ``param_spec`` on ``params`` (keys under ``.params``), and where
+    given ``batch_spec`` on ``batch`` (``.batch``) and ``cache_spec`` on
+    ``cache`` (``.cache``)."""
+    out = {".params" + k: param_spec(".params" + k, tuple(v.shape), grid,
+                                     fsdp)
+           for k, v in flatten(params).items()}
+    for name, tree, rule in (("batch", batch, batch_spec),
+                             ("cache", cache, cache_spec)):
+        out.update({f".{name}{k}": rule(f".{name}{k}", tuple(v.shape), grid)
+                    for k, v in flatten(tree).items()})
+    return out
+
+
 # ---------------------------------------------------------------- placement
 def _axes(entry) -> tuple:
     return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def names_only(entry, axes) -> bool:
+    """Whether a spec entry names axes, all of them among ``axes``."""
+    return entry is not None and set(_axes(entry)) <= set(axes)
 
 
 def block_index(spec, shape, grid) -> tuple:

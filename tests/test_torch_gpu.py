@@ -1524,3 +1524,121 @@ def test_sharded_step_one_nccl_rank_equals_the_plain_step(nccl_group, arch):
     full = flatten(sh.gather(state, specs, grid))
     for k, v in flatten(plain).items():
         assert torch.equal(full[k], v), k
+
+
+# ------------------------------------------ the dry run, A.10d-3
+# phase 8's head geometries (label, B, H, Hkv, D), at 8,192 positions
+CUSTOM_OP_SHAPES = ((128, 24, 2, 128), (128, 32, 8, 120), (32, 32, 32, 128),
+                    (1, 24, 2, 128))
+
+
+@pytest.mark.parametrize("b,h,hkv,d", CUSTOM_OP_SHAPES)
+def test_decode_attention_custom_op_matches_plain_on_card(b, h, hkv, d):
+    """``ops.decode_attention`` is the custom op
+    ``repro_torch::decode_attention``: on CUDA tensors it launches the
+    kernel once (bf16, within 2e-2 of the plain version); on fake CUDA
+    tensors it launches nothing and gives a fake (B, H, D) output."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    dev = _card()
+    s = 8192
+    gen = torch.Generator(device=dev).manual_seed(b + h)
+    q = torch.randn((b, h, d), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    lens = torch.full((b,), s, dtype=torch.int32, device=dev)
+    launches = da.decode_attention.launches
+    got = torch.ops.repro_torch.decode_attention(q, k, v, lens, None, 512)
+    assert da.decode_attention.launches == launches + 1
+    torch.testing.assert_close(got.float(), da.plain(q, k, v, lens).float(),
+                               rtol=2e-2, atol=2e-2)
+    with FakeTensorMode() as mode:
+        fq, fk, fl = (mode.from_tensor(t) for t in (q, k, lens))
+        out = ops.decode_attention(fq, fk, fk, fl)
+    assert isinstance(out, FakeTensor) and out.shape == (b, h, d)
+    assert da.decode_attention.launches == launches + 1
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_dryrun_counts_equal_on_fake_cuda_and_fake_cpu(kind, tmp_path):
+    """A reduced granite-moe cell on a 2 x 2 ``fake`` grid counts the same
+    on fake ``cuda`` tensors as on fake ``cpu`` ones (the CPU tests'
+    device: a build without CUDA cannot run these steps on fake CUDA
+    tensors)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeCell
+    _card()
+    cell = ShapeCell(f"tiny_{kind}", kind, 128, 4)
+    r = {dev: dryrun.run_cell("granite-moe-1b-a400m", cell, "single",
+                              str(tmp_path), device=dev, smoke=True,
+                              grid=((2, 2), ("data", "model")))
+         for dev in ("cpu", "cuda")}
+    for key in ("cost", "collectives", "ops", "memory"):
+        assert r["cpu"][key] == r["cuda"][key], key
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "granite-moe-1b-a400m"])
+def test_sharded_serve_one_nccl_rank_and_counts(nccl_group, arch, tmp_path):
+    """On a 1 x 1 grid over the one-rank NCCL group, the sharded prefill
+    and three sharded serve steps are bitwise the plain steps (tokens,
+    logits, cache), the serve step launches ``decode_attention`` once a
+    layer, and ``opanalysis`` counts the same FLOPs, collectives and ops
+    for a real sharded serve step as for its dry run on a 1 x 1 ``fake``
+    grid on fake ``cuda`` tensors."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.ckpt import flatten, tree_map
+    from repro_torch.core import collectives as coll
+    from repro_torch.launch import dryrun, opanalysis
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.models import registry
+    from repro_torch.serving.decode import make_prefill, make_serve_step
+    from repro_torch.training import Shardings
+    dev = _card()
+    cfg, fam = registry.get(arch, smoke=True)
+    grid = coll.make_grid((1, 1), ("data", "model"))
+    fsdp = arch in dryrun.FSDP_ARCHS
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = fam["init"](cfg, gen, dev)
+    batch = dict(tokens=torch.randint(0, cfg.vocab, (4, 32), generator=gen,
+                                      device=dev, dtype=torch.int32))
+    specs = sh.serve_specs(params, grid, batch=batch, fsdp=fsdp)
+    want_l, want_c = make_prefill(cfg, fam)(params, batch)
+    got_l, got_c = make_prefill(cfg, fam, Shardings(grid, specs))(params,
+                                                                   batch)
+    assert torch.equal(got_l, want_l)
+    for k, v in flatten(want_c).items():
+        assert torch.equal(flatten(got_c)[k], v), k
+    cache = fam["init_cache"](cfg, 4, 64, dev)
+    for t in flatten(cache).values():
+        t.normal_(generator=gen)
+    mine = tree_map(lambda t: t.clone(), cache)
+    tok = torch.randint(0, cfg.vocab, (4, 1), generator=gen, device=dev,
+                        dtype=torch.int32)
+    specs = sh.serve_specs(params, grid, batch=dict(tokens=tok), cache=cache,
+                           fsdp=fsdp)
+    plain = make_serve_step(cfg, fam)
+    sharded = make_serve_step(cfg, fam, shardings=Shardings(grid, specs))
+    a = b = tok
+    for pos in (61, 62, 63):
+        a, la, cache = plain(params, cache, a, pos)
+        ops.reset_launches()
+        b, lb, mine = sharded(params, mine, b, pos)
+        assert da.decode_attention.launches == cfg.n_layers
+        assert torch.equal(a, b) and torch.equal(la, lb)
+    for k, v in flatten(cache).items():
+        assert torch.equal(flatten(mine)[k], v), k
+    with opanalysis.StepCount() as count:
+        sharded(params, mine, b, 63)
+    real = count.summary()
+    dist.destroy_process_group()
+    try:
+        fake = dryrun.run_cell(arch, ShapeCell("tiny", "decode", 64, 4),
+                               "one", str(tmp_path), device=dev, smoke=True,
+                               grid=((1, 1), ("data", "model")))
+    finally:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{tmp_path / 'store2'}", rank=0,
+            world_size=1)
+    assert fake["cost"]["flops_per_device"] == real["flops"]
+    assert fake["collectives"]["counts"] == real["collective_counts"]
+    assert fake["ops"] == real["ops"]
