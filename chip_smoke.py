@@ -69,11 +69,11 @@ on past a failure:
    PageRank (epochs=3) with ``kernels`` and with ``torch``: counters,
    trace, supersteps and ``time_s`` exact, values bitwise (BFS,
    Histogram) or within rtol 1e-4 / atol 1e-5 (SpMV, PageRank);
-   all four also on the per-step loop against the chunked one (BFS and
-   SpMV with the ``EngineIds`` tap, timed beside the chunked run by
-   ``LoopClock``: cut from phases 5 and 6's RMAT-22 by the time limit;
-   PageRank's per-step runs at one epoch on RMAT-14 against a chunked
-   run there, cut from three epochs at RMAT-18 by the time limit);
+   Histogram and PageRank also on the per-step loop against the chunked
+   one (PageRank's per-step runs at one epoch on RMAT-14 against a
+   chunked run there, cut from three epochs at RMAT-18 by the time
+   limit; BFS's and SpMV's per-step runs with the ``EngineIds`` tap cut
+   by the time limit);
    BFS and PageRank with ``compaction=3`` on both loops against the
    dense chunked run (window overflows printed), and on the chunked loop
    with ``torch`` against ``kernels``; PageRank against its oracle;
@@ -330,6 +330,7 @@ on past a failure:
     ``make_serve_step(shardings=)``; ``ops.decode_attention`` a custom
     op): (a) phase 15 (c)'s decode_32k cell (starcoder2-3b, B 8, a
     32,768-position cache from the seed) through the sharded serve step
+    (the dense family's tensor-parallel one, phase 22's serve reading)
     on a 1 x 1 ("data", "model") grid over a one-rank NCCL group, 4 steps
     in turns with the plain step: tokens and logits bitwise, the kernel
     launched once a layer a step; a sharded prefill of granite-moe (8 x
@@ -341,25 +342,50 @@ on past a failure:
     ``torch.cuda.max_memory_allocated()`` above the memory held before
     the step; each step's ms, compute and memory terms and roofline
     share printed; (c) ``python -m repro_torch.launch.dryrun`` on
-    starcoder2-3b decode_32k and granite-moe train_4k on the 16 x 16
-    grid, each in a subprocess started with the phase: status ok, memory
-    a rank and ``fits`` printed; (d) one layer's decode attention at
-    (a)'s shape through the custom op and through the kernel's wrapper
-    alone, in turns: host us and device ms a call;
-22. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
+    starcoder2-3b decode_32k, granite-moe train_4k and deepseek-7b
+    decode_32k and train_4k on the 16 x 16 grid, each in a subprocess
+    started before phase 20: status ok, memory a rank and ``fits``
+    printed; (d) one layer's decode attention at (a)'s shape through the
+    custom op and through the kernel's wrapper alone, in turns: host us
+    and device ms a call;
+22. tensor-parallel compute over ``model`` for the dense family (ROADMAP
+    A.10e-1; ``repro_torch.models`` ``layers.model_grid``, ``lm``'s
+    vocab-parallel embedding, head and loss; the lse
+    ``ops.decode_attention`` returns beside its output): (a) phase 16's configuration (starcoder2-3b,
+    AdamW, its seeded state and first 8 x 1,024 batch) through the TP
+    train step on a 1 x 1 grid over a one-rank NCCL group in turns with
+    the plain step, each step from step 0 (lr 0) so that all see the
+    same parameters: losses within ``TP_LOSS_RTOL`` (bitwise or not
+    printed), ms a step each way (CUDA events), peak memory; phase 21
+    (a) is the TP serve step of phase 15 (c)'s cell; (b) rank 0 of the
+    16 x 16 grid on a ``fake`` group with real tensors on the card (the
+    collectives issued and moving nothing, so values are not results):
+    deepseek-7b decode_32k (8 rows, 2 KV heads, 32,768 positions),
+    deepseek-7b train_4k (16 x 4,096 tokens) and starcoder2-3b
+    decode_32k (the positions cut, 2,048 a rank): ms a step (CUDA
+    events), held memory and the peak above it against the dry run's
+    predicted peak of the same cell (phase 21 (c)'s CLI), within
+    ``DRY_PEAK``; (c) at phase 8's starcoder2-3b and deepseek-7b shapes,
+    the cache cut into 16 blocks of positions, the kernel on each with
+    its lse, the blocks merged by their lse against the kernel on the
+    whole cache and the plain version (``DECODE_TOL``), each block's lse
+    against the plain version's (``TP_LSE_TOL``), the kernel on the
+    whole cache timed twice;
+23. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, then
     the last line, ``{"ok": true, "device": {...}}``.
 
 Every app run prints its supersteps, wall seconds, ms per superstep,
 host syncs, CUDA-graph replays, peak device memory and launches per
-kernel.  The per-step runs of phase 6 (Histogram) and phase 9 (BFS,
-SpMV) also print, per call shape
+kernel.  The per-step run of phase 6 (Histogram) also prints, per call
+shape
 of segment_combine and deliver_fused, how the ids the engine hands them
 fall in the kernels' 32-record warp slices (``EngineIds``): the share
 of live records in runs of neighbours and repeated in their slice, and
 the atomics a fold would leave.
 
 Each main-path run (phases 5-8, 6b, 9b, the RMAT-22 runs of 10,
-10b and 11, 15's serving runs, 17's, 18's, 19's, 20's and 21's) sets
+10b and 11, 15's serving runs, 17's, 18's, 19's, 20's, 21's and 22's)
+sets
 every
 kernel's launch count to 0 just before it and reads the counts just
 after; a kernel on the path that did not launch (at least once per
@@ -380,8 +406,11 @@ counts in (a) plus the kernels the profiler sees in (b)), and phase
 training under ``train_hybrid``, ``train_encdec`` and ``train_xlstm``
 (none), phase 19's (a)-(c) under ``collectives`` and (d) under
 ``pipeline`` (none), phase 20's sharded steps under
-``sharded_train`` (none) and phase 21's sharded serve steps under
-``serve_sharded``.  A graph replay counts the launches
+``sharded_train`` (none), phase 21's sharded serve steps (the dense
+family's tensor-parallel ones) under ``serve_tp`` and phase 22 (b)'s
+production-grid rank steps under ``serve_tp_rank`` (phase 22 (a)'s TP
+train step launches none; (c)'s calls compare the kernel with its plain
+version and are not counted).  A graph replay counts the launches
 captured in it, so on the chunked loop the counts include the idle rows
 of a chunk (after the run drained, or after a flush the device
 scheduled), which are printed as the surplus.
@@ -1654,7 +1683,7 @@ def plain_by_slices(q, k, v, lengths, scale=None):
     _, hkv, s, d = k.shape
     rows = max(1, PLAIN_SLICE_BYTES // (8 * hkv * s * d))
     return torch.cat([da.plain(q[i:i + rows], k[i:i + rows], v[i:i + rows],
-                               lengths[i:i + rows], scale)
+                               lengths[i:i + rows], scale)[0]
                       for i in range(0, q.shape[0], rows)])
 
 
@@ -1711,7 +1740,7 @@ def decode_phase(dev) -> tuple:
         full = torch.full((b,), s, dtype=torch.int32, device=dev)
         torch.cuda.synchronize()
         ops.reset_launches()
-        out = ops.decode_attention(q, k, v, full)
+        out, _ = ops.decode_attention(q, k, v, full)
         torch.cuda.synchronize()
         for kern in ops.KERNELS:
             launches[kern.__name__] += kern.launches
@@ -1729,9 +1758,11 @@ def decode_phase(dev) -> tuple:
         sets = [ragged] if b >= 4 else [specials[i:i + 1] for i in range(4)]
         for lens in sets:
             err = max(err, check(f"{label}, ragged lengths",
-                                 da.decode_attention(q, k, v, lens),
+                                 da.decode_attention(q, k, v, lens)[0],
                                  plain_by_slices(q, k, v, lens), DECODE_TOL))
-        nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + 4 * b
+        # the lse (B, H) f32 is written beside the output
+        nbytes = ((q.numel() + k.numel() + v.numel() + out.numel()) * 2
+                  + 4 * b + 4 * b * h)
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         # the bf16 products run on the tensor cores
         op_ms = 4 * b * h * s * d / BF16_FLOP_PER_S * 1e3
@@ -1759,8 +1790,8 @@ def decode_phase(dev) -> tuple:
                 row["f32_max_abs_err"] = max(
                     row.get("f32_max_abs_err", 0.0),
                     check(f"{label}, f32, length {n}",
-                          da.decode_attention(qf, kf, vf, lens),
-                          da.plain(qf, kf, vf, lens), DECODE_F32_TOL))
+                          da.decode_attention(qf, kf, vf, lens)[0],
+                          da.plain(qf, kf, vf, lens)[0], DECODE_F32_TOL))
             del qf, kf, vf
         shapes.append(row)
         f32 = (f", f32 {row['f32_max_abs_err']:g} on the {row['f32_kernel']}"
@@ -1820,14 +1851,10 @@ def agreement_phase(dev, wl) -> None:
         same_run(runs[0], runs[1], f"{name} kernels vs torch",
                  *(tol or (None, None)))
         wl.setdefault("agree", {})[name] = (runs[0], fn, args, kw, tol)
-        if name in ("bfs", "spmv"):
-            # the per-step loop against the chunked run, with the
-            # EngineIds tap (cut from phases 5 and 6's RMAT-22 to
-            # RMAT-18 by the time limit)
-            compare_loops(name, got[0][2], per_step_run(
-                dev, name, runs[0], fn, args,
-                dict(kw, oq_cap=OQ_CAP, backend="kernels"),
-                *(tol or (None, None))))
+        # BFS's and SpMV's per-step runs with the EngineIds tap are cut by
+        # the time limit (PERF.md section 4): the per-step loop stays held
+        # to the chunked one by Histogram here and in phase 6 (with the
+        # tap), by PageRank and by the compacted BFS below
         # PageRank's per-step runs at one epoch on RMAT-14, against a
         # chunked run there (cut from three epochs, then from RMAT-18, by
         # the time limit)
@@ -3330,8 +3357,8 @@ def kernel_vs_plain(errs: list):
 
     def checked(q, k, v, lengths, scale=None, block_s=512):
         out = kernel(q, k, v, lengths, scale=scale, block_s=block_s)
-        errs.append(max_abs_err(out.float(), da.plain(
-            q, k, v, lengths, scale, block_s).float()))
+        errs.append(max_abs_err(out[0].float(), da.plain(
+            q, k, v, lengths, scale, block_s)[0].float()))
         return out
     ops.decode_attention = checked
     try:
@@ -4100,12 +4127,13 @@ def decode_in_cache(cfg, cache) -> dict:
     q = (torch.randn((b, h, d), generator=gen, device=k.device)
          * DECODE_Q_STD).to(k.dtype)
     full = torch.full((b,), t, dtype=torch.int32, device=k.device)
-    out = da.decode_attention(q, k, v, full)
-    err = max_abs_err(out.float(), da.plain(q, k, v, full).float())
+    out, _ = da.decode_attention(q, k, v, full)
+    err = max_abs_err(out.float(), da.plain(q, k, v, full)[0].float())
     require(bool(torch.isfinite(out).all()) and err <= DECODE_TOL,
             f"decode_attention in {cfg.arch}'s cache: max |err| {err} > "
             f"{DECODE_TOL}")
-    nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + 4 * b
+    nbytes = ((q.numel() + k.numel() + v.numel() + out.numel()) * 2
+              + 4 * b + 4 * b * h)
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = 4 * b * h * t * d / BF16_FLOP_PER_S * 1e3
     args = copies((q, k, v, full), nbytes)
@@ -5288,14 +5316,18 @@ DRY = dict(serve_arch="starcoder2-3b", batch=8, cache_len=32768, steps=4,
 DRY_PEAK = (0.8, 1.25)          # predicted over measured peak, held
 DRY_GRID = ((1, 1), ("data", "model"))
 # (c): the CLI on the production 16 x 16 grid, each cell in a subprocess
+# started before phase 20 (phase 22 (b) reads the dense cells' predicted
+# peaks)
 DRY_CLI = (("starcoder2-3b", "decode_32k"), ("granite-moe-1b-a400m",
-                                              "train_4k"))
+                                              "train_4k"),
+           ("deepseek-7b", "decode_32k"), ("deepseek-7b", "train_4k"))
 
 
 def start_cli_cells(out_dir: Path) -> list:
     """(c): ``python -m repro_torch.launch.dryrun`` on each ``DRY_CLI``
     cell on the ``single`` grid, in subprocesses started now (fake
-    tensors: they use the host's cores, not the card)."""
+    tensors: they use the host's cores, not the card), writing into
+    ``out_dir``."""
     src = Path(__file__).resolve().parent / "src"
     env = dict(os.environ, PYTHONPATH=str(src))
     return [(arch, shape, subprocess.Popen(
@@ -5509,23 +5541,26 @@ def dry_checks(label, real: dict, fake: dict) -> dict:
 def dryrun_phase(dev, smi, kept: dict) -> dict:
     """ROADMAP A.10d-3 on the card: (a) the sharded serve step and
     prefill on one NCCL rank, (b) real steps counted against their dry
-    runs, (c) the CLI on the production grid, (d) the custom op's
-    dispatch.  Returns the launch counts of path ``serve_sharded``."""
+    runs, (c) the CLI on the production grid (``kept["cli"]``, started
+    before phase 20), (d) the custom op's dispatch.  The dense sharded
+    serve step is the tensor-parallel one (phase 22 reads (a) as its
+    serve step).  Returns the launch counts of path ``serve_tp``."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.shapes import ShapeCell
     print(f"== 21. the dry run (repro_torch.launch shapes, opanalysis, "
           f"dryrun; serving make_prefill / make_serve_step(shardings=); "
           f"ops.decode_attention as a custom op) [{smi}]")
     t_phase = time.perf_counter()
-    out_dir = Path(__file__).resolve().parent / dryrun.DEFAULT_OUT
-    cli = start_cli_cells(out_dir)
+    out_dir, cli = kept.pop("cli")
     gc.collect()
     torch.cuda.empty_cache()
     with one_rank_nccl(dev) as grid:
         serve, launches = sharded_serve_readings(dev, grid)
         train = counted_train_step(dev, grid, kept)
     opt, fsdp = kept["optimizer"], kept["fsdp"]
-    kept.clear()
+    for key in ("state", "specs", "optimizer", "block", "arch", "batch",
+                "seq", "fsdp"):
+        kept.pop(key, None)
     gc.collect()
     torch.cuda.empty_cache()
     c = serve
@@ -5562,7 +5597,7 @@ def dryrun_phase(dev, smi, kept: dict) -> dict:
     for name, d in serve["dispatch"].items():
         print(f"      {name:22s} {[round(x, 1) for x in d['host_us']]} "
               f"({[round(x, 4) for x in d['device_ms']]})")
-    cells = []
+    cells, kept["tp_cli"] = [], {}
     for arch, shape, proc in cli:
         stdout, stderr = proc.communicate(timeout=300)
         require(proc.returncode == 0, f"dry run CLI {arch} {shape}: exit "
@@ -5571,6 +5606,7 @@ def dryrun_phase(dev, smi, kept: dict) -> dict:
                          .read_text())
         require(art["status"] == "ok", f"dry run CLI {arch} {shape}: "
                                        f"{art['status']}")
+        kept["tp_cli"][(arch, shape)] = art
         cells.append(dict(arch=arch, shape=shape, fits=art["fits"],
                           gib_per_rank=art["bytes_per_rank"] / 2**30,
                           dominant=art["dominant"],
@@ -5582,12 +5618,252 @@ def dryrun_phase(dev, smi, kept: dict) -> dict:
               f"{art['useful_flops_ratio']:.4f}, traced in "
               f"{art['trace_s']} s")
     took = time.perf_counter() - t_phase
-    print(f"    launches {json.dumps(dict(serve_sharded=launches))}")
+    print(f"    launches {json.dumps(dict(serve_tp=launches))}")
+    kept["tp_serve"] = dict(ms=serve["ms"],
+                            launches=launches["decode_attention"])
     readings = dict(serve=serve, train=train, cli=cells)
     print(f"  dry run readings {json.dumps(readings)}")
     print(f"  dry run phase {took:.1f} s")
-    return dict(serve_sharded=launches)
+    return dict(serve_tp=launches)
 
+
+
+# ------------- 22. tensor-parallel compute over 'model' (ROADMAP A.10e-1)
+# (a) one NCCL rank: starcoder2-3b's TP train step in turns with the plain
+# step (phase 21 (a) is the TP serve step of phase 15 (c)'s cell); (b)
+# rank 0 of the 16 x 16 grid on a fake group with real tensors; (c) the
+# kernel's log-sum-exp and the merge of 16 blocks of positions
+TP = dict(steps=4, cells=(("deepseek-7b", "decode_32k"),
+                          ("deepseek-7b", "train_4k"),
+                          ("starcoder2-3b", "decode_32k")),
+          blocks=16, shapes=(0, 2))        # DECODE_SHAPES' indices
+TP_LOSS_RTOL = 1e-6
+TP_LSE_TOL = 1e-4
+
+
+def tp_train_readings(dev, grid) -> dict:
+    """(a): phase 16's configuration (starcoder2-3b, AdamW, its seeded
+    state and its first batch of 8 x 1,024) through the plain step and
+    the TP step in turns from one state.  Each step runs as the state's
+    first (step 0, the warmup's lr 0), so every step sees the same
+    parameters and the losses compare."""
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.train import batch_source, make_optimizer
+    from repro_torch.models import registry
+    from repro_torch.training import Shardings, TrainState, make_train_step
+    t = TRAIN
+    cfg, fam = registry.get(t["arch"])
+    opt = make_optimizer(cfg, t["lr"], min(100, max(1, t["steps"] // 10)))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = TrainState.create(fam["init"](cfg, gen, dev), opt)
+    specs = sh.train_state_specs(state, grid, fsdp=True)
+    steps = dict(plain=make_train_step(cfg, fam, opt),
+                 tp=make_train_step(cfg, fam, opt,
+                                    shardings=Shardings(grid, specs)))
+    _, host_batch = batch_source(cfg, t["seq"], t["batch"])
+    batch = to_device(host_batch(0), dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def run(kind):
+        return steps[kind](TrainState(state.params, state.opt_state, zero),
+                           batch)[1]
+    for kind in steps:                                   # warm-ups
+        run(kind)
+    ms, loss, peak = dict(plain=[], tp=[]), dict(plain=[], tp=[]), {}
+    for i in range(TP["steps"]):
+        kind = ("plain", "tp", "tp", "plain")[i % 4]
+        m, t_ms, p = timed_step(run, kind)
+        ms[kind].append(t_ms)
+        loss[kind].append(float(m["loss"]))
+        peak[kind] = max(peak.get(kind, 0), p)
+    want = loss["plain"][0]
+    worst = max(abs(x - want) / abs(want) for x in loss["plain"] + loss["tp"])
+    require(math.isfinite(want) and worst <= TP_LOSS_RTOL,
+            f"TP train step: losses {loss} not within {TP_LOSS_RTOL} of "
+            f"each other")
+    read = dict(arch=cfg.arch, batch=t["batch"], seq=t["seq"], ms=ms,
+                loss=loss, loss_rel_err=worst, bitwise=worst == 0.0,
+                peak_gib={k: v / 2**30 for k, v in peak.items()})
+    del state, steps, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return read
+
+
+def _real_like(t, dev):
+    """A real tensor of a fake one's shape and dtype on ``dev``: floats
+    drawn (std 0.02), integers 0 (valid token ids, step 0)."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    out = torch.empty(tuple(t.shape), dtype=t.dtype, device=dev)
+    return out.normal_(std=0.02) if out.is_floating_point() else out.zero_()
+
+
+def production_rank(dev, arch: str, shape: str, predicted: int) -> tuple:
+    """(b): one cell's step as rank 0 of the 16 x 16 grid on a ``fake``
+    group (every collective issued, nothing moved: the gathered blocks
+    hold whatever the allocator gave, so the values are not results),
+    its inputs this rank's blocks as real tensors on the card.  A
+    warm-up, then a step timed by CUDA events with its peak above the
+    held memory, against the dry run's predicted peak of the same cell.
+    Returns (readings, launch counts of the timed step)."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.checkpoint.ckpt import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=256)
+    try:
+        grid = make_production_mesh()
+        with FakeTensorMode():
+            fn, fake = dryrun.build_cell(arch, shape, grid, device=dev)
+        args = tree_map(lambda t: _real_like(t, dev), fake)
+        del fake
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        fn(*args)                                        # warm-up
+        ops.reset_launches()
+        _, ms, peak = timed_step(fn, *args)
+        launches = ops.launch_counts()
+        del args
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ratio = predicted / max(peak, 1)
+    require(DRY_PEAK[0] <= ratio <= DRY_PEAK[1],
+            f"TP rank {arch} {shape}: predicted peak {predicted} bytes is "
+            f"{ratio:.3f}x the measured {peak}")
+    return dict(arch=arch, shape=shape, ms=ms, held_gib=held / 2**30,
+                peak_gib=peak / 2**30, predicted_gib=predicted / 2**30,
+                peak_ratio=ratio), launches
+
+
+def lse_readings(dev) -> dict:
+    """(c): at phase 8's starcoder2-3b and deepseek-7b shapes, the cache
+    cut into ``blocks`` blocks of positions, the kernel called on each
+    with its local lengths, the blocks merged by their
+    lse (``layers._merge_positions``' arithmetic) against the kernel on
+    the whole cache and the plain version (``DECODE_TOL``); each block's
+    lse against the plain version's (``TP_LSE_TOL``, -inf where a
+    block is empty); the kernel on the whole cache timed twice."""
+    from repro_torch.kernels import decode_attention as da
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    s, n = DECODE_S, TP["blocks"]
+    per = s // n
+    out = []
+    for idx in TP["shapes"]:
+        label, b, h, hkv, d = DECODE_SHAPES[idx]
+        q = (torch.randn((b, h, d), generator=gen, device=dev)
+             * DECODE_Q_STD).to(torch.bfloat16)
+        k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+        lens = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        lens[:2] = torch.tensor([s, 1], dtype=torch.int32, device=dev)
+        whole, _ = da.decode_attention(q, k, v, lens)
+        outs, lses, lse_err = [], [], 0.0
+        for i in range(n):
+            kb = k[:, :, i * per:(i + 1) * per].contiguous()
+            vb = v[:, :, i * per:(i + 1) * per].contiguous()
+            lb = (lens - i * per).clamp(0, per).to(torch.int32)
+            o, lse = da.decode_attention(q, kb, vb, lb)
+            _, want = da.plain(q, kb, vb, lb)
+            fin = torch.isfinite(want)
+            require(torch.equal(fin, torch.isfinite(lse)),
+                    f"lse {label} block {i}: -inf rows differ")
+            lse_err = max(lse_err, max_abs_err(lse[fin], want[fin]))
+            outs.append(o)
+            lses.append(lse)
+            del kb, vb
+        lse = torch.stack(lses)
+        w = torch.exp(lse - lse.max(0).values)
+        merged = ((torch.stack(outs).float() * w[..., None]).sum(0)
+                  / w.sum(0)[..., None]).to(q.dtype)
+        plain = plain_by_slices(q, k, v, lens)
+        errs = dict(merged_vs_kernel=max_abs_err(merged.float(),
+                                                 whole.float()),
+                    merged_vs_plain=max_abs_err(merged.float(),
+                                                plain.float()),
+                    lse_vs_plain=lse_err)
+        require(errs["merged_vs_kernel"] <= DECODE_TOL
+                and errs["merged_vs_plain"] <= DECODE_TOL
+                and lse_err <= TP_LSE_TOL,
+                f"lse merge {label}: {json.dumps(errs)}")
+        nbytes = (q.numel() + k.numel() + v.numel() + whole.numel()) * 2
+        args = copies((q, k, v, lens), nbytes)
+        ms = [time_cuda(da.decode_attention, args) for _ in range(2)]
+        out.append(dict(shape=label, B=b, H=h, Hkv=hkv, D=d, blocks=n,
+                        ms=ms, **errs))
+        del q, k, v, whole, outs, lses, merged, plain, args
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_phase(dev, smi, kept: dict) -> dict:
+    """ROADMAP A.10e-1 on the card: (a) the TP train step on one NCCL
+    rank against the plain step (and phase 21 (a)'s TP serve step), (b)
+    production-grid ranks with real tensors, (c) the lse merge.  Returns
+    the launch counts of path ``serve_tp_rank``."""
+    print(f"== 22. tensor-parallel compute over 'model', the dense family "
+          f"(repro_torch.models layers.model_grid, lm; training / serving "
+          f"with shardings=; ops.decode_attention's lse) "
+          f"[{smi}]")
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with one_rank_nccl(dev) as grid:
+        train = tp_train_readings(dev, grid)
+    serve = kept.pop("tp_serve")
+    print(f"  (a) {train['arch']} TP train step ({train['batch']} x "
+          f"{train['seq']}) on a {DRY_GRID[0]} grid over one NCCL rank in "
+          f"turns with the plain step: plain "
+          f"{[round(x, 2) for x in train['ms']['plain']]} ms, TP "
+          f"{[round(x, 2) for x in train['ms']['tp']]} ms (CUDA events); "
+          f"loss {'bitwise' if train['bitwise'] else 'within'} "
+          f"{train['loss_rel_err']:.3g} relative; peak above the state "
+          f"{train['peak_gib']['plain']:.2f} / {train['peak_gib']['tp']:.2f}"
+          f" GiB; the TP serve step of phase 21 (a): plain "
+          f"{[round(x, 2) for x in serve['ms']['plain']]} ms, TP "
+          f"{[round(x, 2) for x in serve['ms']['sharded']]} ms, bitwise, "
+          f"{serve['launches']} decode_attention launches")
+    arts = kept.pop("tp_cli")
+    ranks, launches = [], {}
+    for arch, shape in TP["cells"]:
+        art = arts[(arch, shape)]
+        read, n = production_rank(dev, arch, shape,
+                                  art["memory"]["temp_size_in_bytes"])
+        read.update(gib_per_rank=art["bytes_per_rank"] / 2**30,
+                    useful=art["useful_flops_ratio"], fits=art["fits"])
+        ranks.append(read)
+        for k_, v_ in n.items():
+            launches[k_] = launches.get(k_, 0) + v_
+        print(f"  (b) {arch} {shape}, rank 0 of 16 x 16 (fake group, real "
+              f"tensors): {read['ms']:.2f} ms a step (CUDA events); held "
+              f"{read['held_gib']:.2f} GiB, peak above it "
+              f"{read['peak_gib']:.3f} GiB, predicted {read['predicted_gib']:.3f}"
+              f" ({read['peak_ratio']:.3f}x); the dry run's "
+              f"{read['gib_per_rank']:.2f} GiB a rank, fits {read['fits']}, "
+              f"useful FLOPs {read['useful']:.4f}; launches "
+              f"{json.dumps({k_: v_ for k_, v_ in n.items() if v_})}")
+    lse = lse_readings(dev)
+    for r in lse:
+        print(f"  (c) {r['shape']} (B {r['B']}, H {r['H']}, Hkv {r['Hkv']}) "
+              f"in {r['blocks']} blocks of positions: merged vs kernel "
+              f"{r['merged_vs_kernel']:g}, vs plain {r['merged_vs_plain']:g}"
+              f", lse vs plain {r['lse_vs_plain']:g}; the whole cache "
+              f"{[round(x, 4) for x in r['ms']]} ms")
+    took = time.perf_counter() - t_phase
+    print(f"    launches {json.dumps(dict(serve_tp_rank=launches))}")
+    readings = dict(train=train, serve=serve, ranks=ranks, lse=lse)
+    print(f"  TP readings {json.dumps(readings)}")
+    print(f"  TP phase {took:.1f} s")
+    kept["tp_lse"] = lse
+    return dict(serve_tp_rank=launches)
 
 
 def main() -> int:
@@ -5635,9 +5911,13 @@ def main() -> int:
                                                               rec["b"])
     decode_row["shapes"] += [rec["a"]["after"], rec["b"]["after"]]
     by_path.update(collectives_phase(dev, c["smi"]))
-    kept = {}
+    from repro_torch.launch import dryrun
+    out_dir = Path(__file__).resolve().parent / dryrun.DEFAULT_OUT
+    kept = dict(cli=(out_dir, start_cli_cells(out_dir)))
     by_path.update(sharded_train_phase(dev, c["smi"], kept))
     by_path.update(dryrun_phase(dev, c["smi"], kept))
+    by_path.update(tp_phase(dev, c["smi"], kept))
+    decode_row["lse"] = kept.pop("tp_lse")
     for row in rows:
         row["launches_by_path"] = {p: n[row["name"]]
                                    for p, n in by_path.items()}
@@ -5645,7 +5925,7 @@ def main() -> int:
         require(row["launches"] > 0,
                 f"{row['name']} never launched on a main path")
 
-    print(f"== 22. done in {time.perf_counter() - t_start:.1f} s")
+    print(f"== 23. done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(c["smi"])
     print(json.dumps({"ok": True, "device": {

@@ -86,7 +86,7 @@ def build(names):
 
 def caller(lib, split_plan):
     fn = lib.decode_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 8
                    + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
@@ -100,7 +100,7 @@ def caller(lib, split_plan):
         out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
         _build.launch("decode_attention variant", fn, q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                      out.data_ptr(), ws_m.data_ptr(), ws_l.data_ptr(),
+                      out.data_ptr(), None, ws_m.data_ptr(), ws_l.data_ptr(),
                       ws_acc.data_ptr(), b, h, hkv, s, d, splits, chunk,
                       -(-s // 512) * 512, int(q.dtype == torch.bfloat16),
                       1.0 / math.sqrt(d),

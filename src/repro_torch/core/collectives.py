@@ -23,6 +23,12 @@ and the owners are shards:
                         regional combine before the cross-region reduce
                         (the paper's Histogram proxy).
 
+  copy_to_region /      tensor-parallel compute over one axis
+  reduce_from_region /  (``models.layers.model_grid``): Megatron's *f*
+  gather_from_region    (identity forward, all-reduce backward), *g*
+                        (all-reduce forward, identity backward) and an
+                        all-gather whose backward is a reduce-scatter.
+
 Axis names become process groups.  The reference runs inside
 ``shard_map`` over a mesh whose axes have names; here each rank holds its
 own block and calls the functions eagerly, naming the axes of a
@@ -392,6 +398,97 @@ def gather_records(parts, axis: str, *, grid: Grid):
     (n_ranks * R, ...) tensors in rank order.
     """
     return tuple(_all_gather(p, grid.group(axis)) for p in parts)
+
+
+# --------------------------------------------------------------------------
+# tensor-parallel regions over one axis (Megatron's f, g and all-gather)
+# --------------------------------------------------------------------------
+class _CopyToRegion(torch.autograd.Function):
+    """Megatron's *f*: the identity forward; the backward sums the
+    cotangents of every rank of the group (each rank's share of the
+    work downstream gave it a part of the gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFromRegion(torch.autograd.Function):
+    """Megatron's *g*: the forward sums every rank's partial ``x``; the
+    backward is the identity (each rank's partial carries the whole
+    cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromRegion(torch.autograd.Function):
+    """Every rank's ``x`` concatenated along ``dim`` in group order; the
+    backward sums the cotangents over the group and keeps this rank's
+    block (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _all_gather(x.movedim(dim, 0), group).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = _reduce_scatter(g.movedim(ctx.dim, 0), ctx.group)
+        return out.movedim(0, ctx.dim), None, None
+
+
+def _alone(x, axis, grid: Optional[Grid]) -> bool:
+    """Whether this rank is alone along ``axis``: no grid (a single
+    device), or a group of one rank, which must still carry ``x``'s
+    device.  The region functions below are then the identity."""
+    if grid is None:
+        return True
+    if grid.size(axis) > 1:
+        return False
+    check_carrier(grid.group(axis), x.device)
+    return True
+
+
+def copy_to_region(x, axis, *, grid: Optional[Grid]):
+    """``x`` entering work split over ``axis``: the identity forward, an
+    all-reduce of its gradient (Megatron's *f*)."""
+    if _alone(x, axis, grid):
+        return x
+    return _CopyToRegion.apply(x, grid.group(axis))
+
+
+def reduce_from_region(x, axis, *, grid: Optional[Grid]):
+    """The sum over ``axis`` of every rank's partial ``x``, whose gradient
+    passes to each rank as it is (Megatron's *g*)."""
+    if _alone(x, axis, grid):
+        return x
+    return _ReduceFromRegion.apply(x, grid.group(axis))
+
+
+def gather_from_region(x, dim: int, axis, *, grid: Optional[Grid]):
+    """Every rank's ``x`` along ``axis``, concatenated on ``dim`` in the
+    group's order; the gradient is reduce-scattered back."""
+    if _alone(x, axis, grid):
+        return x
+    return _GatherFromRegion.apply(x, dim, grid.group(axis))
+
+
+def max_over(x, axis, *, grid: Optional[Grid]):
+    """The elementwise max of ``x`` over ``axis`` (no gradient)."""
+    if _alone(x, axis, grid):
+        return x.detach()
+    return _all_reduce(x.detach(), grid.group(axis), dist.ReduceOp.MAX)
 
 
 # --------------------------------------------------------------------------

@@ -658,15 +658,18 @@ __device__ __forceinline__ void from_f32(float x, bf16* out) {
 // denominator; then warp w sums the weighted partials of its range of
 // splits, lane = 4 output dims, loads independent of the weights;
 // thread = output dim adds the warps' sums in warp order, divides, and
-// writes q's dtype.
+// writes q's dtype.  With lse (not null), thread 0 also writes the row's
+// log-sum-exp, max + log(denominator), over the positions the row
+// attends (-inf where its length is <= 0: such a row weighs nothing
+// when blocks of positions are merged, whatever its output).
 template <typename T>
 __global__ void __launch_bounds__(kMergeThreads)
 decode_merge_kernel(const float* __restrict__ ws_m,
                     const float* __restrict__ ws_l,
                     const float* __restrict__ ws_acc,
                     const int32_t* __restrict__ lengths, T* __restrict__ out,
-                    int h, int hkv, long long s, long long s_pad, int d,
-                    int splits) {
+                    float* __restrict__ lse, int h, int hkv, long long s,
+                    long long s_pad, int d, int splits) {
   constexpr int kPer = kMaxSplits / kMergeThreads;
   __shared__ float w[kMaxSplits];
   __shared__ float red[2][kMergeWarps];
@@ -740,6 +743,8 @@ decode_merge_kernel(const float* __restrict__ ws_m,
     if (n_zero > 0) sum += static_cast<float>(n_zero) * expf(-mx);
     from_f32(acc / fmaxf(sum, 1e-30f),
              out + static_cast<long long>(bh) * d + dim);
+    if (lse != nullptr && dim == 0)
+      lse[bh] = len <= 0 ? -INFINITY : mx + logf(sum);
   }
 }
 
@@ -824,14 +829,16 @@ SplitLauncher split_launcher(bool bf16_in, long long d, long long group) {
 extern "C" {
 
 // decode_attention: out (B, H, D) in the inputs' dtype (bf16 != 0: bf16,
-// else f32) from q (B, H, D), k, v (B, Hkv, S, D), lengths (B,) int32.
+// else f32) from q (B, H, D), k, v (B, Hkv, S, D), lengths (B,) int32;
+// lse, where not null, (B, H) f32: each row's log-sum-exp.
 // ws_m, ws_l: (B, Hkv, splits, G) f32; ws_acc: (B, Hkv, splits, G, D)
 // f32; split i covers positions [i * chunk, (i + 1) * chunk), chunk a
 // multiple of 64, at most 1024 splits.  D a multiple of 8 up to 128,
 // G = H / Hkv up to 64, B and Hkv up to 65,535.
 int decode_attention_launch(const void* q, const void* k, const void* v,
-                            const void* lengths, void* out, void* ws_m,
-                            void* ws_l, void* ws_acc, long long b,
+                            const void* lengths, void* out, void* lse,
+                            void* ws_m, void* ws_l, void* ws_acc,
+                            long long b,
                             long long h, long long hkv, long long s,
                             long long d, long long splits, long long chunk,
                             long long s_pad, int bf16_in, float scale,
@@ -850,16 +857,17 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
       q, k, v, len, m, l, acc, b, h, hkv, s, d, splits, chunk, scale, st);
   if (err) return err;
   const unsigned blocks = static_cast<unsigned>(b * h);
+  float* row_lse = static_cast<float*>(lse);
   if (bf16_in)
     decode_merge_kernel<bf16><<<blocks, kMergeThreads, 0, st>>>(
-        m, l, acc, len, static_cast<bf16*>(out), static_cast<int>(h),
-        static_cast<int>(hkv), s, s_pad, static_cast<int>(d),
-        static_cast<int>(splits));
+        m, l, acc, len, static_cast<bf16*>(out), row_lse,
+        static_cast<int>(h), static_cast<int>(hkv), s, s_pad,
+        static_cast<int>(d), static_cast<int>(splits));
   else
     decode_merge_kernel<float><<<blocks, kMergeThreads, 0, st>>>(
-        m, l, acc, len, static_cast<float*>(out), static_cast<int>(h),
-        static_cast<int>(hkv), s, s_pad, static_cast<int>(d),
-        static_cast<int>(splits));
+        m, l, acc, len, static_cast<float*>(out), row_lse,
+        static_cast<int>(h), static_cast<int>(hkv), s, s_pad,
+        static_cast<int>(d), static_cast<int>(splits));
   return static_cast<int>(cudaGetLastError());
 }
 

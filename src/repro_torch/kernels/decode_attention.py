@@ -66,8 +66,10 @@ def split_kernel(dtype: torch.dtype) -> str:
 def decode_attention(q, k, v, lengths, scale=None, block_s: int = 512):
     """Hopper kernel.  q: (B, H, D); k, v: (B, Hkv, S, D), all f32 or all
     bf16, contiguous CUDA tensors, D a multiple of 8 up to 128 and
-    H / Hkv up to 64; lengths: (B,) int32.  Returns (B, H, D) in q's
-    dtype."""
+    H / Hkv up to 64; lengths: (B,) int32.  Returns (out, lse): out
+    (B, H, D) in q's dtype, lse (B, H) f32 each row's log-sum-exp
+    (``ref.decode_attention_ref``'s), which the merge kernel writes from
+    the (max, sum) it already holds."""
     dev = q.device
     _build.check("decode_attention q", q, DTYPES, ndim=3)
     b, h, hkv, s, d, group = decode_geometry(q, k, v)
@@ -92,17 +94,19 @@ def decode_attention(q, k, v, lengths, scale=None, block_s: int = 512):
     ws_acc = torch.empty((b, hkv, splits, group, d), dtype=torch.float32,
                          device=dev)
     out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
-    fn = _build.bind("decode_attention", "decode_attention_launch", 8, 8, 1,
+    lse = torch.empty((b, h), dtype=torch.float32, device=dev)
+    fn = _build.bind("decode_attention", "decode_attention_launch", 9, 8, 1,
                      1)
     with torch.cuda.device(dev):
         _build.launch("decode_attention", fn, q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                      lse.data_ptr(),
                       ws_m.data_ptr(), ws_l.data_ptr(), ws_acc.data_ptr(),
                       b, h, hkv, s, d, splits, chunk, s_pad,
                       int(q.dtype == torch.bfloat16), float(scale),
                       torch.cuda.current_stream(dev).cuda_stream)
     decode_attention.launches += 1
-    return out
+    return out, lse
 
 
 def analysis_cases():

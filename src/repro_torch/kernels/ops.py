@@ -78,7 +78,7 @@ def deliver_fused(seg, val, mail_val, combine: str = "min"):
 # cost ~45 us more a call than the wrapper on the card's host (PERF.md)
 _LIB = torch.library.Library("repro_torch", "FRAGMENT")
 _LIB.define("decode_attention(Tensor q, Tensor k, Tensor v, Tensor lengths, "
-            "float? scale, int block_s) -> Tensor")
+            "float? scale, int block_s) -> (Tensor, Tensor)")
 _LIB.impl("decode_attention",
           lambda *args: _da.decode_attention(*args), "CUDA")
 _LIB.impl("decode_attention", lambda *args: _da.plain(*args), "CPU")
@@ -87,13 +87,14 @@ _LIB.impl("decode_attention", lambda *args: _da.plain(*args), "CPU")
 @torch.library.register_fake("repro_torch::decode_attention", lib=_LIB)
 def _(q, k, v, lengths, scale, block_s):
     b, h, _, _, d, _ = decode_geometry(q, k, v)
-    return q.new_empty((b, h, d))
+    return q.new_empty((b, h, d)), q.new_empty((b, h), dtype=torch.float32)
 
 
 @register_flop_formula(torch.ops.repro_torch.decode_attention)
 def decode_attention_flops(q_shape, k_shape, *args, out_shape=None,
                            **kwargs) -> int:
-    """4 B H S D: Q.K^T and P.V over the whole (B, Hkv, S, D) cache."""
+    """4 B H S D: Q.K^T and P.V over the whole (B, Hkv, S, D) cache (the
+    lse adds B H, nothing beside it)."""
     b, h, d = q_shape
     return 4 * b * h * k_shape[2] * d
 
@@ -108,7 +109,10 @@ def decode_attention(q, k, v, lengths, scale=None, block_s: int = 512):
     Pallas kernel's function: positions past a length are masked, and K
     and V count as zero-padded to a multiple of ``block_s`` (so a length
     <= 0 gives the mean of V over the padded length).  f32 inside;
-    returns (B, H, D) in q's dtype.  One call of the custom op
+    returns (out, lse): out (B, H, D) in q's dtype, lse (B, H) f32 each
+    row's log-sum-exp over the positions it attends, -inf at a length
+    <= 0 (``ref.decode_attention_ref``), by which blocks of a cache's
+    positions merge.  One call of the custom op
     ``repro_torch::decode_attention``."""
     return _DECODE_ATTENTION(q, k, v, lengths, scale, block_s)
 

@@ -165,7 +165,13 @@ def decode_attention_ref(q, k, v, lengths, scale=None, block_s: int = 512):
     ``length > S`` counts the padded positions below it with score 0.
     q: (B, H, D); k, v: (B, Hkv, S, D); lengths: (B,) int.  Each group
     of H / Hkv query heads shares one KV head (no copy of K or V per
-    head).  Returns (B, H, D) in q's dtype."""
+    head).  Returns (out, lse): out (B, H, D) in q's dtype; lse (B, H)
+    f32, each row's log-sum-exp of its scores over the positions below
+    its length (the zero-padded ones among them with score 0), -inf
+    where the length is <= 0.  Blocks of a cache's positions, each
+    called with its own lengths, merge into the call on the whole cache
+    by these weights; a block of no position weighs 0, whatever the
+    Pallas function's mean of V gives it as output."""
     b, h, hkv, s, d, g = decode_geometry(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -178,4 +184,7 @@ def decode_attention_ref(q, k, v, lengths, scale=None, block_s: int = 512):
     p = torch.softmax(torch.where(keep[:, None, None, :], scores,
                                   MASKED_SCORE), dim=-1)
     out = torch.einsum("bkgs,bksd->bkgd", p[..., :s], v.to(torch.float32))
-    return out.reshape(b, h, d).to(q.dtype)
+    out = out.reshape(b, h, d).to(q.dtype)
+    rows = torch.logsumexp(torch.where(keep[:, None, None, :], scores,
+                                       -torch.inf), dim=-1)
+    return out, rows.reshape(b, h)

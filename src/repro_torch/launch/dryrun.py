@@ -13,9 +13,11 @@ rank's blocks fit the step, and the counts give what a rank holds, its
 FLOPs, its HBM bytes and its collective bytes by class.  The reference
 lowers and compiles each cell with XLA; the port has no compiler, so its
 counts are those of the ops it dispatches (the eager op is its kernel
-boundary), and the step it counts computes data-parallel over the batch
-axes and replicated over ``model`` (ROADMAP A.10e): the counts say what
-that step costs, not what a tensor-parallel one would.
+boundary).  The step it counts computes data-parallel over the batch
+axes; over ``model`` it is tensor-parallel for the dense family (each
+rank computes on its blocks of the weights and of the cache, ROADMAP
+A.10e-1) and replicated for the others (A.10e-2, A.10e-3), and the
+counts say what each costs.
 
 Artifacts (one JSON per cell) record the memory (this rank's blocks of
 the inputs, its outputs, the peak of what the step allocates above them,
@@ -29,6 +31,11 @@ Usage:
       train_4k --mesh single [--out artifacts/dryrun_torch] \\
       [--opt '{"q_chunk":512}'] [--device cpu]
   python -m repro_torch.launch.dryrun --all [--mesh both] [--device cpu]
+  python -m repro_torch.launch.dryrun --arch deepseek-7b,pixtral-12b \
+      [--shape train_4k,decode_32k] --mesh both --jobs 6 --device cpu
+
+``--arch`` and ``--shape`` take comma-separated lists (``--shape``
+left out: every shape).
 
 The fake tensors lie on the card's device (``cuda``) unless ``--device
 cpu`` is given, and the run raises without a card otherwise.  A build of
@@ -91,8 +98,8 @@ def overrides(opt_overrides):
     ``moe_group`` and ``moe_cf`` set ``models.layers``' knobs (restored
     after); ``carry_cache`` true is the port's in-place cache, false
     raises ``ValueError`` (no scan to double-buffer); ``microbatches``
-    above 1 (A.10f), ``seq_parallel``, ``two_hop_dispatch`` and
-    ``ep_axes`` (expert parallelism, A.10e) raise
+    above 1 (A.10f), ``seq_parallel`` (A.10e-3), ``two_hop_dispatch``
+    and ``ep_axes`` (expert parallelism, A.10e-2) raise
     ``NotImplementedError``; another key raises ``ValueError``."""
     opt = dict(opt_overrides or {})
     unknown = sorted(set(opt) - set(_OPTS))
@@ -101,11 +108,14 @@ def overrides(opt_overrides):
     if int(opt.get("microbatches", 1)) > 1:
         raise NotImplementedError("microbatches under shardings are not "
                                   "ported yet (ROADMAP A.10f)")
-    for key in ("seq_parallel", "two_hop_dispatch", "ep_axes"):
+    for key, item, what in (
+            ("seq_parallel", "A.10e-3", "sequence parallelism"),
+            ("two_hop_dispatch", "A.10e-2", "the MoE's expert parallelism"),
+            ("ep_axes", "A.10e-2", "the MoE's expert parallelism")):
         if opt.get(key):
             raise NotImplementedError(
-                f"{key}: tensor- and expert-parallel compute over 'model' "
-                f"is not ported yet (ROADMAP A.10e)")
+                f"{key}: {what} over 'model' is not ported yet (ROADMAP "
+                f"{item})")
     if not opt.get("carry_cache", True):
         raise ValueError("carry_cache=False: the port's decode writes its "
                          "cache in place; it has no scan to double-buffer")
@@ -313,7 +323,9 @@ def main(argv=None):
         cells = [(arch, shape, m) for arch in registry.ARCHS
                  for shape in shp.SHAPES for m in meshes]
     else:
-        cells = [(args.arch, args.shape, m) for m in meshes]
+        shapes = args.shape.split(",") if args.shape else list(shp.SHAPES)
+        cells = [(arch, shape, m) for arch in args.arch.split(",")
+                 for shape in shapes for m in meshes]
 
     t_all = time.perf_counter()
     if args.jobs > 1 and len(cells) > 1:

@@ -29,7 +29,8 @@ through it once and is counted:
                reference's convention) and a count; ``send`` and ``recv``
                are collective-permutes.  Each is also charged to its
                group's link: within one node of ``node_size`` consecutive
-               ranks, or across nodes.
+               ranks, or across nodes; ``collective_log`` keeps each one's
+               class, group size and operand shapes, in order.
   peak_bytes   the high-water mark of the bytes of the storages the call
                allocates and still holds (each output storage made during
                the call, tracked by a weak reference until it is freed),
@@ -157,6 +158,8 @@ class StepCount(TorchDispatchMode):
         self.coll = {k: 0 for k in COLLECTIVES}
         self.coll_counts = {k: 0 for k in COLLECTIVES}
         self.link_bytes = dict(within_node=0, across_nodes=0)
+        # (class, ranks in the group, operand shapes) of each collective
+        self.collective_log = []
         self.live = 0
         self.peak = 0
         # a storage can be freed on a process group's thread (its
@@ -197,6 +200,8 @@ class StepCount(TorchDispatchMode):
         self.coll[cls] += nbytes
         self.coll_counts[cls] += 1
         ranks = _group_ranks(bound["process_group"])
+        self.collective_log.append(
+            (cls, len(ranks), [tuple(t.shape) for t in _tensors(operand)]))
         if ranks not in self._spans:
             self._spans[ranks] = len({r // self.node_size
                                       for r in ranks}) > 1

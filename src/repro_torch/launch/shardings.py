@@ -15,6 +15,8 @@ Scheme (Megatron/FSDP hybrid, the reference's):
   KV caches (L, B, T, H, D):                B->('pod','data') else
                                             H->'model' else T->'model'
 Scan-stacked leading layer axes are detected by path and skipped.
+The port's K / V caches lie (L, B, H, T, D): ``port_cache_spec`` gives
+them the spec of the reference's layout, its T and H entries swapped.
 
 A spec is a plain tuple, one entry per leading dim: ``None``, an axis
 name, or a tuple of two or more names; it is ``tuple()`` of the
@@ -43,7 +45,7 @@ import numpy as np
 import torch
 
 from ..checkpoint.ckpt import flatten, unflatten
-from ..core.collectives import all_gather
+from ..core.collectives import all_gather, check_carrier
 
 # trailing-name classes
 _COL = ("w_in", "w_gate", "wq", "wk", "wv", "wq_a", "wq_b", "wkv_a",
@@ -212,6 +214,37 @@ def cache_spec(path: str, shape: tuple, grid) -> tuple:
     return tuple(spec)
 
 
+# cache leaves the port lays out (L, B, Hkv, T, D) where the reference
+# has (L, B, T, Hkv, D) (``convert.lm_cache_from_numpy`` swaps them)
+KV_LEAVES = ("k", "v")
+
+
+def port_cache_spec(path: str, shape: tuple, grid) -> tuple:
+    """``cache_spec`` of a port cache leaf, placed as the reference places
+    its counterpart: a K / V leaf (L, B, Hkv, T, D) gets the rule's spec
+    of the reference's (L, B, T, Hkv, D) with its T and head entries
+    swapped back, so that a rank holds the heads (or the positions) the
+    reference's rank holds; every other leaf ``cache_spec`` as it is."""
+    if _name(path) not in KV_LEAVES or len(shape) != 5:
+        return cache_spec(path, shape, grid)
+    ref = list(cache_spec(path, shape[:2] + (shape[3], shape[2])
+                          + shape[4:], grid))
+    ref[2], ref[3] = ref[3], ref[2]
+    return tuple(ref)
+
+
+def kv_cut(spec) -> str:
+    """What a rank holds of a port K / V leaf (L, B, Hkv, T, D) under
+    ``port_cache_spec``'s ``spec``: ``heads`` where it cuts the heads
+    over ``model``, ``positions`` where it cuts T, else ``whole``
+    (``models.layers.ModelBlock.kv_cut``)."""
+    if names_axis(spec[2:3], "model"):
+        return "heads"
+    if names_axis(spec[3:4], "model"):
+        return "positions"
+    return "whole"
+
+
 def tree_specs(tree, rule, grid, **kw) -> dict:
     """{key string: spec} of a rule over every leaf of ``tree`` (tensors,
     arrays or anything with a ``shape``), in ``flatten``'s order."""
@@ -240,13 +273,13 @@ def serve_specs(params, grid, *, batch=None, cache=None,
     """{key string: spec} of a served model's full leaves, the
     ``in_shardings`` of the reference's prefill and serve steps:
     ``param_spec`` on ``params`` (keys under ``.params``), and where
-    given ``batch_spec`` on ``batch`` (``.batch``) and ``cache_spec`` on
-    ``cache`` (``.cache``)."""
+    given ``batch_spec`` on ``batch`` (``.batch``) and
+    ``port_cache_spec`` on ``cache`` (``.cache``)."""
     out = {".params" + k: param_spec(".params" + k, tuple(v.shape), grid,
                                      fsdp)
            for k, v in flatten(params).items()}
     for name, tree, rule in (("batch", batch, batch_spec),
-                             ("cache", cache, cache_spec)):
+                             ("cache", cache, port_cache_spec)):
         out.update({f".{name}{k}": rule(f".{name}{k}", tuple(v.shape), grid)
                     for k, v in flatten(tree).items()})
     return out
@@ -255,6 +288,27 @@ def serve_specs(params, grid, *, batch=None, cache=None,
 # ---------------------------------------------------------------- placement
 def _axes(entry) -> tuple:
     return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def names_axis(spec, axis: str) -> bool:
+    """Whether any entry of ``spec`` names ``axis``."""
+    return any(e is not None and axis in _axes(e) for e in spec)
+
+
+def drop_axis(spec, axis: str) -> tuple:
+    """``spec`` with ``axis`` taken out of every entry: the axes a leaf
+    is gathered over when a step computes on its ``axis`` block.  An
+    entry naming ``axis`` beside another axis cannot be split so and
+    raises."""
+    out = []
+    for e in spec:
+        if e is not None and axis in _axes(e):
+            if _axes(e) != (axis,):
+                raise ValueError(f"an entry {e} cuts one dim over {axis!r} "
+                                 f"and other axes")
+            e = None
+        out.append(e)
+    return tuple(out)
 
 
 def names_only(entry, axes) -> bool:
@@ -328,21 +382,31 @@ def _member_blocks(grid, axes) -> list:
 def gather_leaf(block: torch.Tensor, spec, grid) -> torch.Tensor:
     """The full leaf of every rank's ``block`` under ``spec``: one
     all-gather over each sharded dim's axes (collective over those
-    groups; every rank calls it, leaf by leaf in one order).  A leaf
-    with no sharded dim is returned as it is."""
+    groups; every rank calls it, leaf by leaf in one order).  Each
+    all-gather sends the block as it lies and stacks the members' blocks
+    on a new leading axis; they are moved into ``dim`` by one copy (none
+    for dim 0).  A dim whose axes hold one rank is the block's own (no
+    gather, no copy; its group must still carry the block's device), and
+    a leaf with no other sharded dim is returned as it is."""
     out = block
     for dim, entry in enumerate(spec):
         if entry is None:
             continue
         axes = _axes(entry)
-        got = all_gather(out.movedim(dim, 0), axes, grid=grid)
         order = _member_blocks(grid, axes)
+        n = len(order)
+        if n == 1:
+            check_carrier(grid.group(axes), out.device)
+            continue
+        shape = tuple(out.shape)
+        parts = all_gather(out, axes, grid=grid).reshape((n,) + shape)
         if order != sorted(order):                # group order != blocks'
-            n = len(order)
-            parts = got.reshape((n, -1) + tuple(got.shape[1:]))
-            inv = np.argsort(order)
-            got = parts[torch.as_tensor(inv)].reshape(got.shape)
-        out = got.movedim(0, dim)
+            parts = parts[torch.as_tensor(np.argsort(order))]
+        if dim:
+            out = torch.cat(tuple(parts), dim=dim)
+        else:                                     # a view of the gather
+            out = parts.movedim(0, dim).reshape(
+                shape[:dim] + (n * shape[dim],) + shape[dim + 1:])
     return out.contiguous() if out is not block else out
 
 

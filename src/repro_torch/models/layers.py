@@ -46,22 +46,97 @@ is a product of means over all of them.  A sharded train step
 group's size and capacity, starts each expert's capacity count where
 the earlier ranks of its group left off, and sums the aux loss's
 statistics over the batch ranks.  Without a grid nothing changes.
+
+Tensor-parallel compute over ``model`` (the dense family under a sharded
+step, ``model_grid``): ``attention``, ``attention_decode`` and ``mlp``
+take this rank's ``model`` blocks of their weights, as the rules cut them
+(the reference's ``wload`` keeps that cut at use).  Megatron's pattern:
+the normed input enters the region (*f*, ``core.collectives.
+copy_to_region``: identity forward, all-reduce backward), a column
+weight gives the rank's output columns, a row weight takes the rank's
+slice of its input, and the partial products are summed over ``model``
+(*g*, ``reduce_from_region``) before the residual add.  The rules cut
+columns, not heads: where a rank's block of ``wq`` (or ``wk`` / ``wv``)
+is not whole heads, the training and prefill attention all-gathers the
+weight over ``model`` (``gather_from_region``, a reduce-scatter
+backward) and computes every query head (or the KV heads its query
+heads read).  Decode runs the kernel on the rank's block of the cache:
+its KV heads, or (its projections' output columns gathered) its block
+of positions for every head, the blocks' outputs merged by the
+log-sum-exp ``ops.decode_attention`` returns beside them.  Without a
+grid (``LOCAL``, one device) every such collective is the identity and
+the same bodies compute on whole weights.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..core.collectives import all_gather
+from ..core.collectives import (all_gather, copy_to_region,
+                                gather_from_region, max_over,
+                                reduce_from_region)
 from ..kernels import ops
 
 DTYPE = torch.bfloat16
 MASKED = -1e30            # the reference's finite mask score
+
+
+# ------------------------------------------- tensor-parallel compute grid
+KV_CUTS = ("heads", "positions", "whole")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelBlock:
+    """Tensor-parallel compute over a grid's ``model`` axis: ``m`` ranks,
+    this one ``r``; ``kv_cut`` what a rank holds of a decode cache: its
+    1/m of the KV heads (``heads``, all of them at m 1), its 1/m of the
+    positions for every head (``positions``), or the whole cache
+    (``whole``).  ``LOCAL`` (no grid) is one device."""
+
+    grid: Any
+    m: int
+    r: int
+    kv_cut: str = "heads"
+
+    def t_global(self, t: int) -> int:
+        """The positions of a decode cache whose block here holds ``t``."""
+        return t * self.m if self.kv_cut == "positions" else t
+
+
+LOCAL = ModelBlock(None, 1, 0)
+# the ModelBlock of the sharded step running, else LOCAL
+MODEL_GRID: ModelBlock = LOCAL
+
+
+@contextlib.contextmanager
+def model_grid(grid, kv_cut: str = "heads"):
+    """The dense layers compute on this rank's ``model`` blocks of their
+    weights for the ``with`` block (``attention``, ``attention_decode``,
+    ``mlp``; ``lm.py``'s embedding, head and loss): a column weight
+    (``wq``, ``wk``, ``wv``, ``w_in``, ``w_gate``) is this rank's output
+    columns, a row weight (``wo``, ``w_out``) its input rows, and
+    ``tok_emb`` / ``lm_head`` its vocab rows, as ``launch/shardings.py``
+    cuts them; the activations between blocks stay whole on every rank.
+    ``kv_cut`` is the decode cache's cut (``launch.shardings.kv_cut``).
+    Independent of ``batch_grid``."""
+    global MODEL_GRID
+    if kv_cut not in KV_CUTS:
+        raise ValueError(f"kv_cut {kv_cut!r}: one of {KV_CUTS}")
+    sizes = dict(zip(grid.names, grid.shape))
+    at = dict(zip(grid.names, grid.coords or (0,) * len(grid.names)))
+    prev = MODEL_GRID
+    MODEL_GRID = ModelBlock(grid, int(sizes["model"]), int(at["model"]),
+                            kv_cut)
+    try:
+        yield
+    finally:
+        MODEL_GRID = prev
 
 
 # --------------------------------------------------------------------- init
@@ -192,19 +267,131 @@ def _mm(a, w):
     return a @ w
 
 
+# ------------------------------------------- a layer's model blocks
+def _block_of(w, dim: int, full: int, tp: ModelBlock, what: str) -> None:
+    """Raise unless ``w``'s ``dim`` is this rank's 1/m of ``full``."""
+    if w.shape[dim] * tp.m != full:
+        raise ValueError(f"{what}: dim {dim} of {tuple(w.shape)} is not a "
+                         f"1/{tp.m} block of {full} (the rules must cut it "
+                         f"over 'model')")
+
+
+def _whole_heads(w, n: int, hd: int, tp: ModelBlock):
+    """The first head of this rank's output columns of a (d, n * hd)
+    column weight where they are whole heads of a cut, else None (a
+    block that splits a head, or a weight the rules left whole)."""
+    cols = w.shape[-1]
+    if cols == n * hd and tp.m > 1:
+        return None
+    _block_of(w, -1, n * hd, tp, "a column weight")
+    return tp.r * (cols // hd) if cols % hd == 0 else None
+
+
+def _every_column(w, n_cols: int, tp: ModelBlock):
+    """A column weight with all its columns, its gradient summed over
+    ``model``: the all-gather of this rank's block (its backward a
+    reduce-scatter), or a weight the rules left whole entering the
+    region (Megatron's *f*: each rank's share of the work gives it a
+    part of the gradient)."""
+    if w.shape[-1] == n_cols:
+        return copy_to_region(w, "model", grid=tp.grid)
+    return gather_from_region(w, w.dim() - 1, "model", grid=tp.grid)
+
+
+def _kv_for(k, v, h0: int, hl: int, kv0: int, group: int):
+    """The K / V heads query heads [h0, h0 + hl) read (head h reads KV
+    head h // group; ``k`` holds KV heads from ``kv0``), as (k, v) whose
+    heads group the local query heads in order: the KV heads' range
+    where it does, else one KV head a query head."""
+    lo, hi = h0 // group - kv0, (h0 + hl - 1) // group + 1 - kv0
+    k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+    want = [(h0 + j) // group - (kv0 + lo) for j in range(hl)]
+    n = hi - lo
+    if hl % n == 0 and want == [j // (hl // n) for j in range(hl)]:
+        return k, v
+    idx = torch.tensor(want, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _own_rows(out, h0: int, hd: int, rows: int, tp: ModelBlock):
+    """This rank's rows of the row weight ``wo`` of an attention output
+    whose columns are heads from ``h0``: columns [r * rows, (r + 1) *
+    rows) of the whole output."""
+    lo = tp.r * rows - h0 * hd
+    return out if lo == 0 and out.shape[-1] == rows else \
+        out[..., lo:lo + rows]
+
+
+def _every_output(x, w, n_cols: int, tp: ModelBlock):
+    """``x @ w`` with all ``n_cols`` output columns of a column weight:
+    this rank's columns of it gathered over ``model`` (every rank's
+    block of the output in order, exact whether or not a block splits a
+    head), or the product itself where the rules left ``w`` whole."""
+    y = x @ w
+    if w.shape[-1] == n_cols:
+        return y
+    return gather_from_region(y, y.dim() - 1, "model", grid=tp.grid)
+
+
+def _merge_positions(out, lse, tp: ModelBlock):
+    """The decode attention of the whole cache from each rank's over its
+    block of positions: the partial outputs weighted by exp(lse - max)
+    over ``model``, in f32 (a block of no position has lse -inf and
+    weighs 0).  One all-reduce of the max, one of the weighted sums and
+    the weights."""
+    mx = max_over(lse, "model", grid=tp.grid)
+    w = torch.exp(lse - mx)                                  # (B, H)
+    b, h, d = out.shape
+    both = torch.cat([(out.float() * w[..., None]).reshape(b, h * d), w],
+                     dim=-1)
+    both = reduce_from_region(both, "model", grid=tp.grid)
+    num, den = both[:, :h * d].reshape(b, h, d), both[:, h * d:]
+    return (num / den[..., None]).to(out.dtype)
+
+
 def attention(p, x, cfg, positions=None, q_chunk: int = 0,
               bidirectional: bool = False):
     """Self-attention over a full sequence (training / prefill).
 
-    Returns (out, kv) where kv = (k, v), each (B, S, Hkv, D).
+    On this rank's ``model`` blocks (``MODEL_GRID``): the normed input
+    enters the region once (*f*); the query heads are this rank's column
+    block of ``wq`` where it holds whole heads, else all of them from
+    ``wq`` gathered over ``model`` (starcoder2-3b's 24 heads over 16);
+    the K / V heads those read are this rank's block of ``wk`` / ``wv``
+    where it is exactly them (the heads-cut case, deepseek-7b), else
+    every KV head from ``wk`` / ``wv`` gathered over ``model``.  The
+    rank's rows of the output meet its row block of ``wo`` and the
+    partial products are summed over ``model`` (*g*) before the residual
+    add.
+
+    Returns (out, kv) where kv = (k, v), each (B, S, Hkv', D): the rank's
+    KV heads where they are its ``wk`` block, else every KV head.
     """
+    tp = MODEL_GRID
     b, s, _ = x.shape
     q_chunk = q_chunk or DEFAULT_Q_CHUNK
     h, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    group = h // hkv
+    _block_of(p["wo"], 0, h * hd, tp, "wo")
     xn = apply_norm(p["norm"], x)
-    q = _mm(xn, p["wq"]).reshape(b, s, h, hd)
-    k = _mm(xn, p["wk"]).reshape(b, s, hkv, hd)
-    v = _mm(xn, p["wv"]).reshape(b, s, hkv, hd)
+    xi = copy_to_region(xn, "model", grid=tp.grid)
+    h0 = _whole_heads(p["wq"], h, hd, tp)
+    if h0 is None:                    # a block that splits a head
+        h0, wq = 0, _every_column(p["wq"], h * hd, tp)
+    else:
+        wq = p["wq"]
+    q = _mm(xi, wq).reshape(b, s, -1, hd)
+    hl = q.shape[2]
+    kv0 = _whole_heads(p["wk"], hkv, hd, tp)
+    if kv0 is not None and kv0 == h0 // group \
+            and p["wk"].shape[-1] == hl // group * hd:
+        wk, wv = p["wk"], p["wv"]
+    else:                             # every KV head, gathered
+        kv0 = 0
+        wk = _every_column(p["wk"], hkv * hd, tp)
+        wv = _every_column(p["wv"], hkv * hd, tp)
+    k = _mm(xi, wk).reshape(b, s, -1, hd)
+    v = _mm(xi, wv).reshape(b, s, -1, hd)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     if cfg.rope:
@@ -216,9 +403,12 @@ def attention(p, x, cfg, positions=None, q_chunk: int = 0,
     else:
         def mask_fn(off, sq):
             return causal_mask(off, sq, s, cfg.swa_window, x.device)
+    kq, vq = _kv_for(k, v, h0, hl, kv0, group)
     chunk = q_chunk if s > (q_chunk * 2) else 0
-    out = _attention_scores(q, k, v, mask_fn, q_chunk=chunk)
-    out = out.reshape(b, s, h * hd) @ p["wo"]
+    out = _attention_scores(q, kq, vq, mask_fn, q_chunk=chunk)
+    out = _own_rows(out.reshape(b, s, hl * hd), h0, hd, p["wo"].shape[0],
+                    tp)
+    out = reduce_from_region(out @ p["wo"], "model", grid=tp.grid)
     return x + out, (k, v)
 
 
@@ -250,31 +440,67 @@ def decode_lengths(pos: int, t: int, ring: bool) -> int:
 
 
 def attention_decode(p, x, cache, pos: int, cfg, ring: bool = False):
-    """One-token decode.  x: (B, 1, d); cache: dict(k=(B, Hkv, T, D),
-    v=...), one layer's contiguous slices of the (L, B, Hkv, T, D) cache;
-    pos: the absolute position (an int, shared by every row).  With
-    ``ring`` (sliding-window archs) the cache is a ring buffer of size
-    window and positions wrap.  Writes the new K/V slot into ``cache``
-    in place and returns (out, cache)."""
+    """One-token decode.  x: (B, 1, d); cache: dict(k=(B, Hkv', T', D),
+    v=...), one layer's contiguous slices of the (L, B, Hkv', T', D)
+    cache, this rank's block of it as ``MODEL_GRID.kv_cut`` says; pos:
+    the absolute position (an int, shared by every row).  With ``ring``
+    (sliding-window archs) the cache is a ring buffer of size window and
+    positions wrap.  Writes the new K/V slot into ``cache`` in place and
+    returns (out, cache).  On this rank's ``model`` blocks:
+      * ``heads`` (the rank holds (B, Hkv / m, T, D), the reference's
+        placement where m divides Hkv; one device's whole cache): its
+        query heads, its ``wk`` / ``wv`` block's new K / V written into
+        its heads, the kernel on that contiguous slice.
+      * ``positions`` (every KV head of its T / m positions) or
+        ``whole``: each projection's output columns gathered over
+        ``model`` (B x H x D, a few KB; exact where a block splits a
+        head), the new K / V of every head written only by the rank
+        whose block holds the slot, the kernel on the block with its
+        local lengths (the plain cache's clamp(pos + 1 - r T / m, 0,
+        T / m), a ring's whole block) and, cut on positions, the blocks'
+        results merged over ``model`` by their log-sum-exp.
+    Either way the rank's rows of the output meet its row block of
+    ``wo`` and are summed over ``model``."""
+    tp = MODEL_GRID
     b = x.shape[0]
     h, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    t = cache["k"].shape[2]
+    rows = p["wo"].shape[0]
+    _block_of(p["wo"], 0, h * hd, tp, "wo")
+    t_loc = cache["k"].shape[2]
     xn = apply_norm(p["norm"], x)
-    q = (xn @ p["wq"]).reshape(b, 1, h, hd)
-    k = (xn @ p["wk"]).reshape(b, 1, hkv, hd)
-    v = (xn @ p["wv"]).reshape(b, 1, hkv, hd)
+    if tp.kv_cut == "heads":
+        _block_of(cache["k"], 1, hkv, tp, "the heads-cut cache")
+        if _whole_heads(p["wk"], hkv, hd, tp) is None:
+            raise ValueError("a heads-cut cache needs wk cut on whole "
+                             "heads")
+        q = (xn @ p["wq"]).reshape(b, 1, -1, hd)
+        k = (xn @ p["wk"]).reshape(b, 1, -1, hd)
+        v = (xn @ p["wv"]).reshape(b, 1, -1, hd)
+        h0, t0 = tp.r * q.shape[2], 0
+    else:                             # every head's columns, gathered
+        q = _every_output(xn, p["wq"], h * hd, tp).reshape(b, 1, h, hd)
+        k = _every_output(xn, p["wk"], hkv * hd, tp).reshape(b, 1, hkv, hd)
+        v = _every_output(xn, p["wv"], hkv * hd, tp).reshape(b, 1, hkv, hd)
+        h0 = 0
+        t0 = tp.r * t_loc if tp.kv_cut == "positions" else 0
     if cfg.rope:
         pp = torch.full((b, 1), pos, device=x.device)
         q = apply_rope(q, pp, cfg.rope_theta)
         k = apply_rope(k, pp, cfg.rope_theta)
-    slot = pos % t if ring else min(pos, t - 1)
-    cache["k"][:, :, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, :, slot] = v[:, 0].to(cache["v"].dtype)
-    lengths = torch.full((b,), decode_lengths(pos, t, ring),
-                         dtype=torch.int32, device=x.device)
-    out = ops.decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"],
-                               lengths, scale=hd ** -0.5)
-    return x + out.reshape(b, 1, h * hd) @ p["wo"], cache
+    t = tp.t_global(t_loc)
+    slot = (pos % t if ring else min(pos, t - 1)) - t0
+    if 0 <= slot < t_loc:
+        cache["k"][:, :, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, :, slot] = v[:, 0].to(cache["v"].dtype)
+    n = min(max(decode_lengths(pos, t, ring) - t0, 0), t_loc)
+    lengths = torch.full((b,), n, dtype=torch.int32, device=x.device)
+    out, lse = ops.decode_attention(q[:, 0].contiguous(), cache["k"],
+                                    cache["v"], lengths, scale=hd ** -0.5)
+    if tp.kv_cut == "positions":
+        out = _merge_positions(out, lse, tp)
+    out = _own_rows(out.reshape(b, 1, -1), h0, hd, rows, tp)
+    out = reduce_from_region(out @ p["wo"], "model", grid=tp.grid)
+    return x + out, cache
 
 
 # ---------------------------------------------------------------------- mlp
@@ -289,13 +515,19 @@ def mlp_init(gen, cfg, d_ff: Optional[int] = None) -> Dict:
 
 
 def mlp(p, x, cfg):
+    """The MLP; on this rank's column blocks of ``w_in`` / ``w_gate`` and
+    row block of ``w_out`` (``MODEL_GRID``): the normed input enters the
+    region (*f*), the partial products are summed over ``model`` (*g*)."""
+    tp = MODEL_GRID
+    _block_of(p["w_out"], 0, p["w_in"].shape[-1] * tp.m, tp, "w_out")
     xn = apply_norm(p["norm"], x)
-    hmid = xn @ p["w_in"]
+    xi = copy_to_region(xn, "model", grid=tp.grid)
+    hmid = xi @ p["w_in"]
     if cfg.mlp_act == "swiglu":
-        hmid = F.silu((xn @ p["w_gate"]).float()).to(hmid.dtype) * hmid
+        hmid = F.silu((xi @ p["w_gate"]).float()).to(hmid.dtype) * hmid
     else:
         hmid = F.gelu(hmid.float(), approximate="tanh").to(hmid.dtype)
-    return x + hmid @ p["w_out"]
+    return x + reduce_from_region(hmid @ p["w_out"], "model", grid=tp.grid)
 
 
 # ---------------------------------------------------------------------- moe

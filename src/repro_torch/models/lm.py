@@ -47,6 +47,16 @@ backward is one ``stack``); indexing ``v[i]`` once a layer would make,
 in the backward, a zero gradient of the whole (L, ...) stack for every
 layer.  The stacked tensors stay the parameters, so an optimizer sees
 the reference's leaves and shapes.
+
+Tensor parallel (``layers.model_grid``, the dense family under a sharded
+step; ``TP_LEAVES`` names its leaves): ``tok_emb`` and ``lm_head`` are
+this rank's vocab rows.  The embedding looks up the tokens in the
+rank's range (zeros elsewhere) and sums over ``model``; the head gives
+the rank's vocab columns of the logits; ``lm_loss`` is a vocab-parallel
+cross-entropy (the max, the sum of exponentials and the true logit
+summed over ``model``); a served step all-gathers the logits.  The
+reference's model never calls ``proxy_embedding_grad``: the embedding's
+gradient is the masked lookup's own.
 """
 from __future__ import annotations
 
@@ -56,6 +66,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import device as device_mod
+from ..core.collectives import (copy_to_region, gather_from_region,
+                                max_over, reduce_from_region)
+from . import layers
 from . import ssm as ssm_mod
 from . import xlstm as xl_mod
 from .layers import (DTYPE, apply_norm, attention, attention_decode,
@@ -66,15 +79,68 @@ from .layers import (DTYPE, apply_norm, attention, attention_decode,
 
 # ------------------------------------------------------------------ shared
 def _embed_in(params, batch, cfg):
+    """The input embeddings: the lookup of the tokens in this rank's
+    vocab rows of ``tok_emb`` (all of them on one device; under
+    ``layers.model_grid`` its block), zeros elsewhere, summed over
+    ``model``."""
     if isinstance(batch, dict) and "embeds" in batch:
         return batch["embeds"].to(DTYPE)
     tokens = batch["tokens"] if isinstance(batch, dict) else batch
-    return params["tok_emb"][tokens]
+    tp = layers.MODEL_GRID
+    emb = params["tok_emb"]
+    rows = emb.shape[0]
+    ids = tokens.long() - tp.r * rows
+    own = (ids >= 0) & (ids < rows)
+    x = emb[ids.clamp(0, rows - 1)]
+    x = torch.where(own[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+    return reduce_from_region(x, "model", grid=tp.grid)
 
 
 def _head(params, x, cfg):
+    """The logits of this rank's vocab columns (B, S, V / m; all of them
+    on one device), the normed input entering the region (*f*)."""
     x = apply_norm(params["final_norm"], x)
+    x = copy_to_region(x, "model", grid=layers.MODEL_GRID.grid)
     return torch.einsum("bsd,vd->bsv", x, params["lm_head"])
+
+
+def _whole_vocab(logits):
+    """Logits over the whole vocab: every rank's columns all-gathered
+    over ``model`` (a served step samples from them)."""
+    return gather_from_region(logits, logits.dim() - 1, "model",
+                              grid=layers.MODEL_GRID.grid)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Each token's cross-entropy from this rank's vocab columns ``lf``
+    (f32, B, S, V / m, those at or past the vocab already masked): the
+    max all-reduced over ``model``, the sum of exponentials and the true
+    logit (from the rank holding the label's column, zeros elsewhere)
+    summed over it.  The backward is ``logsumexp``'s and the label
+    ``gather``'s on the rank's columns."""
+
+    @staticmethod
+    def forward(ctx, lf, labels, lo, grid):
+        cols = lf.shape[-1]
+        mx = max_over(torch.amax(lf, dim=-1), "model", grid=grid)
+        se = reduce_from_region(torch.sum(torch.exp(lf - mx[..., None]), -1),
+                                "model", grid=grid)
+        lse = torch.log(se) + mx
+        lab = labels.long() - lo
+        own = (lab >= 0) & (lab < cols)
+        idx = lab.clamp(0, cols - 1)[..., None]
+        true = torch.where(own, torch.gather(lf, -1, idx)[..., 0], 0.0)
+        true = reduce_from_region(true, "model", grid=grid)
+        ctx.save_for_backward(lf, lse, idx, own)
+        return lse - true
+
+    @staticmethod
+    def backward(ctx, g):
+        lf, lse, idx, own = ctx.saved_tensors
+        grad = g[..., None] * torch.exp(lf - lse[..., None])
+        grad.scatter_add_(-1, idx, torch.where(own, -g, 0.0)[..., None])
+        return grad, None, None, None
 
 
 def lm_loss(logits, labels, cfg, aux=0.0):
@@ -83,14 +149,18 @@ def lm_loss(logits, labels, cfg, aux=0.0):
     masked to -1e30 before the logsumexp, as the reference masks them.
     The true logit is a ``gather`` of the label's column: the
     reference's iota-compare masked sum adds that one value to zeros,
-    so both give the same number."""
+    so both give the same number.  The logits are this rank's vocab
+    columns (all of them on one device) and the cross-entropy is
+    vocab-parallel over ``model`` (``_VocabParallelCE``); a group of one
+    rank computes ``logsumexp`` minus the true logit, bit for bit."""
+    tp = layers.MODEL_GRID
     lf = logits.float()
-    if lf.shape[-1] > cfg.vocab:
-        vids = torch.arange(lf.shape[-1], device=lf.device)
+    cols = lf.shape[-1]
+    lo = tp.r * cols
+    if lo + cols > cfg.vocab:         # this rank holds padding columns
+        vids = lo + torch.arange(cols, device=lf.device)
         lf = torch.where(vids < cfg.vocab, lf, -1e30)
-    lse = torch.logsumexp(lf, dim=-1)                     # (B, S)
-    true = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
-    ce = torch.mean(lse - true)
+    ce = torch.mean(_VocabParallelCE.apply(lf, labels, lo, tp.grid))
     return ce + cfg.moe_aux_weight * aux
 
 
@@ -220,25 +290,37 @@ def dense_forward(params, batch, cfg):
 
 @torch.inference_mode()
 def dense_prefill(params, batch, cfg):
+    """(logits of the last position, cache); under ``layers.model_grid``
+    the cache holds the KV heads each layer's attention returns (this
+    rank's where ``wk`` is cut on its heads, else every head) and the
+    logits are all-gathered over ``model``."""
     x = _embed_in(params, batch, cfg)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :]
-    shape = (cfg.n_layers, b, cfg.n_kv, s, cfg.head_dim)
-    cache = dict(k=torch.empty(shape, dtype=x.dtype, device=x.device),
-                 v=torch.empty(shape, dtype=x.dtype, device=x.device))
+    cache = {}
     for i in range(cfg.n_layers):
         x, (k, v) = _dense_block(layer(params["layers"], i), x, cfg,
                                  positions)
+        if not cache:
+            shape = (cfg.n_layers, b, k.shape[2], s, cfg.head_dim)
+            cache = dict(k=torch.empty(shape, dtype=x.dtype,
+                                       device=x.device),
+                         v=torch.empty(shape, dtype=x.dtype,
+                                       device=x.device))
         cache["k"][i] = k.transpose(1, 2)
         cache["v"][i] = v.transpose(1, 2)
-    logits = _head(params, x[:, -1:], cfg)
+    logits = _whole_vocab(_head(params, x[:, -1:], cfg))
     return logits, cache
 
 
 @torch.inference_mode()
 def dense_decode(params, cache, tokens, pos: int, cfg):
+    """One step; under ``layers.model_grid`` on this rank's blocks of the
+    weights and of the cache (as its ``kv_cut`` says), the logits
+    all-gathered over ``model``."""
     x = _embed_in(params, dict(tokens=tokens), cfg)
-    ring = cfg.swa_window > 0 and cache["k"].shape[3] == cfg.swa_window
+    t = layers.MODEL_GRID.t_global(cache["k"].shape[3])
+    ring = cfg.swa_window > 0 and t == cfg.swa_window
     pos = int(pos)
     for i in range(cfg.n_layers):
         lp = layer(params["layers"], i)
@@ -246,7 +328,7 @@ def dense_decode(params, cache, tokens, pos: int, cfg):
                                 dict(k=cache["k"][i], v=cache["v"][i]),
                                 pos, cfg, ring=ring)
         x = mlp(lp["mlp"], x, cfg)
-    return _head(params, x, cfg)[:, 0], cache
+    return _whole_vocab(_head(params, x, cfg))[:, 0], cache
 
 
 def dense_init_cache(cfg, batch, cache_len, device=None):
@@ -686,4 +768,13 @@ FAMILIES: Dict[str, Dict[str, Any]] = {
     "hybrid": dict(init=hybrid_init_params, forward=hybrid_forward,
                    prefill=hybrid_prefill, decode=hybrid_decode,
                    init_cache=hybrid_init_cache),
+}
+
+# {family: the names of the leaves it computes on in their 'model' blocks
+# under a sharded step (``layers.model_grid``)}: the dense family's column,
+# row, embedding and head weights; the other families gather every leaf
+# over 'model' (ROADMAP A.10e-2, A.10e-3)
+TP_LEAVES: Dict[str, tuple] = {
+    "dense": ("wq", "wk", "wv", "wo", "w_in", "w_gate", "w_out", "tok_emb",
+              "lm_head"),
 }

@@ -11,34 +11,44 @@ reference's ``jax.jit(prefill / serve, in_shardings=...)``
 (``launch/dryrun.py``'s ``build_cell``): the parameters are this rank's
 blocks by ``param_spec``, the batch (tokens) this rank's block along the
 grid's batch axes where they cut it, and the cache this rank's blocks by
-``cache_spec``.  A step
+``port_cache_spec`` (the reference's placement: a rank holds the heads,
+or the positions, the reference's rank holds).  A step
   (a) all-gathers each parameter over its spec's axes (the FSDP gather,
-      as the sharded train step does),
+      as the sharded train step does), except ``model`` for the leaves
+      the family computes on in their ``model`` blocks
+      (``models.lm.TP_LEAVES``, the dense family's),
   (b) all-gathers each cache leaf over the axes its spec names other
-      than the batch axes on its batch dim (``model``), giving this
-      rank's rows of the whole leaf; a leaf whose spec leaves its batch
-      dim whole (xlstm's mLSTM states, whose batch is not on dim 1)
-      holds every row, and the step reads this rank's rows of it,
+      than the batch axes on its batch dim (``model``; never for the
+      dense family, which computes on its block), giving this rank's
+      rows of the leaf; a leaf whose spec leaves its batch dim whole
+      (xlstm's mLSTM states, whose batch is not on dim 1) holds every
+      row, and the step reads this rank's rows of it,
   (c) runs the plain step on this rank's rows, with the MoE layer's
       batch grid set where the batch is cut (its groups are the global
-      batch's, ``models.layers.batch_grid``),
+      batch's, ``models.layers.batch_grid``) and, for the dense family,
+      the ``model`` grid (``models.layers.model_grid``): each layer on
+      the rank's blocks of its weights and its KV heads, or its block
+      of positions with the blocks' attention merged by their
+      log-sum-exp, the logits all-gathered over ``model``,
   (d) returns this rank's blocks of the new cache: written back into
       the blocks it was given (the port's in-place cache), after the
       rows of a leaf held whole are all-gathered over the batch axes.
-Compute is data-parallel over the batch axes and replicated over
-``model``: every rank gathers each parameter and its rows of the cache
-whole.  Tensor-parallel compute over ``model`` is ROADMAP A.10e.
+Compute is data-parallel over the batch axes; over ``model`` it is
+tensor-parallel for the dense family and replicated for the others,
+each rank gathering each parameter and its rows of the cache whole
+(ROADMAP A.10e-2, A.10e-3).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from ..checkpoint.ckpt import flatten, unflatten
 from ..launch import shardings as sh
 from ..models import layers
+from ..models.lm import TP_LEAVES
 
 
 def sample_logits(logits, gen=None, temperature: float = 0.0,
@@ -116,19 +126,58 @@ class _Layout:
         for a in self.axes:
             self.rank, self.n = self.rank * sizes[a] + at[a], self.n * sizes[a]
         self.batch_dims = cache_batch_dims(cfg, fam)
+        # the leaves computed on in their 'model' blocks (tensor parallel)
+        self.tp_names = (TP_LEAVES.get(cfg.family, ())
+                         if "model" in self.grid.names else ())
+        self.m = int(sizes.get("model", 1))
+        # the K leaf (L, B, Hkv, T, D) of one row and one position
+        self.k_one = (tuple(flatten(fam["init_cache"](
+            cfg, 1, 1, device="meta"))["['k']"].shape)
+            if self.tp_names else None)
 
     def cuts(self, entry) -> bool:
         return sh.names_only(entry, self.axes)
 
+    def gather_spec(self, key, spec):
+        """The axes a step gathers a leaf over: its spec, less ``model``
+        where the step computes on the leaf's ``model`` block (a
+        tensor-parallel parameter, and every cache leaf under TP)."""
+        tp = key.startswith(".cache") or sh._name(key) in self.tp_names
+        return sh.drop_axis(spec, "model") if self.tp_names and tp else spec
+
     def params(self, blocks):
-        """(a): the full parameters."""
+        """(a): the parameters as the step computes on them."""
         return unflatten(blocks, {
-            k: sh.gather_leaf(b, self.specs[".params" + k], self.grid)
+            k: sh.gather_leaf(b, self.gather_spec(
+                ".params" + k, self.specs[".params" + k]), self.grid)
             for k, b in flatten(blocks).items()})
 
     def batch_grid(self, cut: bool):
         return (layers.batch_grid(self.grid, self.axes) if cut
                 else contextlib.nullcontext())
+
+    def model_grid(self, kv_cut: str):
+        return (layers.model_grid(self.grid, kv_cut) if self.tp_names
+                else contextlib.nullcontext())
+
+    def kv_cut(self, spec) -> Optional[str]:
+        """What a rank holds of the K / V cache whose ``['k']`` leaf has
+        ``spec`` (``shardings.kv_cut``), under tensor-parallel compute;
+        else None.  The one place a step works the cache's cut out."""
+        return sh.kv_cut(spec) if self.tp_names else None
+
+    def prefill_kv_cut(self, batch, cut: bool) -> Optional[str]:
+        """``kv_cut`` of the cache a prefill of ``batch`` makes: the spec
+        of the family's whole K leaf for its rows and positions."""
+        if not self.tp_names:
+            return None
+        x = batch
+        if isinstance(batch, dict):
+            x = batch["tokens"] if "tokens" in batch else batch["embeds"]
+        shape = list(self.k_one)
+        shape[1], shape[3] = x.shape[0] * (self.n if cut else 1), x.shape[1]
+        return self.kv_cut(sh.port_cache_spec(".cache['k']", tuple(shape),
+                                              self.grid))
 
     def leaf(self, key, spec):
         """(this leaf's batch dim, whether its spec cuts that dim over
@@ -155,7 +204,8 @@ def _sharded_prefill(cfg, fam, shardings) -> Callable:
     @torch.inference_mode()
     def prefill(params, batch):
         full = lay.params(params)                                   # (a)
-        with lay.batch_grid(cut):                                   # (c)
+        kv_cut = lay.prefill_kv_cut(batch, cut)
+        with lay.batch_grid(cut), lay.model_grid(kv_cut):           # (c)
             logits, cache = fam["prefill"](full, batch, cfg)
         del full
         blocks = {}
@@ -163,8 +213,14 @@ def _sharded_prefill(cfg, fam, shardings) -> Callable:
             dim = lay.batch_dims[k]
             shape = list(t.shape)
             shape[dim] *= lay.n if cut else 1
-            spec = sh.cache_spec(".cache" + k, tuple(shape), lay.grid)
+            # cut on heads, the layers made only this rank's KV heads
+            held = kv_cut == "heads" and sh._name(k) in sh.KV_LEAVES
+            if held:
+                shape[2] *= lay.m
+            spec = sh.port_cache_spec(".cache" + k, tuple(shape), lay.grid)
             dim, leaf_cut, own = lay.leaf(k, spec)
+            if held:
+                own = sh.drop_axis(own, "model")
             if cut and not leaf_cut:
                 t = lay.whole_rows(t, dim)
             blocks[k] = t[sh.block_index(own, t.shape, lay.grid)].contiguous()
@@ -175,9 +231,14 @@ def _sharded_prefill(cfg, fam, shardings) -> Callable:
 
 def _sharded_serve_step(cfg, fam, temperature, shardings) -> Callable:
     lay = _Layout(cfg, fam, shardings)
-    leaves = {k[len(".cache"):]: lay.leaf(k[len(".cache"):], spec)
-              for k, spec in lay.specs.items() if k.startswith(".cache")}
+    leaves = {}
+    for key, spec in lay.specs.items():
+        if key.startswith(".cache"):
+            dim, leaf_cut, own = lay.leaf(key[len(".cache"):], spec)
+            leaves[key[len(".cache"):]] = (dim, leaf_cut,
+                                           lay.gather_spec(key, own))
     cut = any(c for _, c, _ in leaves.values())
+    kv_cut = lay.kv_cut(lay.specs.get(".cache['k']", ()))
 
     @torch.inference_mode()
     def serve_step(params, cache, tokens, pos, gen=None):
@@ -191,7 +252,7 @@ def _sharded_serve_step(cfg, fam, temperature, shardings) -> Callable:
             if cut and not leaf_cut:
                 per = whole[k].shape[dim] // lay.n
                 rows[k] = whole[k].narrow(dim, lay.rank * per, per)
-        with lay.batch_grid(cut):                                   # (c)
+        with lay.batch_grid(cut), lay.model_grid(kv_cut):           # (c)
             logits, new = fam["decode"](full, unflatten(cache, rows),
                                         tokens, pos, cfg)
         del full

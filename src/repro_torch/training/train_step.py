@@ -21,25 +21,38 @@ With ``shardings=`` the step is the counterpart of the reference's
 None))``: the state holds this rank's blocks of every leaf, laid out by
 ``launch/shardings.py``'s rules over a grid, and the batch this rank's
 block along the grid's batch axes (``data.shard_batch``).  The step
-  (a) all-gathers each parameter over its spec's axes (the FSDP
-      gather, the intent of the reference's ``wload``),
+  (a) all-gathers each parameter over its spec's axes (the FSDP gather,
+      the intent of the reference's ``wload``), except ``model`` for a
+      leaf the family computes on in its ``model`` block
+      (``models.lm.TP_LEAVES``: the dense family's column, row,
+      embedding and head weights, when the grid has ``model``),
   (b) runs the loss and its gradient on this rank's batch block, with
-      the MoE layer's batch grid set (``models.layers.batch_grid``),
+      the MoE layer's batch grid set (``models.layers.batch_grid``) and,
+      for a family with such leaves, the ``model`` grid
+      (``models.layers.model_grid``): tensor-parallel compute, Megatron's
+      column- and row-parallel attention and MLP, vocab-parallel
+      embedding, head and cross-entropy, whose collectives over
+      ``model`` sit in the forward and backward (*f*, *g*), so the
+      gradients come out as the ``model`` blocks,
   (c) averages the gradients (and the loss) over the batch axes with
       ``core.collectives.proxy_psum_tree`` (region ``data``, cross
       ``pod`` where the grid has it),
-  (d) clips by the global norm of the full averaged gradient, and
+  (d) clips by the global norm of the full averaged gradient (a
+      ``model`` block's squares summed over ``model``, a replicated
+      leaf's counted once), and
   (e) updates this rank's blocks of the parameters and the optimizer
       state only: an elementwise optimizer (AdamW) on the blocks; one
       whose update couples elements (Adafactor's factored moments and
-      its clip over a whole leaf) on the full leaves, its state
-      gathered first, keeping the blocks.
-Compute is data-parallel over the batch axes and replicated over
-``model``; storage is sharded as the rules say.  Tensor-parallel compute
-over ``model`` is ROADMAP A.10e; microbatches under shardings A.10f.
+      its clip over a whole leaf) on the full leaves, its state and the
+      ``model`` blocks gathered first, keeping the blocks.
+Compute is data-parallel over the batch axes; over ``model`` it is
+tensor-parallel for the dense family and replicated for the others
+(ROADMAP A.10e-2, A.10e-3); storage is sharded as the rules say.
+Microbatches under shardings are A.10f.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Optional
 
@@ -49,7 +62,7 @@ from ..checkpoint.ckpt import flatten, unflatten
 from ..core.collectives import proxy_psum, proxy_psum_tree
 from ..launch import shardings as sh
 from ..models import layers
-from ..models.lm import lm_loss
+from ..models.lm import TP_LEAVES, lm_loss
 from .optimizer import Optimizer, flat_run, matrix_runs, tree_leaves, tree_map
 
 Tree = Any
@@ -140,7 +153,7 @@ class Shardings:
 
 
 def _sharded_train_step(loss_fn, optimizer: Optimizer, clip_norm: float,
-                        shardings: Shardings) -> Callable:
+                        shardings: Shardings, tp_names=()) -> Callable:
     grid, specs = shardings.grid, shardings.specs
     axes = sh.batch_axes(grid)
     if [a for a in grid.names if a in axes] != list(axes):
@@ -149,18 +162,39 @@ def _sharded_train_step(loss_fn, optimizer: Optimizer, clip_norm: float,
     n = grid.size(axes) if axes else 1
     region = axes[-1] if axes else None
     cross = axes[0] if len(axes) == 2 else None
+    tp = bool(tp_names) and "model" in grid.names
+
+    def on_blocks(key) -> bool:
+        """Whether the step computes on ``key``'s ``model`` block."""
+        return (tp and sh._name(key) in tp_names
+                and sh.names_axis(specs[key], "model"))
+
+    def spec_of(key):
+        """The axes the forward gathers ``key`` over."""
+        return (sh.drop_axis(specs[key], "model") if on_blocks(key)
+                else specs[key])
 
     def blocks_of(tree, prefix):
-        """{key: this rank's block} of a tree of full leaves (views)."""
-        return {k: t[sh.block_index(specs[prefix + k], t.shape, grid)]
+        """{key: this rank's block} of a tree of leaves as the forward
+        sees them (views)."""
+        return {k: t[sh.block_index(spec_of(prefix + k), t.shape, grid)]
                 for k, t in flatten(tree).items()}
 
-    def gathered(tree, prefix):
-        """({key: block}, {key: full leaf}) of a tree of blocks; a leaf
-        no axis cuts is its block itself."""
+    def gathered(tree, prefix, spec=spec_of):
+        """({key: block}, {key: leaf gathered over ``spec``'s axes}) of a
+        tree of blocks; a leaf no axis cuts is its block itself."""
         blocks = flatten(tree)
-        return blocks, {k: sh.gather_leaf(b, specs[prefix + k], grid)
+        return blocks, {k: sh.gather_leaf(b, spec(prefix + k), grid)
                         for k, b in blocks.items()}
+
+    def whole(tree, prefix):
+        """{key: full leaf} of a tree as the forward sees it: the
+        ``model`` blocks gathered over ``model``."""
+        return {k: (sh.gather_leaf(t, tuple(
+                    "model" if sh.names_axis((e,), "model") else None
+                    for e in specs[prefix + k]), grid)
+                    if on_blocks(prefix + k) else t)
+                for k, t in flatten(tree).items()}
 
     @torch.no_grad()
     def keep_blocks(blocks, full, prefix):
@@ -169,26 +203,53 @@ def _sharded_train_step(loss_fn, optimizer: Optimizer, clip_norm: float,
                 b.copy_(full[k][sh.block_index(specs[prefix + k],
                                                full[k].shape, grid)])
 
+    def clip(grads):
+        """``clip_by_global_norm``, where a ``model`` block's squares are
+        summed over ``model`` (one all-reduce of the leaves' vector, then
+        added in the tree's order, as ``global_norm`` adds them) and a
+        replicated leaf's counted once."""
+        keys = list(flatten(grads))
+        leaves = tree_leaves(grads)
+        sq = torch.stack([_sum_sq(x) for x in leaves])
+        cut = [on_blocks(".params" + k) for k in keys]
+        if any(cut):
+            mask = torch.tensor(cut, device=sq.device)
+            summed = proxy_psum(torch.where(mask, sq, 0.0), "model", None,
+                                grid=grid)
+            sq = torch.where(mask, summed, sq)
+        norm = torch.sqrt(sum(sq.unbind(0)))
+        scale = torch.clamp(clip_norm / torch.clamp(norm, min=1e-9),
+                            max=1.0)
+        for x in leaves:
+            x.mul_(scale)
+        return grads, norm
+
     def train_step(state: TrainState, batch):
-        pblocks, pfull = gathered(state.params, ".params")         # (a)
-        params = unflatten(state.params, pfull)
-        if axes:                                                    # (b)
-            with layers.batch_grid(grid, axes):
+        pblocks, pfwd = gathered(state.params, ".params")          # (a)
+        params = unflatten(state.params, pfwd)
+        ctx = (layers.model_grid(grid) if tp
+               else contextlib.nullcontext())
+        with ctx:                                                   # (b)
+            if axes:
+                with layers.batch_grid(grid, axes):
+                    loss, grads = value_and_grad(loss_fn, params, batch)
+                grads = proxy_psum_tree(grads, region, cross, grid=grid)  # (c)
+                loss = proxy_psum(loss, region, cross, grid=grid) / n
+                for g in tree_leaves(grads):
+                    g.div_(n)
+            else:
                 loss, grads = value_and_grad(loss_fn, params, batch)
-            grads = proxy_psum_tree(grads, region, cross, grid=grid)  # (c)
-            loss = proxy_psum(loss, region, cross, grid=grid) / n
-            for g in tree_leaves(grads):
-                g.div_(n)
-        else:
-            loss, grads = value_and_grad(loss_fn, params, batch)
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)        # (d)
+        grads, gnorm = clip(grads)                                  # (d)
         if optimizer.elementwise:                                   # (e)
             optimizer.update(unflatten(grads, blocks_of(grads, ".params")),
                              state.opt_state, state.params, state.step)
         else:
-            oblocks, ofull = gathered(state.opt_state, ".opt_state")
-            optimizer.update(grads, unflatten(state.opt_state, ofull),
-                             params, state.step)
+            oblocks, ofull = gathered(state.opt_state, ".opt_state",
+                                      lambda k: specs[k])
+            pfull = whole(params, ".params")
+            optimizer.update(unflatten(grads, whole(grads, ".params")),
+                             unflatten(state.opt_state, ofull),
+                             unflatten(state.params, pfull), state.step)
             keep_blocks(pblocks, pfull, ".params")
             keep_blocks(oblocks, ofull, ".opt_state")
         metrics = dict(loss=loss, grad_norm=gnorm,
@@ -222,7 +283,8 @@ def make_train_step(cfg, fam, optimizer: Optimizer,
             raise NotImplementedError(
                 "microbatches under shardings are not ported yet (ROADMAP "
                 "A.10f)")
-        return _sharded_train_step(loss_fn, optimizer, clip_norm, shardings)
+        return _sharded_train_step(loss_fn, optimizer, clip_norm, shardings,
+                                   TP_LEAVES.get(cfg.family, ()))
 
     def train_step(state: TrainState, batch):
         params = state.params

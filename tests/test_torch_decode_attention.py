@@ -46,10 +46,10 @@ def _both(q, k, v, lens, block, dtype, scale=None):
     jout = jops.decode_attention(
         *(jnp.asarray(x, JDT[dtype]) for x in (q, k, v)), jnp.asarray(lens),
         scale=scale, block_s=block, interpret=True)
-    tout = ops.decode_attention(
+    tout, lse = ops.decode_attention(
         *(torch.from_numpy(x).to(TDT[dtype]) for x in (q, k, v)),
         torch.from_numpy(lens), scale=scale, block_s=block)
-    assert tout.dtype == TDT[dtype]
+    assert tout.dtype == TDT[dtype] and lse.dtype == torch.float32
     return np.asarray(jout, np.float32), tout.float().numpy()
 
 
@@ -94,8 +94,9 @@ def test_pallas_edge_semantics_are_pinned():
     lens = np.array([0, 350], np.int32)
     jout, tout = _both(q, k, v, lens, block, "float32")
     np.testing.assert_allclose(tout, jout, rtol=1e-4, atol=1e-4)
-    want = ops.decode_attention(*(torch.from_numpy(x) for x in (q, k, v)),
-                                torch.from_numpy(lens), block_s=block)
+    want, _ = ops.decode_attention(*(torch.from_numpy(x)
+                                     for x in (q, k, v)),
+                                   torch.from_numpy(lens), block_s=block)
     ref = np.asarray(jref.decode_attention_ref(q, k, v, lens))
     group = h // hkv
     mean = np.repeat(v[0].sum(axis=1) / s_pad, group, axis=0)   # (H, D)
@@ -114,19 +115,22 @@ def test_pallas_edge_semantics_are_pinned():
 
 
 def test_entry_point_contract():
-    """Output in q's dtype, default scale 1/sqrt(D), and a ValueError when
-    the query heads are not a multiple of the KV heads."""
+    """(out, lse): the output in q's dtype, the lse (B, H) f32; default
+    scale 1/sqrt(D), and a ValueError when the query heads are not a
+    multiple of the KV heads."""
     _, q, k, v = _inputs(5, 2, 4, 2, 50, 16)
     q, k, v = (torch.from_numpy(x) for x in (q, k, v))
     lens = torch.tensor([50, 20], dtype=torch.int32)
-    out = ops.decode_attention(q, k, v, lens)
+    out, lse = ops.decode_attention(q, k, v, lens)
     assert out.dtype == torch.float32 and out.shape == (2, 4, 16)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 4)
     assert torch.equal(out, ops.decode_attention(q, k, v, lens,
-                                                 scale=1 / math.sqrt(16)))
+                                                 scale=1 / math.sqrt(16))[0])
     assert not torch.allclose(out, ops.decode_attention(q, k, v, lens,
-                                                        scale=1.0))
-    bf = ops.decode_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), lens)
-    assert bf.dtype == torch.bfloat16
+                                                        scale=1.0)[0])
+    bf, bf_lse = ops.decode_attention(q.bfloat16(), k.bfloat16(),
+                                      v.bfloat16(), lens)
+    assert bf.dtype == torch.bfloat16 and bf_lse.dtype == torch.float32
     with pytest.raises(ValueError, match="multiple"):
         ops.decode_attention(q[:, :3].contiguous(), k, v, lens)
 
@@ -174,3 +178,73 @@ def test_split_plan_follows_the_sm_count(pairs, sms):
                                         (1024, (1, 32768))])
 def test_split_plan_at_decode_32k(pairs, plan):
     assert da.split_plan(pairs, 32768) == plan
+
+
+# ------------------------------------------------------------ log-sum-exp
+def _merge(outs, lses):
+    """Blocks of positions merged by their log-sum-exp, as the sharded
+    decode merges them over 'model' (``layers._merge_positions``)."""
+    lse = torch.stack(lses)
+    w = torch.exp(lse - lse.max(0).values)
+    num = (torch.stack(outs).float() * w[..., None]).sum(0)
+    return num / w.sum(0)[..., None]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lse_is_the_logsumexp_of_the_plain_scores(dtype):
+    """The lse beside the output (which is the Pallas function's,
+    ``TOL``): (B, H) f32, the ``torch.logsumexp`` of each row's scores
+    below its length (the zero-padded positions below a length past S
+    with score 0), -inf at a length of 0."""
+    b, h, hkv, s, d, block = 4, 6, 2, 70, 16, 32
+    _, q, k, v = _inputs(8, b, h, hkv, s, d)
+    lens = np.array([70, 1, 0, 90], np.int32)
+    jout, tout = _both(q, k, v, lens, block, dtype)
+    np.testing.assert_allclose(tout, jout, rtol=TOL[dtype], atol=TOL[dtype])
+    q, k, v = (torch.from_numpy(x).to(TDT[dtype]) for x in (q, k, v))
+    tl = torch.from_numpy(lens)
+    out, lse = ops.decode_attention(q, k, v, tl, block_s=block)
+    np.testing.assert_array_equal(out.float().numpy(), tout)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h)
+    s_pad = 96
+    kk = torch.cat([k.float(), k.new_zeros((b, hkv, s_pad - s, d)).float()],
+                   2)
+    scores = torch.einsum("bhd,bhsd->bhs", q.float(),
+                          kk.repeat_interleave(h // hkv, 1)) / math.sqrt(d)
+    for i, n in enumerate(lens):
+        want = torch.logsumexp(scores[i, :, :min(int(n), s_pad)], -1)
+        if n == 0:
+            assert torch.isinf(lse[i]).all() and (lse[i] < 0).all()
+        else:
+            torch.testing.assert_close(lse[i], want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lse_merge_of_blocks_equals_the_whole_cache(dtype):
+    """A cache cut into 4 blocks of positions, each called with its
+    local lengths clamp(n - i * S / 4, 0, S / 4): the blocks merged by
+    their lse equal the call on the whole cache and the Pallas kernel
+    (``TOL``); rows whose length ends inside block 0 have three empty
+    blocks of lse -inf that weigh nothing, though their outputs (the
+    Pallas function's mean of V) are not 0."""
+    b, h, hkv, s, d = 3, 8, 2, 128, 32
+    _, q, k, v = _inputs(9, b, h, hkv, s, d)
+    lens = np.array([128, 70, 5], np.int32)
+    jout, whole = _both(q, k, v, lens, 32, dtype)
+    q, k, v = (torch.from_numpy(x).to(TDT[dtype]) for x in (q, k, v))
+    per = s // 4
+    outs, lses = [], []
+    for i in range(4):
+        n = torch.from_numpy(np.clip(lens - i * per, 0, per).astype(np.int32))
+        o, lse = ops.decode_attention(
+            q, k[:, :, i * per:(i + 1) * per].contiguous(),
+            v[:, :, i * per:(i + 1) * per].contiguous(), n, block_s=32)
+        if i > 0:
+            assert torch.isinf(lse[2]).all()
+            assert o[2].float().abs().max() > 0
+        outs.append(o)
+        lses.append(lse)
+    merged = _merge(outs, lses).numpy()
+    tol = TOL[dtype]
+    np.testing.assert_allclose(merged, whole, rtol=tol, atol=tol)
+    np.testing.assert_allclose(merged, jout, rtol=tol, atol=tol)

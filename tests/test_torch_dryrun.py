@@ -14,8 +14,10 @@
   reference's formula over the reference's registry, ``long_500k`` is
   skipped exactly where the reference skips it, the dense arch's
   per-rank train FLOPs stand within 5% of a closed form written out
-  here (every block's products 4 times under remat, the head's 3), and
-  the overrides the port has not ported raise.
+  here (every block's products 4 times under remat, the head's 3, each
+  a rank's half of the tensor-parallel step's but for the K / V
+  projection, whose block splits a head), and the overrides the port
+  has not ported raise.
 * The same reduced step on real CPU tensors over a one-rank gloo group
   counts the same FLOPs, bytes, collectives and ops as its dry run on a
   1 x 1 ``fake`` grid, and its peak within 0.8-1.25x (the card's gate):
@@ -159,26 +161,34 @@ def test_decode_attention_is_one_custom_op_on_fake_tensors():
             k = torch.empty(b, hkv, s, d, dtype=torch.bfloat16, device=dev)
             lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
             with opanalysis.StepCount() as count:
-                out = ops.decode_attention(q, k, k, lengths)
+                out, lse = ops.decode_attention(q, k, k, lengths)
         assert (tuple(out.shape), out.dtype) == ((b, h, d), torch.bfloat16)
+        assert (tuple(lse.shape), lse.dtype) == ((b, h), torch.float32)
         got = count.summary()
         assert got["ops"] == 1
         assert got["flops"] == 4 * b * h * s * d
-        assert got["hbm_bytes"] == (2 * q.numel() + 2 * k.numel()) * 2 + 4 * b
+        assert got["hbm_bytes"] == ((2 * q.numel() + 2 * k.numel()) * 2
+                                    + 4 * b + 4 * b * h)
     assert da.decode_attention.launches == 0
 
 
 # -------------------------------------------------------- reduced cells
-def _closed_form_train_flops(cfg, tokens: int, seq: int) -> int:
-    """Per-rank FLOPs of the dense family's train step: every block's
-    products (q, k, v, o, Q K^T and P V over all ``seq`` keys, the MLP)
-    forward, again under remat and twice backward; the head's forward
-    and twice backward."""
+def _closed_form_train_flops(cfg, tokens: int, seq: int, m: int) -> int:
+    """Per-rank FLOPs of the dense family's train step, tensor-parallel
+    over ``m`` ranks of ``model``: every block's products (q, k, v, o,
+    Q K^T and P V over all ``seq`` keys, the MLP) forward, again under
+    remat and twice backward; the head's forward and twice backward.
+    Each product is a rank's 1/m, but for a projection whose block
+    splits a head, computed whole (``layers.attention``)."""
     d, h, hkv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
                          cfg.d_ff)
-    mlp = (3 if cfg.mlp_act == "swiglu" else 2) * 2 * d * ff
-    block = 2 * d * (2 * h * hd + 2 * hkv * hd) + 2 * 2 * seq * h * hd + mlp
-    head = 2 * d * cfg.vocab_pad
+
+    def share(n):                 # the part of n heads' work a rank does
+        return n / m if (n * hd // m) % hd == 0 else n
+    mlp = (3 if cfg.mlp_act == "swiglu" else 2) * 2 * d * ff / m
+    block = (2 * d * hd * (share(h) + h / m + 2 * share(hkv))
+             + 2 * 2 * seq * share(h) * hd + mlp)
+    head = 2 * d * cfg.vocab_pad / m
     return tokens * (4 * cfg.n_layers * block + 3 * head)
 
 
@@ -202,14 +212,15 @@ def test_reduced_cells_on_a_2x2_grid(arch, tmp_path, no_group):
         assert r["cost"]["flops_per_device"] > 0
         assert r["dominant"] in ("compute_s", "memory_s", "collective_s")
         assert r["memory"]["argument_size_in_bytes"] > 0
-        # every parameter gathered over 'model' (and 'data' under fsdp)
+        # parameters gathered over 'data' under fsdp, the non-dense
+        # families' over 'model' too
         assert r["collectives"]["counts"]["all-gather"] > 0
         if cell.kind == "train":
             assert r["collectives"]["counts"]["all-reduce"] > 0
         on_disk = json.load(open(tmp_path / f"{arch}_{name}_single.json"))
         assert on_disk == json.loads(json.dumps(r))
         if arch == "starcoder2-3b" and cell.kind == "train":
-            closed = _closed_form_train_flops(cfg, tokens // 2, cell.seq)
+            closed = _closed_form_train_flops(cfg, tokens // 2, cell.seq, 2)
             got = r["cost"]["flops_per_device"]
             assert abs(got - closed) <= 0.05 * closed, (got, closed)
 

@@ -406,12 +406,12 @@ def test_decode_attention_matches_plain_on_card(b, h, hkv, d, dtype, length):
         lens = np.full(b, length, np.int32)
     lens = torch.from_numpy(lens).to(dev)
     launches = da.decode_attention.launches
-    got = ops.decode_attention(q, k, v, lens, block_s=256)
+    got, _ = ops.decode_attention(q, k, v, lens, block_s=256)
     assert da.decode_attention.launches == launches + 1
     assert got.dtype == dt and got.shape == (b, h, d)
     tol = 1e-4 if dtype == "float32" else 2e-2
     torch.testing.assert_close(got.float(), da.plain(q, k, v, lens,
-                                                     block_s=256).float(),
+                                                     block_s=256)[0].float(),
                                rtol=tol, atol=tol)
 
 
@@ -1424,10 +1424,11 @@ def test_decode_attention_at_g1_d64_matches_plain_on_card(arch, dtype,
         lens[:2] = [1, t]
     lens = torch.from_numpy(lens).to(dev)
     launches = da.decode_attention.launches
-    got = ops.decode_attention(q, k, v, lens)
+    got, _ = ops.decode_attention(q, k, v, lens)
     assert da.decode_attention.launches == launches + 1
     tol = 1e-4 if dtype == "float32" else 2e-2
-    torch.testing.assert_close(got.float(), da.plain(q, k, v, lens).float(),
+    torch.testing.assert_close(got.float(),
+                               da.plain(q, k, v, lens)[0].float(),
                                rtol=tol, atol=tol)
 
 
@@ -1547,14 +1548,17 @@ def test_decode_attention_custom_op_matches_plain_on_card(b, h, hkv, d):
             for _ in range(2))
     lens = torch.full((b,), s, dtype=torch.int32, device=dev)
     launches = da.decode_attention.launches
-    got = torch.ops.repro_torch.decode_attention(q, k, v, lens, None, 512)
+    got, _ = torch.ops.repro_torch.decode_attention(q, k, v, lens, None,
+                                                    512)
     assert da.decode_attention.launches == launches + 1
-    torch.testing.assert_close(got.float(), da.plain(q, k, v, lens).float(),
+    torch.testing.assert_close(got.float(),
+                               da.plain(q, k, v, lens)[0].float(),
                                rtol=2e-2, atol=2e-2)
     with FakeTensorMode() as mode:
         fq, fk, fl = (mode.from_tensor(t) for t in (q, k, lens))
-        out = ops.decode_attention(fq, fk, fk, fl)
+        out, lse = ops.decode_attention(fq, fk, fk, fl)
     assert isinstance(out, FakeTensor) and out.shape == (b, h, d)
+    assert isinstance(lse, FakeTensor) and lse.shape == (b, h)
     assert da.decode_attention.launches == launches + 1
 
 
@@ -1642,3 +1646,50 @@ def test_sharded_serve_one_nccl_rank_and_counts(nccl_group, arch, tmp_path):
     assert fake["cost"]["flops_per_device"] == real["flops"]
     assert fake["collectives"]["counts"] == real["collective_counts"]
     assert fake["ops"] == real["ops"]
+
+
+# ---------------------------------- tensor-parallel compute, A.10e-1
+@pytest.mark.parametrize("b,h,hkv,d", CUSTOM_OP_SHAPES[:3])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_lse_on_card(b, h, hkv, d, dtype):
+    """``ops.decode_attention`` launches the kernel once: the lse beside
+    the output within 1e-4 of the plain version's (-inf at a length of
+    0), and 4 blocks of
+    positions merged by their lse within the bf16 / f32 tolerance of the
+    call on the whole cache."""
+    dev = _card()
+    s, n = 4096, 4
+    per = s // n
+    gen = torch.Generator(device=dev).manual_seed(b + h + 1)
+    q = (torch.randn((b, h, d), generator=gen, device=dev) * 3).to(dtype)
+    k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    lens = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lens[0] = 0
+    if b > 1:
+        lens[1] = 5
+    launches = da.decode_attention.launches
+    out, lse = ops.decode_attention(q, k, v, lens)
+    assert da.decode_attention.launches == launches + 1
+    _, want = da.plain(q, k, v, lens)
+    assert torch.isinf(lse[0]).all() and (lse[0] < 0).all()
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(lse))
+    torch.testing.assert_close(lse[fin], want[fin], rtol=1e-4, atol=1e-4)
+    outs, lses = [], []
+    for i in range(n):
+        lb = (lens - i * per).clamp(0, per).to(torch.int32)
+        o, l_ = ops.decode_attention(
+            q, k[:, :, i * per:(i + 1) * per].contiguous(),
+            v[:, :, i * per:(i + 1) * per].contiguous(), lb)
+        outs.append(o)
+        lses.append(l_)
+    lse = torch.stack(lses)
+    w = torch.exp(lse - lse.max(0).values)
+    merged = (torch.stack(outs).float() * w[..., None]).sum(0) \
+        / w.sum(0)[..., None]
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    rows = lens > 0
+    torch.testing.assert_close(merged[rows], out.float()[rows], rtol=tol,
+                               atol=tol)

@@ -10,7 +10,8 @@ modules' ``DTYPE`` set to f32), batch 4 x 16 from a numpy seed:
 
   * prefill: each rank's logits equal its rows of the single-device
     prefill's within ``TOL`` (1e-5), and its cache blocks, gathered by
-    ``cache_spec`` over the grid, each leaf of the single-device cache
+    ``port_cache_spec`` over the grid (the reference's placement of the
+    K / V heads or positions), each leaf of the single-device cache
     within ``TOL`` of the leaf's max |x|;
   * serve: three greedy steps from a seeded cache at its last positions;
     each rank's next tokens exactly its rows of the single-device
@@ -115,7 +116,8 @@ for arch in ARCHS:
         full1 = ckpt.flatten(cache1)
         worst = 0.0
         for k, b in ckpt.flatten(cblocks).items():
-            spec = sh.cache_spec(".cache" + k, tuple(full1[k].shape), grid)
+            spec = sh.port_cache_spec(".cache" + k, tuple(full1[k].shape),
+                                      grid)
             worst = max(worst, leaf_err(sh.gather_leaf(b, spec, grid),
                                         full1[k]))
         out[tag + "__prefill_cache"] = np.array(worst)
